@@ -1,0 +1,206 @@
+"""The port's four kernel wrappers against ``repro.kernels.ops`` (Pallas in
+interpret mode on the CPU), on the same numpy inputs.  Every output is an
+integer and must be exactly equal.
+
+On the CPU the wrappers run the plain versions (``repro_torch.kernels.ref``).
+The hand-written CUDA kernels are held against those plain versions on the
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import autotune
+from repro_torch.kernels import ops
+
+HALF = 8
+SIZES = [(n, b) for n in (47, 48, 129) for b in (1, 3, 8)]
+
+
+def same(port, ref) -> None:
+    p = port.cpu().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    r = np.asarray(ref)
+    assert p.shape == r.shape, (p.shape, r.shape)
+    np.testing.assert_array_equal(p.astype(np.int64), r.astype(np.int64))
+
+
+def _spins(rng, shape):
+    return np.where(rng.random(shape) < 0.5, 1, -1).astype(np.int8)
+
+
+def _inputs(n, b, seed, m=None):
+    rng = np.random.default_rng(seed)
+    m = n if m is None else m
+    w = rng.integers(-15, 16, size=(m, n)).astype(np.int8)
+    bias = rng.integers(-2, 3, size=m).astype(np.int32)
+    # Non-canonical phases in [0, 16): ties (S + h == 0) must keep them.
+    phase = rng.integers(0, 16, size=(b, n)).astype(np.int32)
+    w[:, : n // 3] = 0  # many exact ties
+    return w, bias, phase, _spins(rng, (b, n))
+
+
+@pytest.mark.parametrize("n,b", SIZES)
+def test_coupling_sum_matches_pallas(n, b):
+    w, _, _, sigma = _inputs(n, b, seed=n * 7 + b)
+    got = ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sigma))
+    same(got, ref_ops.coupling_sum(jnp.asarray(w), jnp.asarray(sigma), use_pallas=True))
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,m", [(47, 13), (129, 64)])
+def test_coupling_sum_row_slab_and_vector(n, m):
+    w, _, _, sigma = _inputs(n, 3, seed=m, m=m)
+    same(
+        ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sigma)),
+        ref_ops.coupling_sum(jnp.asarray(w), jnp.asarray(sigma), use_pallas=True),
+    )
+    same(
+        ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sigma[0])),
+        ref_ops.coupling_sum(jnp.asarray(w), jnp.asarray(sigma[0]), use_pallas=True),
+    )
+
+
+@pytest.mark.parametrize("n,b", SIZES)
+def test_phase_step_matches_pallas(n, b):
+    w, bias, phase, sigma = _inputs(n, b, seed=n * 11 + b)
+    got = ops.phase_step(
+        torch.as_tensor(w), torch.as_tensor(sigma), torch.as_tensor(bias),
+        torch.as_tensor(phase.astype(np.uint8)), half=HALF,
+    )
+    want = ref_ops.phase_step(
+        jnp.asarray(w), jnp.asarray(sigma), jnp.asarray(bias),
+        jnp.asarray(phase.astype(np.uint8)), half=HALF, use_pallas=True,
+    )
+    same(got, want)
+    assert got.dtype == torch.uint8  # returned in the phase's dtype
+
+
+@pytest.mark.parametrize("n,b", SIZES)
+def test_phase_step_packed_matches_pallas(n, b):
+    w, bias, phase, _ = _inputs(n, b, seed=n * 13 + b)
+    got = ops.phase_step_packed(
+        torch.as_tensor(w), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF
+    )
+    want = ref_ops.phase_step_packed(
+        jnp.asarray(w), jnp.asarray(bias), jnp.asarray(phase), half=HALF, use_pallas=True
+    )
+    same(got, want)
+    # Bit-exact with phase_step fed spin(phase).
+    sigma = np.where(phase < HALF, 1, -1).astype(np.int8)
+    same(got, ops.phase_step(torch.as_tensor(w), torch.as_tensor(sigma), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF))
+
+
+def test_phase_step_packed_rejects_slab_and_mixed_devices():
+    w, bias, phase, _ = _inputs(12, 2, seed=1, m=6)
+    with pytest.raises(ValueError, match="square"):
+        ops.phase_step_packed(torch.as_tensor(w), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF)
+    with pytest.raises(ValueError, match="chunk"):
+        sq = torch.zeros((4, 4), dtype=torch.int8)
+        col = torch.zeros(2, dtype=torch.int32)
+        ops.phase_step_multi(sq, None, torch.zeros((2, 4)), torch.zeros((2, 4)), *[col] * 7,
+                             half=HALF, chunk=0, max_cycles=5)
+
+
+def _multi_state(n, b, seed, max_cycles, symmetric=False):
+    """Mixed lanes: some already frozen, some near their budget, some fresh."""
+    rng = np.random.default_rng(seed)
+    if symmetric:
+        a = rng.integers(-15, 16, size=(n, n))
+        w = np.clip(np.tril(a) + np.tril(a, -1).T, -15, 15).astype(np.int8)
+    else:
+        w = rng.integers(-15, 16, size=(n, n)).astype(np.int8)
+    bias = rng.integers(-1, 2, size=n).astype(np.int32)
+    phase = np.where(rng.random((b, n)) < 0.5, 0, HALF).astype(np.int32)
+    prev = np.where(rng.random((b, n)) < 0.5, 0, HALF).astype(np.int32)
+    t = rng.integers(0, max_cycles + 1, size=b).astype(np.int32)
+    t[: b // 2] = max_cycles - rng.integers(1, 4, size=b // 2)  # budget expiry mid-chunk
+    t[-1] = 0
+    prev[-1] = phase[-1]
+    frozen = rng.random(b) < 0.25
+    frozen[-1] = False
+    full = np.full((b,), max_cycles, np.int32)
+    cols = dict(
+        t=t, settle_cycle=full, settled=np.zeros(b, bool), cycled=np.zeros(b, bool),
+        frozen=frozen, frozen_p2=frozen & (rng.random(b) < 0.5),
+        freeze_cycle=np.where(frozen, t, full).astype(np.int32),
+    )
+    return w, bias, phase, prev, cols
+
+
+_COLS = ("t", "settle_cycle", "settled", "cycled", "frozen", "frozen_p2", "freeze_cycle")
+_OUT = ("phase", "prev_phase", "settle_cycle", "settled", "cycled", "frozen",
+        "frozen_p2", "freeze_cycle", "t")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,b", SIZES)
+def test_phase_step_multi_matches_pallas(n, b, packed):
+    max_cycles, chunk = 20, 6
+    w, bias, phase, prev, cols = _multi_state(n, b, seed=n * 3 + b, max_cycles=max_cycles)
+    got = ops.phase_step_multi(
+        torch.as_tensor(w), torch.as_tensor(bias), torch.as_tensor(phase.astype(np.uint8)),
+        torch.as_tensor(prev.astype(np.uint8)), *(torch.as_tensor(cols[c]) for c in _COLS),
+        half=HALF, chunk=chunk, max_cycles=max_cycles, packed=packed,
+    )
+    want = ref_ops.phase_step_multi(
+        jnp.asarray(w), jnp.asarray(bias), jnp.asarray(phase.astype(np.uint8)),
+        jnp.asarray(prev.astype(np.uint8)), *(jnp.asarray(cols[c]) for c in _COLS),
+        half=HALF, chunk=chunk, max_cycles=max_cycles, packed=packed, use_pallas=True,
+    )
+    for name, g, r in zip(_OUT, got, want):
+        same(g, r)
+    assert got[0].dtype == torch.uint8 and got[3].dtype == torch.bool
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_phase_step_multi_period2_orbits(packed):
+    """Random symmetric W drives lanes into period-2 orbits; the p2 events,
+    freeze cycles and flags must match the reference exactly."""
+    n, b, max_cycles, chunk = 129, 8, 30, 8
+    w, bias, phase, _, _ = _multi_state(n, b, seed=77, max_cycles=max_cycles, symmetric=True)
+    bias[:] = 0
+    full = np.full((b,), max_cycles, np.int32)
+    cols = dict(t=np.zeros(b, np.int32), settle_cycle=full, settled=np.zeros(b, bool),
+                cycled=np.zeros(b, bool), frozen=np.zeros(b, bool),
+                frozen_p2=np.zeros(b, bool), freeze_cycle=full)
+    state_p = [torch.as_tensor(phase), torch.as_tensor(phase)] + [torch.as_tensor(cols[c]) for c in _COLS]
+    state_r = [jnp.asarray(phase), jnp.asarray(phase)] + [jnp.asarray(cols[c]) for c in _COLS]
+    for _ in range(3):  # three chunks: orbits form and freeze along the way
+        got = ops.phase_step_multi(torch.as_tensor(w), torch.as_tensor(bias), *state_p,
+                                   half=HALF, chunk=chunk, max_cycles=max_cycles, packed=packed)
+        want = ref_ops.phase_step_multi(jnp.asarray(w), jnp.asarray(bias), *state_r, half=HALF,
+                                        chunk=chunk, max_cycles=max_cycles, packed=packed,
+                                        use_pallas=True)
+        for g, r in zip(got, want):
+            same(g, r)
+        # 9-tuple order → the input order (phase, prev, t, sc, sd, cy, fz, fp2, fc).
+        state_p = [got[0], got[1], got[8], *got[2:8]]
+        state_r = [want[0], want[1], want[8], *want[2:8]]
+    assert bool(got[4].any()), "expected at least one period-2 lane"
+
+
+def test_autotune_ceiling_and_lanes():
+    assert autotune.MULTI_KERNEL_MAX_N > 2048
+    budget = autotune.SMEM_PER_BLOCK - autotune.MULTI_STATIC_SMEM
+    assert autotune.multi_smem_bytes(1, autotune.MULTI_KERNEL_MAX_N) <= budget
+    assert autotune.multi_smem_bytes(1, autotune.MULTI_KERNEL_MAX_N + 1) > budget
+    assert autotune.multi_lanes_per_block(506, 1024) == 8
+    assert autotune.multi_lanes_per_block(506, 16) == 1
+    assert autotune.multi_lanes_per_block(autotune.MULTI_KERNEL_MAX_N, 4096) == 1
+    with pytest.raises(ValueError):
+        autotune.multi_lanes_per_block(autotune.MULTI_KERNEL_MAX_N + 1, 8)
+    assert autotune.padded_k(506) == 512 and autotune.padded_k(16) == 16
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    ops.reset_launches()
+    w, bias, phase, sigma = _inputs(20, 4, seed=3)
+    ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sigma))
+    ops.phase_step(torch.as_tensor(w), torch.as_tensor(sigma), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF)
+    ops.phase_step_packed(torch.as_tensor(w), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF)
+    assert sum(ops.LAUNCHES.values()) == 0
