@@ -1,32 +1,48 @@
-"""Functional-mode ONN dynamics on PyTorch tensors.
+"""ONN dynamics on PyTorch tensors: the port of ``repro.core.dynamics``.
 
-The port of ``repro.core.dynamics`` for the synchronous functional mode, the
-paper's associative-memory workload: one phase update per oscillation cycle,
-σ(t+1) = sign-align(W σ(t) + h).  Entry points are plain functions of
+Entry points are plain functions of
 
 * ``ONNConfig`` — sizes, bit widths, mode and backend (every field and
   validation rule of the reference; the kernel route is ``"kernel"``);
 * ``OnnParams`` — the (N, N) int8 coupling matrix and (N,) int32 bias;
 * ``OnnState`` / ``BatchState`` — the dynamical state, as ``NamedTuple`` s.
 
+Simulation fidelities (``ONNConfig.mode``):
+
+* ``functional`` — one synchronous phase update per oscillation cycle,
+  σ(t+1) = sign-align(W σ(t) + h), the paper's associative-memory workload.
+* ``rtl`` — clock-accurate: the phase is updated every slow-clock edge
+  (2**phase_bits per cycle) against amplitudes in the lab frame, and the
+  hybrid architecture consumes amplitudes one slow clock late (paper
+  Fig. 6).  With ``sync_jitter`` each lane's enable-signal offset ``t0`` is
+  an explicit int input (``run``) or (B,) int32 tensor (``run_batch``,
+  ``retrieve``, ``init_batch_state``); the port draws no random numbers.
+
+Weighted-sum backends: ``parallel`` and ``serial`` (exact float products,
+``core.coupling``), ``kernel`` (the hand-written coupling kernels) and
+``hybrid`` — the paper's serialized-MAC datapath, ``ceil(N / P)`` passes of
+a P-wide MAC, through :func:`hybrid_mac_sum` (``hybrid_impl="scan"``) or
+kernels 6 and 7 (``hybrid_impl="kernel"``).  All are bit-exact.
+
 Every function runs on the device of its inputs.  The batched solve
 (``run_batch`` / ``retrieve``) advances a (B, N) slab one settle-chunk at a
-time and exits early once every lane is settled or in a detected period-2
-orbit, with one host synchronisation per chunk; results are bit-exact, lane
-for lane, with the fixed-length ``run``.  On ``backend="kernel"`` a chunk is
-one launch of the multi-cycle CUDA kernel while N fits its ceiling
-(``kernels.autotune.MULTI_KERNEL_MAX_N``), and one fused phase-step launch
-per cycle past it.
+time and exits early once every lane is frozen (settled or in a detected
+period-2 orbit), with one host synchronisation per chunk; results are
+bit-exact, lane for lane, with the fixed-length ``run``.  In functional mode
+a chunk on ``backend="kernel"`` is one launch of the multi-cycle CUDA kernel
+while N fits its ceiling (``kernels.autotune.MULTI_KERNEL_MAX_N``), and
+otherwise a loop of per-cycle updates with the bookkeeping replayed after it
+(one fused kernel launch per cycle on ``kernel`` and hybrid ``kernel``).  rtl
+keeps the per-cycle step: one coupling-sum launch per slow-clock edge.
 
-Not in this slice (config validation still accepts them, the entry points
-raise ``NotImplementedError``): ``backend="hybrid"`` and ``mode="rtl"``
-(ROADMAP queue 1, items 1 and 2), and ``async_sweep`` (item 3, Ising).
+Not in this slice: ``async_sweep`` (ROADMAP queue 1, item 3, Ising) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +53,7 @@ from repro_torch.core.checks import require_int_dtype, resolve_device
 from repro_torch.core.quantization import check_weight_range
 from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 
 _BACKEND_NAMES = ("parallel", "serial", "kernel", "hybrid")
 _HYBRID_IMPLS = ("scan", "kernel")
@@ -44,12 +61,6 @@ _HYBRID_IMPLS = ("scan", "kernel")
 #: Auto ``parallel_factor`` (P) for ``backend="hybrid"`` when the config
 #: leaves it 0 (the reference's value).
 DEFAULT_PARALLEL_FACTOR = 32
-
-_RTL_TODO = "mode='rtl' is not ported yet (ROADMAP.md, Open items, queue 1, item 2: rtl mode)"
-_HYBRID_TODO = (
-    "backend='hybrid' is not ported yet (ROADMAP.md, Open items, queue 1, "
-    "item 1: hybrid backend)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,13 +190,14 @@ class BatchState(NamedTuple):
 
     Each lane carries its own cycle clock ``t``, so a lane installed into a
     freed slot mid-solve replays exactly the trajectory of an isolated solve.
-    ``aux``/``prev_aux``/``t0`` are the rtl carry; in functional mode they are
-    (B, 1) zeros and zeros.
+    ``aux``/``prev_aux``/``t0`` are the rtl carry: (B, N) lab-frame spins of
+    the last slow-clock edge and the per-lane enable offsets; in functional
+    mode ``aux`` is (B, 1) zeros and ``t0`` zeros.
     """
 
     phase: torch.Tensor  # (B, N) uint8 phases, cycle t
     prev_phase: torch.Tensor  # (B, N) phases, cycle t-1
-    aux: torch.Tensor  # (B, 1) int8 zeros in functional mode
+    aux: torch.Tensor  # (B, N) int8 rtl lab spins one clock back; (B, 1) zeros otherwise
     prev_aux: torch.Tensor
     settle_cycle: torch.Tensor  # (B,) int32
     settled: torch.Tensor  # (B,) bool
@@ -281,8 +293,27 @@ def _kernel_sum(cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor) -> torch.T
     return kernel_ops.coupling_sum(w, sigma)
 
 
+def hybrid_mac_sum(w: torch.Tensor, sigma: torch.Tensor, parallel: int) -> torch.Tensor:
+    """Serialized-MAC coupling sum (the hybrid datapath), pass by pass.
+
+    Every row's N inputs are consumed in ``ceil(N / parallel)`` passes, each
+    feeding ``parallel`` weights and spins into a P-wide MAC whose int32
+    accumulator carries across passes; when P does not divide N the last
+    pass runs with zero-padded (idle) lanes, which leaves the sum unchanged.
+    Bit-exact with :func:`repro_torch.core.coupling.weighted_sum_parallel`
+    for every P.  ``w``: (M, N) int8; ``sigma``: (..., N) int8 → (..., M)
+    int32.  The ``hybrid_impl="scan"`` route: the plain version of kernel 6
+    on any lead shape.
+    """
+    m, n = w.shape
+    out = kernel_ref.hybrid_coupling_sum_ref(w, sigma.reshape(-1, n), parallel)
+    return out.reshape(*sigma.shape[:-1], m)
+
+
 def _hybrid_sum(cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(_HYBRID_TODO)
+    if cfg.hybrid_impl == "kernel":
+        return kernel_ops.hybrid_coupling_sum(w, sigma, parallel=cfg.hybrid_parallel)
+    return hybrid_mac_sum(w, sigma, cfg.hybrid_parallel)
 
 
 BACKENDS = {
@@ -310,13 +341,6 @@ def sign_update(field: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _require_functional(cfg: ONNConfig) -> None:
-    if cfg.mode != "functional":
-        raise NotImplementedError(_RTL_TODO)
-    if cfg.backend == "hybrid":
-        raise NotImplementedError(_HYBRID_TODO)
-
-
 def initial_phase(cfg: ONNConfig, sigma0: torch.Tensor) -> torch.Tensor:
     """Canonical phases (0 / half-period) for an initial spin pattern."""
     return osc.phase_of_spin(sigma0, cfg.phase_bits)
@@ -329,19 +353,24 @@ def functional_update(
 
     On ``backend="kernel"`` the whole cycle is one fused kernel launch
     (int8 product + bias + phase-align epilogue); with ``cfg.phase_pack``
-    the launch takes the packed phases and derives σ in registers.
+    the launch takes the packed phases and derives σ in registers.  On the
+    hybrid backend's ``kernel`` route it is one launch of kernel 7 (the
+    serialized-MAC sum with the same epilogue).
     """
+    half = osc.n_positions(cfg.phase_bits) // 2
     if cfg.backend == "kernel":
-        half = osc.n_positions(cfg.phase_bits) // 2
         if cfg.phase_pack:
             return kernel_ops.phase_step_packed(
                 params.weights, params.bias, phase, half=half
             )
         sigma = osc.spin(phase, cfg.phase_bits)
         return kernel_ops.phase_step(params.weights, sigma, params.bias, phase, half=half)
-    if cfg.backend == "hybrid":
-        raise NotImplementedError(_HYBRID_TODO)
     sigma = osc.spin(phase, cfg.phase_bits)
+    if cfg.backend == "hybrid" and cfg.hybrid_impl == "kernel":
+        return kernel_ops.hybrid_phase_step(
+            params.weights, sigma, params.bias, phase, half=half,
+            parallel=cfg.hybrid_parallel,
+        )
     s = weighted_sum(cfg, params.weights, sigma) + params.bias
     return osc.phase_align(phase, s, cfg.phase_bits)
 
@@ -374,7 +403,12 @@ def step(cfg: ONNConfig, params: OnnParams, state: OnnState) -> OnnState:
             "step() drives the synchronous functional-mode dynamics; "
             f"mode={cfg.mode!r} runs are only available through run()"
         )
-    new_phase = functional_update(cfg, params, state.phase)
+    return _advance_state(state, functional_update(cfg, params, state.phase))
+
+
+def _advance_state(state: OnnState, new_phase: torch.Tensor) -> OnnState:
+    """The settle/period-2 bookkeeping of one cycle that ends on ``new_phase``
+    (shared by ``step`` and the rtl cycle loop of ``run``)."""
     unchanged = torch.all(new_phase == state.phase)
     is_cycle2 = torch.all(new_phase == state.prev_phase) & ~unchanged & ~state.first_cycle
     settle = torch.where(unchanged & ~state.settled, state.cycle, state.settle_cycle)
@@ -401,12 +435,18 @@ def _result_of_state(cfg: ONNConfig, state: OnnState) -> ONNResult:
     )
 
 
-def run(cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor) -> ONNResult:
+def run(
+    cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor, t0: Optional[int] = None
+) -> ONNResult:
     """Evolve one ONN for ``max_cycles`` cycles; ``phase0``: (N,) uint8.
 
-    The fixed-length reference the batched solve is held against.
+    The fixed-length reference the batched solve is held against.  ``t0``
+    is the lane's enable-signal offset in slow clocks: required by
+    ``mode="rtl"`` with ``sync_jitter``, and must be None or 0 otherwise.
     """
-    _require_functional(cfg)
+    offset = _lane_offsets(cfg, None if t0 is None else [int(t0)], 1, phase0.device)
+    if cfg.mode == "rtl":
+        return _run_rtl(cfg, params, phase0, offset)
     state = _state_of_phase(cfg, phase0)
     for _ in range(cfg.max_cycles):
         state = step(cfg, params, state)
@@ -414,23 +454,121 @@ def run(cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor) -> ONNResult:
 
 
 # ---------------------------------------------------------------------------
+# RTL-mode dynamics
+# ---------------------------------------------------------------------------
+
+
+def _jitter(cfg: ONNConfig) -> bool:
+    return cfg.mode == "rtl" and cfg.sync_jitter
+
+
+def _lane_offsets(cfg: ONNConfig, t0, batch: int, device) -> torch.Tensor:
+    """(B,) int32 per-lane enable offsets; zeros without jitter."""
+    if t0 is None:
+        if _jitter(cfg):
+            raise ValueError(
+                "mode='rtl' with sync_jitter needs t0, the per-lane enable-signal offsets"
+            )
+        return torch.zeros((batch,), dtype=torch.int32, device=device)
+    t0 = torch.as_tensor(require_int_dtype(t0, "t0")).to(device=device, dtype=torch.int32)
+    if tuple(t0.shape) != (batch,):
+        raise ValueError(f"t0 {tuple(t0.shape)} != ({batch},)")
+    if not _jitter(cfg) and bool(torch.any(t0 != 0)):
+        raise ValueError("t0: enable offsets apply only to mode='rtl' with sync_jitter")
+    return t0
+
+
+def _lab_spins(cfg: ONNConfig, phase: torch.Tensor, ref_phase: torch.Tensor) -> torch.Tensor:
+    """Lab-frame spins of rotating-frame ``phase`` when the reference sits at
+    ``ref_phase`` (int32, broadcast over the last axis)."""
+    theta_lab = (phase.to(torch.int32) + ref_phase) % cfg.clocks_per_cycle
+    return osc.spin(theta_lab, cfg.phase_bits)
+
+
+def _rtl_clock_edge(
+    cfg: ONNConfig, params: OnnParams, phase: torch.Tensor, sigma_lab_prev: torch.Tensor,
+    t: torch.Tensor,
+):
+    """One slow-clock edge in the lab frame; returns (phase, lab spins).
+
+    ``t`` is the edge's index on the reference clock, an int32 tensor of the
+    phase's lane shape: 0-d for one lane, (B,) for a batch.
+    """
+    clocks = cfg.clocks_per_cycle
+    ref_phase = (t % clocks)[..., None]
+    sign_ref = torch.where(ref_phase < clocks // 2, 1, -1).to(torch.int32)
+    sigma_lab = _lab_spins(cfg, phase, ref_phase)
+    # The hybrid's serialized sum consumed amplitudes from one slow clock
+    # earlier; the recurrent adder tree is combinational (current amps).
+    sigma_used = sigma_lab_prev if cfg.architecture == "hybrid" else sigma_lab
+    s = weighted_sum(cfg, params.weights, sigma_used) + params.bias
+    # Reference level is absolute (high iff S > 0); aligning the oscillator
+    # to it in the lab frame == rotating-frame target sign(S) * sign_ref.
+    return osc.phase_align(phase, s * sign_ref, cfg.phase_bits), sigma_lab
+
+
+def _run_rtl(
+    cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor, t0: torch.Tensor
+) -> ONNResult:
+    """Fixed-length rtl run of one lane (``t0``: its (1,) offset):
+    ``max_cycles`` cycles of ``clocks_per_cycle`` edges, settle bookkeeping
+    once per cycle."""
+    clocks = cfg.clocks_per_cycle
+    edges = t0 + torch.arange(cfg.max_cycles * clocks, dtype=torch.int32, device=t0.device)
+    aux = _lab_spins(cfg, phase0, edges[0] % clocks)
+    state = _state_of_phase(cfg, phase0)
+    for cycle in range(cfg.max_cycles):
+        phase = state.phase
+        for k in range(clocks):
+            phase, aux = _rtl_clock_edge(cfg, params, phase, aux, edges[cycle * clocks + k])
+        state = _advance_state(state, phase)
+    return _result_of_state(cfg, state)
+
+
+# ---------------------------------------------------------------------------
 # Batched-native dynamics: (B, N)-first solve with per-lane early exit
 # ---------------------------------------------------------------------------
 #
-# A lane freezes at a phase fixed point or a period-2 orbit; a frozen lane's
+# A lane freezes when its full carry (phase, plus the rtl lab spins in
+# ``aux``) reaches a fixed point or a period-2 orbit; a frozen lane's
 # remaining cycles are known, and the phase the fixed-length scan would end on
 # is recovered from the parity of the remaining cycle count
 # (``_batch_result``).  In functional mode the aux carry is constant, so the
 # per-cycle bookkeeping of ``_batch_step`` can be replayed after a chunk from
 # the first fixed-point / period-2 event of each lane (``_chunk_fused``), or
-# run inside the multi-cycle kernel (``_chunk_multi``).
+# run inside the multi-cycle kernel (``_chunk_multi``); rtl runs
+# ``_batch_step`` every cycle.
+
+
+def _rtl_cycle_batch(
+    cfg: ONNConfig,
+    params: OnnParams,
+    t0: torch.Tensor,
+    t: torch.Tensor,
+    phase: torch.Tensor,
+    aux: torch.Tensor,
+):
+    """One oscillation cycle (``clocks_per_cycle`` slow-clock edges) of the
+    rtl dynamics for all lanes at once.  ``t0``/``t``: (B,) int32 per-lane
+    enable offsets and cycle counts, so a lane installed mid-slab sees its
+    own edge sequence ``t0 + t * clocks + k``; ``phase`` (B, N) uint8,
+    ``aux`` (B, N) int8 lab spins of the previous edge."""
+    clocks = cfg.clocks_per_cycle
+    base = t0.to(torch.int32) + t.to(torch.int32) * clocks
+    for k in range(clocks):
+        phase, aux = _rtl_clock_edge(cfg, params, phase, aux, base + k)
+    return phase, aux
 
 
 def _batch_step(cfg: ONNConfig, params: OnnParams, c: BatchState) -> BatchState:
-    """One cycle of the batched dynamics + settle/freeze bookkeeping."""
-    _require_functional(cfg)
-    new_phase = functional_update(cfg, params, c.phase)
-    new_aux = c.aux
+    """One cycle of the batched dynamics + settle/freeze bookkeeping.
+
+    Freezing compares the full carry: phase and, in rtl, the lab spins the
+    hybrid consumes one slow clock later (``aux``)."""
+    if cfg.mode == "functional":
+        new_phase, new_aux = functional_update(cfg, params, c.phase), c.aux
+    else:
+        new_phase, new_aux = _rtl_cycle_batch(cfg, params, c.t0, c.t, c.phase, c.aux)
     t = c.t
     active = ~c.frozen & (t < cfg.max_cycles)
     not_first = t > 0
@@ -564,18 +702,25 @@ def _advance_chunk_batched(
     cfg: ONNConfig, params: OnnParams, state: BatchState, chunk: int
 ) -> BatchState:
     """Advance the slab by one settle-chunk through the fastest exact route:
-    one multi-cycle kernel launch where eligible, else the fused loop."""
-    _require_functional(cfg)
+    in functional mode one multi-cycle kernel launch where eligible, else the
+    fused loop; in rtl ``chunk`` per-cycle steps (the aux carry is live)."""
+    if cfg.mode == "rtl":
+        for _ in range(chunk):
+            state = _batch_step(cfg, params, state)
+        return state
     if _multi_kernel_eligible(cfg):
         return _chunk_multi(cfg, params, state, chunk)
     return _chunk_fused(cfg, params, state, chunk)
 
 
-def _init_carry(cfg: ONNConfig, phase0: torch.Tensor) -> BatchState:
-    """Fresh per-lane carry at t = 0; ``phase0``: (B, N)."""
-    _require_functional(cfg)
+def _init_carry(cfg: ONNConfig, phase0: torch.Tensor, t0=None) -> BatchState:
+    """Fresh per-lane carry at t = 0; ``phase0``: (B, N), ``t0``: (B,) or None."""
     b, dev = phase0.shape[0], phase0.device
-    aux0 = torch.zeros((b, 1), dtype=torch.int8, device=dev)
+    t0 = _lane_offsets(cfg, t0, b, dev)
+    if cfg.mode == "rtl":
+        aux0 = _lab_spins(cfg, phase0, (t0 % cfg.clocks_per_cycle)[:, None])
+    else:
+        aux0 = torch.zeros((b, 1), dtype=torch.int8, device=dev)  # no amplitude history
     full = torch.full((b,), cfg.max_cycles, dtype=torch.int32, device=dev)
     false = torch.zeros((b,), dtype=torch.bool, device=dev)
     zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -591,7 +736,7 @@ def _init_carry(cfg: ONNConfig, phase0: torch.Tensor) -> BatchState:
         frozen_p2=false,
         freeze_cycle=full,
         t=zeros,
-        t0=zeros,
+        t0=t0,
     )
 
 
@@ -606,25 +751,34 @@ def _lane_done(cfg: ONNConfig, c: BatchState) -> torch.Tensor:
     return c.frozen | (c.t >= cfg.max_cycles)
 
 
-def _run_batched(cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor) -> ONNResult:
+def _run_batched(cfg: ONNConfig, params: OnnParams, phase0: torch.Tensor, t0=None) -> ONNResult:
     """The batched early-exit runner; one host synchronisation per chunk."""
-    state = _init_carry(cfg, phase0)
+    state = _init_carry(cfg, phase0, t0)
     chunk = resolve_chunk(cfg)
     while not bool(torch.all(_lane_done(cfg, state))):
         state = _advance_chunk_batched(cfg, params, state, chunk)
     return _batch_result(cfg, state)
 
 
-def run_batch(cfg: ONNConfig, params: OnnParams, phase0_batch: torch.Tensor) -> ONNResult:
+def run_batch(
+    cfg: ONNConfig, params: OnnParams, phase0_batch: torch.Tensor, t0=None
+) -> ONNResult:
     """Evolve a (B, N) batch of phase states to steady state, early-exiting;
-    bit-exact, lane for lane, with :func:`run` over the same inputs."""
-    return _run_batched(cfg, params, phase0_batch)
+    bit-exact, lane for lane, with :func:`run` over the same inputs.
+
+    ``t0``: (B,) int32 per-lane enable offsets, required by ``mode="rtl"``
+    with ``sync_jitter`` (lane i equals ``run(..., t0=t0[i])``); any other
+    config takes None or zeros.
+    """
+    return _run_batched(cfg, params, phase0_batch, t0)
 
 
-def retrieve(cfg: ONNConfig, params: OnnParams, sigma0_batch: torch.Tensor) -> ONNResult:
-    """Run a (B, N) batch of initial ±1 spin patterns to steady state."""
-    _require_functional(cfg)
-    return _run_batched(cfg, params, initial_phase(cfg, sigma0_batch))
+def retrieve(
+    cfg: ONNConfig, params: OnnParams, sigma0_batch: torch.Tensor, t0=None
+) -> ONNResult:
+    """Run a (B, N) batch of initial ±1 spin patterns to steady state
+    (``t0`` as in :func:`run_batch`)."""
+    return _run_batched(cfg, params, initial_phase(cfg, sigma0_batch), t0)
 
 
 # ---------------------------------------------------------------------------
@@ -632,19 +786,20 @@ def retrieve(cfg: ONNConfig, params: OnnParams, sigma0_batch: torch.Tensor) -> O
 # ---------------------------------------------------------------------------
 
 
-def init_batch_state(cfg: ONNConfig, phase0_batch: torch.Tensor) -> BatchState:
-    """Fresh :class:`BatchState` for a (B, N) batch of phase states at t = 0."""
-    return _init_carry(cfg, phase0_batch)
+def init_batch_state(cfg: ONNConfig, phase0_batch: torch.Tensor, t0=None) -> BatchState:
+    """Fresh :class:`BatchState` for a (B, N) batch of phase states at t = 0
+    (``t0`` as in :func:`run_batch`)."""
+    return _init_carry(cfg, phase0_batch, t0)
 
 
 def dead_batch_state(cfg: ONNConfig, batch: int, device=None) -> BatchState:
     """An all-frozen (batch, N) placeholder slab whose lanes never advance;
     :func:`install_lanes` overwrites slots with real requests."""
-    _require_functional(cfg)
     dev = resolve_device(device)
+    aux_n = cfg.n if cfg.mode == "rtl" else 1
     full = torch.full((batch,), cfg.max_cycles, dtype=torch.int32, device=dev)
     zeros_ph = torch.zeros((batch, cfg.n), dtype=torch.uint8, device=dev)
-    zeros_aux = torch.zeros((batch, 1), dtype=torch.int8, device=dev)
+    zeros_aux = torch.zeros((batch, aux_n), dtype=torch.int8, device=dev)
     false = torch.zeros((batch,), dtype=torch.bool, device=dev)
     return BatchState(
         phase=zeros_ph,

@@ -8,13 +8,20 @@ carries over.  On an H100 the limits that matter are:
   dynamic shared memory after an opt-in;
 * 132 streaming multiprocessors, which the grid should fill;
 * ``__dp4a`` consumes four int8 values per instruction, so the contraction
-  is loaded in 4-byte words (kernels 1, 3, 4) or 16-byte vectors (kernel 5).
+  is loaded in 4-byte words (kernels 1, 3, 4, 6, 7) or 16-byte vectors
+  (kernel 5).
 
-**Kernels 1, 3 and 4** (``csrc/coupling_gemm.cu``) use one fixed tile:
-64 lanes × 64 output rows × 64 contraction bytes, 256 threads each owning
-4 × 4 outputs.  Two 64 × 68-byte int8 tiles take 8.5 KB of static shared
-memory, so the tile fits at every shape and the ragged edges are masked in
-the kernel; nothing here depends on N.
+**Kernels 1, 3, 4, 6 and 7** (``csrc/coupling_gemm.cu``) use one fixed
+tile: 64 lanes × 64 output rows × 64 contraction bytes, 256 threads each
+owning 4 × 4 outputs.  Two 64 × 68-byte int8 tiles take 8.5 KB of static
+shared memory, so the tile fits at every shape and the ragged edges are
+masked in the kernel; nothing here depends on N.  The hybrid kernels 6 and 7
+take the MAC width P and walk the contraction in groups of whole passes, by
+the TPU package's pass-group rule
+(``repro.kernels.coupling_kernel.hybrid_pass_groups``) with the 64-byte tile
+in place of the VMEM block: ``max(1, 64 // P)`` passes per group, a P wider
+than the tile walked in 64-byte sub-tiles.  The rule lives in the kernel
+source (``group_width``); kernels 1, 3 and 4 walk 64-byte groups.
 
 **Kernel 5** (``csrc/phase_step_multi.cu``) gives each block ``bb`` whole
 lanes.  Its shared memory is the per-lane state: three int32 phase buffers

@@ -33,6 +33,8 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "onn_coupling_sum": [_P, _P, _P, _I, _I, _I, _P],
         "onn_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "onn_hybrid_coupling_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "onn_hybrid_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "phase_step_multi": {
         "onn_phase_step_multi": [

@@ -31,7 +31,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 #: instantiation counts apart from the unpacked one.
 KERNELS = (
     "coupling_sum", "phase_step", "phase_step_packed", "phase_step_multi",
-    "phase_step_multi_packed",
+    "phase_step_multi_packed", "hybrid_coupling_sum", "hybrid_phase_step",
 )
 
 
@@ -268,3 +268,80 @@ def phase_step_multi(
         like(fc_o, freeze_cycle),
         like(t_o, t),
     )
+
+
+# ---------------------------------------------------------------------------
+# Kernels 6 and 7: the hybrid serialized-MAC coupling sum, and its phase step
+# ---------------------------------------------------------------------------
+
+
+def _check_parallel(parallel: int) -> None:
+    if parallel <= 0:
+        raise ValueError(f"parallel must be positive, got {parallel}")
+    _check_extent(parallel)
+
+
+def hybrid_coupling_sum(w: torch.Tensor, sigma: torch.Tensor, *, parallel: int) -> torch.Tensor:
+    """S = W σ as ``ceil(N / parallel)`` passes of a ``parallel``-wide MAC.
+
+    Spins of shape (N,) or (..., N); returns int32 (..., M).  ``w`` is
+    (M, N): the full coupling matrix, or a row slab with M < N.  Bit-exact
+    with :func:`coupling_sum` for every P; one launch per call, walking the
+    contraction one group of whole passes at a time.
+    """
+    require_int_dtype(w, "w")
+    _check_parallel(parallel)
+    m, n = w.shape
+    batch_shape = sigma.shape[:-1]
+    sig2d = sigma.reshape(-1, n).to(torch.int8)
+    if not _on_cuda(w, sig2d):
+        out = _ref.hybrid_coupling_sum_ref(w, sig2d, parallel)
+    else:
+        b = sig2d.shape[0]
+        _check_extent(b * n, m * n, b * m)
+        w8, sig2d = w.to(torch.int8).contiguous(), sig2d.contiguous()
+        out = torch.empty((b, m), dtype=torch.int32, device=sig2d.device)
+        _launch(
+            "coupling_gemm", "onn_hybrid_coupling_sum", sig2d.device,
+            sig2d.data_ptr(), w8.data_ptr(), out.data_ptr(), b, m, n, parallel,
+        )
+        LAUNCHES["hybrid_coupling_sum"] += 1
+    return out.reshape(*batch_shape, m)
+
+
+def hybrid_phase_step(
+    w: torch.Tensor,
+    sigma: torch.Tensor,
+    bias,
+    phase: torch.Tensor,
+    *,
+    half: int,
+    parallel: int,
+) -> torch.Tensor:
+    """Fused hybrid functional-mode cycle: θ' = phase-align(W σ + h, θ) with
+    the coupling sum serialized into passes of MAC width ``parallel``.
+
+    Same calling convention as :func:`phase_step` (W square, ``phase``
+    returned in its input dtype).  One launch per cycle.
+    """
+    require_int_dtype(w, "w")
+    _check_parallel(parallel)
+    n = w.shape[0]
+    batch_shape = sigma.shape[:-1]
+    sig2d = sigma.reshape(-1, n).to(torch.int8)
+    ph2d = phase.reshape(-1, n).to(torch.int32)
+    h = _bias(bias, n, w)
+    if not _on_cuda(w, sig2d, ph2d, h):
+        out = _ref.hybrid_phase_step_ref(w, sig2d, h, ph2d, half, parallel)
+    else:
+        b = sig2d.shape[0]
+        _check_extent(b * n, n * n)
+        w8, sig2d, ph2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, ph2d, h))
+        out = torch.empty((b, n), dtype=torch.int32, device=sig2d.device)
+        _launch(
+            "coupling_gemm", "onn_hybrid_phase_step", sig2d.device,
+            sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), ph2d.data_ptr(),
+            out.data_ptr(), b, n, parallel, half,
+        )
+        LAUNCHES["hybrid_phase_step"] += 1
+    return out.to(phase.dtype).reshape(*batch_shape, n)

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function is the semantics of one hand-written CUDA kernel in
-``csrc/`` and of the TPU kernel it replaces (``repro.kernels.ref``).  The
+``csrc/`` and of the TPU kernel it replaces (``repro.kernels.ref``): kernels
+1, 3, 4, 5 (``coupling_gemm.cu``, ``phase_step_multi.cu``) and the hybrid
+serialized-MAC kernels 6 and 7 (``coupling_gemm.cu``).  The
 wrappers in :mod:`repro_torch.kernels.ops` run these for tensors on the CPU;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
 integer products go through :func:`repro_torch.core.coupling.int_matmul`,
@@ -41,6 +43,37 @@ def phase_step_ref(
     """
     s = coupling_sum_ref(w, sigma) + require_int_dtype(bias, "bias").to(torch.int32)[None, :]
     return _align(s, phase, half)
+
+
+def hybrid_coupling_sum_ref(w: torch.Tensor, sigma: torch.Tensor, parallel: int) -> torch.Tensor:
+    """Serialized-MAC coupling sum, pass by pass (the hybrid datapath).
+
+    An explicit loop over the ``ceil(N / parallel)`` passes: each pass adds
+    a ``parallel``-wide column slice of every row (the last one ragged when
+    ``parallel`` does not divide N) into an int32 accumulator.  ``w`` is
+    (M, N), ``sigma`` (B, N) → (B, M) int32.
+    """
+    if parallel <= 0:
+        raise ValueError(f"parallel must be positive, got {parallel}")
+    require_int_dtype(w, "w")
+    n = w.shape[1]
+    acc = torch.zeros((sigma.shape[0], w.shape[0]), dtype=torch.int32, device=sigma.device)
+    for start in range(0, n, parallel):
+        acc = acc + int_matmul(sigma[:, start:start + parallel], w[:, start:start + parallel])
+    return acc
+
+
+def hybrid_phase_step_ref(
+    w: torch.Tensor,
+    sigma: torch.Tensor,
+    bias: torch.Tensor,
+    phase: torch.Tensor,
+    half: int,
+    parallel: int,
+) -> torch.Tensor:
+    """Serialized-MAC coupling sum + the phase-align epilogue (int32 phases)."""
+    s = hybrid_coupling_sum_ref(w, sigma, parallel)
+    return _align(s + require_int_dtype(bias, "bias").to(torch.int32)[None, :], phase, half)
 
 
 def phase_step_packed_ref(

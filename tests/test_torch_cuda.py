@@ -111,6 +111,51 @@ def test_retrieve_on_card_equals_cpu(cuda, phase_pack):
         assert torch.equal(a_, b_)
 
 
+@pytest.mark.parametrize("p", [1, 5, 32, 64, 65, 506])
+@pytest.mark.parametrize("n,b", [(1, 1), (47, 3), (129, 65), (506, 1024)])
+def test_hybrid_kernels_match_plain(cuda, n, b, p):
+    """Kernels 6 and 7 at every tile case: groups of several passes (P < 64),
+    one pass per tile (P = 64), passes walked in sub-tiles (P > 64), ragged
+    last passes, and P wider than N."""
+    w, bias, phase, sigma = _inputs(n, b, seed=n + b + p, device=cuda)
+    ops.reset_launches()
+    m = max(1, n // 2)
+    assert torch.equal(ops.hybrid_coupling_sum(w, sigma, parallel=p),
+                       plain.hybrid_coupling_sum_ref(w, sigma, p))
+    assert torch.equal(ops.hybrid_coupling_sum(w[:m], sigma, parallel=p),
+                       plain.coupling_sum_ref(w[:m], sigma))
+    assert torch.equal(ops.hybrid_phase_step(w, sigma, bias, phase, half=HALF, parallel=p),
+                       plain.hybrid_phase_step_ref(w, sigma, bias, phase, HALF, p))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["hybrid_coupling_sum"] == 2
+    assert ops.LAUNCHES["hybrid_phase_step"] == 1
+
+
+@pytest.mark.parametrize("route", ["hybrid", "recurrent"])
+def test_rtl_on_card_equals_cpu(cuda, route):
+    """rtl with jitter on the card, through kernel 6 (hybrid architecture,
+    hybrid backend) or kernel 1 (recurrent architecture, kernel backend)."""
+    n, b = 129, 32
+    rng = np.random.default_rng(5)
+    w = rng.integers(-15, 16, size=(n, n)).astype(np.int8)
+    sigma = np.where(rng.random((b, n)) < 0.5, 1, -1).astype(np.int8)
+    kw = (dict(architecture="hybrid", backend="hybrid", hybrid_impl="kernel")
+          if route == "hybrid" else dict(architecture="recurrent", backend="kernel"))
+    cfg = dyn.ONNConfig(n=n, mode="rtl", sync_jitter=True, max_cycles=12, **kw)
+    ops.reset_launches()
+    got = api.RetrievalSolver(cfg, api.make_params(cfg, w)).solve(
+        sigma, key=torch.Generator(device="cuda").manual_seed(1))
+    t0 = torch.randint(0, cfg.clocks_per_cycle, (b,),
+                       generator=torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda", dtype=torch.int32)
+    want = dyn.retrieve(cfg, api.make_params(cfg, w, device="cpu"), torch.as_tensor(sigma),
+                        t0=t0.cpu())
+    for f in dyn.ONNResult._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    key = "hybrid_coupling_sum" if route == "hybrid" else "coupling_sum"
+    assert ops.LAUNCHES[key] > 0 and ops.LAUNCHES[key] % cfg.clocks_per_cycle == 0
+
+
 def test_mixed_devices_raise(cuda):
     w, bias, phase, sigma = _inputs(8, 2, seed=0, device=cuda)
     with pytest.raises(ValueError, match="different devices"):

@@ -190,20 +190,23 @@ def test_padding_is_exact_and_matches_reference():
 
 
 def test_unported_routes_raise_not_implemented():
+    """Only ``async_sweep`` (the Ising slice) is still unported; ``step`` on an
+    rtl config is refused as in the reference; the rtl and hybrid routes that
+    used to raise now run, and ``run`` equals the batched lane."""
     w, bias, sigma = problem(16, 2, seed=1)
-    for kw in (dict(mode="rtl"), dict(backend="hybrid"), dict(parallel_factor=4)):
-        cfg = port_dyn.ONNConfig(n=16, **kw)
-        params = port_dyn.make_params(cfg, w, bias, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_dyn.retrieve(cfg, params, torch.as_tensor(sigma))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_dyn.run(cfg, params, port_osc.phase_of_spin(torch.as_tensor(sigma[0])))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_dyn.async_sweep(torch.as_tensor(w), torch.as_tensor(sigma[0]), torch.arange(16))
     with pytest.raises(ValueError, match="functional"):
         cfg = port_dyn.ONNConfig(n=16, mode="rtl")
         port_dyn.step(cfg, port_dyn.make_params(cfg, w, device="cpu"),
                       port_dyn.init_state(cfg, torch.as_tensor(sigma[0])))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_dyn.async_sweep(torch.as_tensor(w), torch.as_tensor(sigma[0]), torch.arange(16))
+    for kw in (dict(mode="rtl"), dict(backend="hybrid"), dict(parallel_factor=4)):
+        cfg = port_dyn.ONNConfig(n=16, max_cycles=10, **kw)
+        params = port_dyn.make_params(cfg, w, bias, device="cpu")
+        batch = port_dyn.retrieve(cfg, params, torch.as_tensor(sigma))
+        one = port_dyn.run(cfg, params, port_osc.phase_of_spin(torch.as_tensor(sigma[0])))
+        for name in FIELDS:
+            assert torch.equal(getattr(one, name), getattr(batch, name)[0]), (kw, name)
 
 
 def test_chunk_fused_equals_chunk_multi_and_batch_steps():

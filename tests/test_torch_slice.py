@@ -3,6 +3,8 @@
 * ``retrieve`` at N = 506, B = 16 on the kernel backend against the JAX
   reference's ``pallas`` backend (interpret mode), on Hebbian weights (lanes
   settle) and random symmetric weights (lanes enter period-2 orbits).
+* the hybrid serialized-MAC datapath at N = 506, B = 16, in functional and
+  in rtl mode;
 * ``init_batch_state`` / ``advance_chunk`` / ``install_lanes`` /
   ``batch_result``: a lane installed mid-flight equals its isolated solve.
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +73,32 @@ def test_slice_at_n506_matches_reference(kind, phase_pack):
         assert bool(got.settled.all())
     else:
         assert bool(got.cycled.any())
+
+
+@pytest.mark.parametrize("mode", ["functional", "rtl"])
+def test_hybrid_slice_at_n506_matches_reference(mode):
+    """The paper's hybrid datapath at its design point: the port's kernel
+    route (kernels 6 and 7, here through their plain versions) against the
+    reference's pallas route in functional mode, and against its scan route
+    in rtl with ``sync_jitter`` (the rtl offsets drawn by the reference)."""
+    n, b = 506, 16
+    w, sigma = hebbian_problem(n, b, seed=12)
+    rtl = dict(mode="rtl", sync_jitter=True, max_cycles=30) if mode == "rtl" else {}
+    ref_cfg = dataclasses.replace(ref_configs.ONN_HYBRID_506, backend="hybrid",
+                                  hybrid_impl="scan" if rtl else "pallas", **rtl)
+    port_cfg = dataclasses.replace(port_configs.ONN_HYBRID_506, backend="hybrid",
+                                   hybrid_impl="kernel", **rtl)
+    key = jax.random.PRNGKey(5) if rtl else None
+    t0 = None
+    if rtl:
+        lane_keys = ref_dyn._lane_keys(ref_cfg, key, b)
+        t0 = torch.as_tensor(np.array(ref_dyn._jitter_offsets(ref_cfg, lane_keys, b)))
+    want = ref_dyn.retrieve(ref_cfg, ref_dyn.make_params(ref_cfg, jnp.asarray(w)),
+                            jnp.asarray(sigma), keys=key)
+    got = port_dyn.retrieve(port_cfg, port_dyn.make_params(port_cfg, w, device="cpu"),
+                            torch.as_tensor(sigma), t0=t0)
+    same_result(got, want)
+    assert bool(got.settled.all())
 
 
 def test_solver_protocol_and_key_rule():
