@@ -16,7 +16,13 @@ and prints one JSON line per phase:
    near their budget), exact equality required, with CUDA-event times of the
    kernel's wrapper, the plain version and, for the coupling sums, the
    ``torch._int_mm`` yardstick; the hybrid serialized-MAC kernels at MAC
-   widths P = 1, 32 (the auto width, the row's times) and 506;
+   widths P = 1, 32 (the auto width, the row's times) and 506; the spin
+   update ``onn_step`` (ties forced in 64 lanes); the quantized product
+   ``quantized_matvec`` at (B, M, K) = (1024, 506, 506) on per-row quantized
+   Hebbian weights and at (8, 4096, 4096), each element within the float32
+   summation bound of the exact value, against one ``torch.matmul`` on
+   pre-dequantized weights; the coupling sums with an instance axis at the
+   Max-Cut shape (16 instances, 64 replicas, 32-row slabs, P = 32);
 4. ``retrieve`` (twice, ``phase_pack`` off and on): ``RetrievalSolver`` at
    ``ONN_HYBRID_506`` on the kernel backend, 1024 corrupted requests on
    Hebbian 5-bit weights; the card's results must equal the CPU's lane for
@@ -41,9 +47,20 @@ and prints one JSON line per phase:
    must equal its isolated solve;
 8. ``per_cycle``: ``run`` on a few lanes through the fused per-cycle kernels
    and, in rtl, with each lane's ``t0``, equal to the batched lanes, and one
-   ``_chunk_fused`` settle-chunk equal to the multi-cycle kernel's.
+   ``_chunk_fused`` settle-chunk equal to the multi-cycle kernel's;
+9. ``kernel_api``: the kernel library's entry points
+   (``repro_torch.kernels.onn_step``, ``quantized_matvec``) on the phase-3
+   operands, equal to (within the bound of) what phase 3 checked;
+10. ``maxcut`` (twice: the kernel backend, kernel 1, and the hybrid backend's
+   kernel route at the auto P, kernel 6): ``MaxCutSolver`` on 16 seeded
+   Erdős–Rényi graphs at N = 506, 64 replicas, 64 sweeps, 16 groups,
+   stagnation 16; every field equal to the CPU solve with the same uniforms
+   and the two backends equal; instances/s of a warm solve, device busy time
+   and idle share, the field kernel's share, launches per sweep, sweeps run
+   and the mean cut ratio against a random assignment; and one
+   ``async_sweep`` at N = 506 equal to the CPU.
 
-Launch counts are set to 0 before each main-path phase (4-8) and read after
+Launch counts are set to 0 before each main-path phase (4-10) and read after
 it; every kernel must have launched on a main path.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -68,11 +85,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 TPU_KERNELS = "src/repro/kernels/coupling_kernel.py"
 ROWS = {
     # name: (source, replaces)
     "coupling_sum": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:100"),
+    "onn_step": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:161"),
     "phase_step": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:236"),
     "phase_step_packed": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:348"),
     "phase_step_multi": ("src/repro_torch/kernels/csrc/phase_step_multi.cu", f"{TPU_KERNELS}:520"),
@@ -81,6 +100,15 @@ ROWS = {
     ),
     "hybrid_coupling_sum": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:697"),
     "hybrid_phase_step": ("src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:724"),
+    "quantized_matvec": (
+        "src/repro_torch/kernels/csrc/quantized_matvec.cu", f"{TPU_KERNELS}:805"
+    ),
+    "coupling_sum_batched": (
+        "src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:100"
+    ),
+    "hybrid_coupling_sum_batched": (
+        "src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:697"
+    ),
 }
 
 B, N, CHUNK, HALF = 1024, 506, 8, 8
@@ -95,6 +123,11 @@ RTL_CHECK_LANES = 64
 #: by the solver from a CPU ``torch.Generator``).
 WANDER_SEED, WANDER_KEY = 7, 0
 FIELDS = ("final_phase", "final_sigma", "settle_cycle", "settled", "cycled")
+#: The Max-Cut cell: instances, replicas, sweeps, stagnation, settle-chunk;
+#: the update groups resolve to 16 (``stagger_groups`` 0).
+MC_INSTANCES, MC_REPLICAS, MC_SWEEPS, MC_STAGNATION, MC_CHUNK = 16, 64, 64, 16, 8
+#: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
+QMV_GEMV = (8, 4096, 4096)
 
 
 def emit(obj) -> None:
@@ -129,12 +162,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 #: instantiations of the coupling GEMM; each trace holds one kernel's calls).
 SYMBOLS = {
     "coupling_sum": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
+    "onn_step": ("coupling_gemm_kernel<3>", "coupling_gemm_kernelILi3E"),
     "phase_step": ("coupling_gemm_kernel<1>", "coupling_gemm_kernelILi1E"),
     "phase_step_packed": ("coupling_gemm_kernel<2>", "coupling_gemm_kernelILi2E"),
     "phase_step_multi": ("phase_step_multi_kernel<false", "phase_step_multi_kernelILb0E"),
     "phase_step_multi_packed": ("phase_step_multi_kernel<true", "phase_step_multi_kernelILb1E"),
     "hybrid_coupling_sum": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
     "hybrid_phase_step": ("coupling_gemm_kernel<1>", "coupling_gemm_kernelILi1E"),
+    "quantized_matvec": ("quantized_matvec_kernel<", "quantized_matvec_kernelILi"),
+    "coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
+    "hybrid_coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
 }
 
 
@@ -171,14 +208,17 @@ def solve_seconds(solve) -> float:
     return time.perf_counter() - t0
 
 
-def warm_metrics(solve, repeats: int = 5) -> dict:
-    """Requests/s of the median of ``repeats`` warm solves of B requests, and
-    the device's busy time and idle share in one more (profiler trace)."""
+def warm_metrics(solve, repeats: int = 5, per_solve: int = B, unit: str = "requests") -> dict:
+    """``unit``/s (``per_solve`` of them in a solve) of the median of
+    ``repeats`` warm solves, and the device's busy time, idle share and
+    device time by name in one more (profiler trace)."""
     warm = sorted(solve_seconds(solve) for _ in range(repeats))[repeats // 2]
-    busy_ms, top = device_busy(solve)
+    busy_ms, per_name = device_busy(solve)
     return {
-        "warm_solve_s": warm, "requests_per_s": B / warm, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / (warm * 1e3), "top_device_ms": top,
+        "warm_solve_s": warm, f"{unit}_per_s": per_solve / warm, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (warm * 1e3),
+        "top_device_ms": dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:5]),
+        "device_ms_by_name": per_name,
     }
 
 
@@ -196,7 +236,7 @@ def require_equal(got, want, what: str, lanes=None) -> None:
 def device_busy(fn) -> tuple:
     """Milliseconds during which the device ran anything in one call of
     ``fn`` (the union of the device-side events' intervals in a
-    ``torch.profiler`` trace), and the five largest device events by name.
+    ``torch.profiler`` trace), and the device milliseconds by event name.
     A trace with no device event (the profiler now and then records none) is
     taken again, up to three times."""
     from torch.autograd import DeviceType
@@ -216,8 +256,7 @@ def device_busy(fn) -> tuple:
             per_name[key] = per_name.get(key, 0.0) + (evt.time_range.end - evt.time_range.start) / 1e3
         if spans:
             break
-    top = dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
-    return union_length(spans) / 1e3, top
+    return union_length(spans) / 1e3, per_name
 
 
 def union_length(spans) -> float:
@@ -233,9 +272,22 @@ def union_length(spans) -> float:
     return total + (0.0 if cur is None else cur[1] - cur[0])
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound(bytes_moved: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> tuple:
+    """The least time (ms) for the work, and what bounds it: bytes at the
+    HBM rate or operations at ``ops_per_s`` (int8 unless given)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fp32_error(got, x, wq, scale) -> tuple:
+    """Kernel 8's error against the exact value (float64 on the card):
+    (max |got − exact|, max |got − exact| / bound), where the bound is
+    K · 2⁻²⁴ · |scale_m| · Σ_k |x_bk w_mk| per element."""
+    x64, w64, s64 = x.double(), wq.double(), scale.double()
+    exact = (x64 @ w64.T) * s64
+    bnd = x.shape[-1] * 2.0**-24 * s64.abs() * (x64.abs() @ w64.abs().T)
+    err = (got.double() - exact).abs()
+    return float(err.max()), float((err / bnd.clamp_min(1e-300)).max())
 
 
 def max_abs_err(got, want) -> int:
@@ -262,6 +314,17 @@ def nvcc_version(nvcc: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
+def _patterns(rng) -> np.ndarray:
+    return np.where(rng.random((40, N)) < 0.5, 1, -1).astype(np.int8)
+
+
+def make_hebbian(seed: int) -> torch.Tensor:
+    """The float Hebbian couplings of :func:`make_problem`'s 40 patterns."""
+    from repro_torch import api
+
+    return api.hebbian(torch.as_tensor(_patterns(np.random.default_rng(seed))))
+
+
 def make_problem(seed: int):
     """Hebbian 5-bit couplings of 40 seeded random patterns at N = 506 and
     1024 requests: a random stored pattern with 20 % of its pixels flipped
@@ -269,13 +332,22 @@ def make_problem(seed: int):
     from repro_torch import api
 
     rng = np.random.default_rng(seed)
-    xi = np.where(rng.random((40, N)) < 0.5, 1, -1).astype(np.int8)
+    xi = _patterns(rng)
     w = api.quantize_weights(api.hebbian(torch.as_tensor(xi))).values.numpy()
     target = rng.integers(0, len(xi), size=B)
     probes = xi[target].copy()
     for row in probes:
         row[rng.choice(N, size=N // 5, replace=False)] *= -1
     return w, xi[target], probes
+
+
+def make_graphs(seed: int) -> torch.Tensor:
+    """The Max-Cut cell's instances: :data:`MC_INSTANCES` Erdős–Rényi graphs
+    with edge probability 0.5 at N = 506, symmetric 0/1 int8 with a zero
+    diagonal, from a numpy generator seeded from ``seed``."""
+    rng = np.random.default_rng([seed, 13])
+    upper = np.triu(rng.random((MC_INSTANCES, N, N)) < 0.5, k=1).astype(np.int8)
+    return torch.as_tensor(upper + upper.transpose(0, 2, 1))
 
 
 def make_wandering_problem():
@@ -304,9 +376,11 @@ def main() -> None:
 
     from repro_torch import api
     from repro_torch.configs import onn as configs
+    import repro_torch.kernels as kernel_api
     from repro_torch.core import dynamics as dyn
+    from repro_torch.core import ising
     from repro_torch.core import oscillator as osc
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import autotune, build, ops
     from repro_torch.kernels import ref as plain
 
     dev = torch.device("cuda")
@@ -339,11 +413,15 @@ def main() -> None:
     phase = osc.phase_of_spin(sigma).to(torch.int32)
     rows = {}
 
-    def record(name, got, want, kernel_fn, plain_fn, bytes_moved, n_ops, library_ms=None):
+    def record(name, got, want, kernel_fn, plain_fn, bytes_moved, n_ops, library_ms=None,
+               ops_per_s=INT8_OPS_PER_S, err=None):
+        """One row: exact equality with the plain version, unless ``err`` (an
+        error already held to its bound) is given."""
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"{name}: kernel disagrees with its plain version (max_abs_err {err})")
-        b_ms, b_by = bound(bytes_moved, n_ops)
+        if err is None:
+            err = max_abs_err(got, want)
+            require(err == 0, f"{name}: kernel disagrees with its plain version (max_abs_err {err})")
+        b_ms, b_by = bound(bytes_moved, n_ops, ops_per_s)
         # ms / kernel_ms: the hand-written kernel alone (profiler device time);
         # wrapper_ms: one wrapper call, operand preparation included.
         wrapper_ms = cuda_ms(kernel_fn)
@@ -450,6 +528,94 @@ def main() -> None:
                 "plain_ms": cuda_ms(lambda: ref_fn(p), iters=5, warmup=1),
             }
         row.update(parallel=AUTO_P, per_parallel=per_p)
+
+    # Kernel 2: sign(σWᵀ + h) with ties kept.  The first 64 lanes repeat
+    # lane 0, and h = −(σ₀ Wᵀ), so every element of those lanes is a tie.
+    sigma_t = sigma.clone()
+    sigma_t[:64] = sigma[0]
+    h_tie = -plain.coupling_sum_ref(w, sigma[:1])[0]
+    step_want = plain.onn_step_ref(w, sigma_t, h_tie)
+    require(torch.equal(step_want[:64], sigma_t[:64]), "onn_step: forced ties did not keep σ")
+    record(
+        "onn_step", ops.onn_step(w, sigma_t, h_tie), step_want,
+        lambda: ops.onn_step(w, sigma_t, h_tie), lambda: plain.onn_step_ref(w, sigma_t, h_tie),
+        B * N + N * N + 4 * N + B * N, 2 * B * N * N, library_ms=int_mm_ms,
+    )
+    rows["onn_step"]["tie_lanes"] = 64
+
+    # Kernel 8 at two shapes: per-row quantized Hebbian weights at the main
+    # path's (1024, 506, 506), and random int8 weights at the GEMV shape.
+    # Each element within K · 2⁻²⁴ · |scale_m| · Σ|x w| of the exact value;
+    # the yardstick is one float32 matmul on pre-dequantized weights.
+    # The row keeps the main shape's numbers (recorded last); "per_shape"
+    # holds both.
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    gb, gm, gk = QMV_GEMV
+    rows_q = [api.quantize_weights(r) for r in make_hebbian(args.seed)]
+    qmv_shapes = {
+        "x".join(map(str, QMV_GEMV)): (
+            torch.randint(-127, 128, (gm, gk), generator=g, device=dev, dtype=torch.int8),
+            torch.rand((gm,), generator=g, device=dev) * 0.01 + 1e-4,
+            torch.randn((gb, gk), generator=g, device=dev),
+        ),
+        f"{B}x{N}x{N}": (
+            torch.stack([q.values for q in rows_q]).to(dev),
+            torch.stack([q.scale for q in rows_q]).to(dev),
+            torch.randn((B, N), generator=g, device=dev),
+        ),
+    }
+    per_shape = {}
+    for label, (wq, scale, x) in qmv_shapes.items():
+        got = ops.quantized_matvec(wq, scale, x)
+        err, ratio = fp32_error(got, x, wq, scale)
+        p_err, p_ratio = fp32_error(plain.quantized_matvec_ref(wq, scale, x), x, wq, scale)
+        require(ratio <= 1.0, f"quantized_matvec {label}: error {ratio} x its bound")
+        require(p_ratio <= 1.0, f"quantized_matvec plain {label}: error {p_ratio} x its bound")
+        w_deq_t = (wq.float() * scale[:, None]).t().contiguous()
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w_deq_t))
+        (b_, k_), m_ = x.shape, wq.shape[0]
+        name = "quantized_matvec"
+        record(
+            name, got, None, lambda: ops.quantized_matvec(wq, scale, x),
+            lambda: plain.quantized_matvec_ref(wq, scale, x),
+            4 * b_ * k_ + m_ * k_ + 4 * m_ + 4 * b_ * m_, 2 * b_ * m_ * k_,
+            library_ms=lib_ms, ops_per_s=FP32_FLOPS_PER_S, err=err,
+        )
+        per_shape[label] = {k: rows[name][k] for k in (
+            "max_abs_err", "ms", "ms_of", "kernel_ms", "wrapper_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")}
+        per_shape[label].update(error_bound_ratio=ratio, plain_max_abs_err=p_err,
+                                plain_error_bound_ratio=p_ratio,
+                                lanes_per_tile=autotune.qmv_lanes_per_tile(b_))
+    rows["quantized_matvec"].update(error_bound_ratio=ratio, shape=label, exact=False,
+                                    within_bound=True, per_shape=per_shape)
+
+    # Kernels 1 and 6 with the instance axis, at the Max-Cut shape: one
+    # 32-row slab of each instance's couplings against its 64 replicas.
+    graphs = make_graphs(args.seed)
+    w_mc = torch.stack([ising.maxcut_couplings(a).values for a in graphs]).to(dev)
+    members = torch.stack([torch.randperm(N, generator=torch.Generator().manual_seed(i))[:32]
+                           for i in range(MC_INSTANCES)]).to(dev)
+    slabs = w_mc[torch.arange(MC_INSTANCES, device=dev)[:, None], members]
+    reps = torch.randint(0, 2, (MC_INSTANCES, MC_REPLICAS, N), generator=g, device=dev,
+                         dtype=torch.int8) * 2 - 1
+    want_mc = plain.coupling_sum_ref(slabs, reps)
+    f_reps, f_slabs_t = reps.float(), slabs.float().transpose(1, 2).contiguous()
+    require(torch.equal(torch.bmm(f_reps, f_slabs_t).to(torch.int32), want_mc), "bmm disagrees")
+    bmm_ms = cuda_ms(lambda: torch.bmm(f_reps, f_slabs_t))
+    mc_bytes = slabs.numel() + reps.numel() + 4 * want_mc.numel()
+    mc_ops = 2 * MC_REPLICAS * slabs.numel()
+    record("coupling_sum_batched", ops.coupling_sum(slabs, reps), want_mc,
+           lambda: ops.coupling_sum(slabs, reps), lambda: plain.coupling_sum_ref(slabs, reps),
+           mc_bytes, mc_ops, library_ms=bmm_ms)
+    record("hybrid_coupling_sum_batched", ops.hybrid_coupling_sum(slabs, reps, parallel=AUTO_P),
+           plain.hybrid_coupling_sum_ref(slabs, reps, AUTO_P),
+           lambda: ops.hybrid_coupling_sum(slabs, reps, parallel=AUTO_P),
+           lambda: plain.hybrid_coupling_sum_ref(slabs, reps, AUTO_P),
+           mc_bytes, mc_ops, library_ms=bmm_ms)
+    for name in ("coupling_sum_batched", "hybrid_coupling_sum_batched"):
+        rows[name]["shape"] = {"I": MC_INSTANCES, "B": MC_REPLICAS, "M": 32, "N": N}
+    rows["hybrid_coupling_sum_batched"]["parallel"] = AUTO_P
     emit({"phase": "kernels", "shape": {"B": B, "N": N, "chunk": CHUNK},
           "kernels": list(rows.values())})
 
@@ -655,6 +821,80 @@ def main() -> None:
     for k in ("phase_step", "phase_step_packed", "hybrid_coupling_sum"):
         require(path_launches.get(k, 0) > 0, f"per-cycle route: {k} never launched")
     emit({"phase": "per_cycle", **report, "launches": path_launches, "equal_to_batch": True})
+
+    # 9. the kernel library's entry points: kernels 2 and 8 ----------------------
+    def kernel_api_calls():
+        got = kernel_api.onn_step(w, sigma_t, h_tie)
+        require(torch.equal(got, step_want), "kernel_api: onn_step differs from phase 3")
+        ratios = {}
+        for label, (wq, scale, x) in qmv_shapes.items():
+            ratios[label] = fp32_error(kernel_api.quantized_matvec(wq, scale, x), x, wq, scale)[1]
+            require(ratios[label] <= 1.0, f"kernel_api: quantized_matvec {label} past its bound")
+        return {"onn_step_exact": True, "quantized_matvec_error_bound_ratio": ratios}
+
+    report, _, path_launches = drive(kernel_api_calls)
+    for k in ("onn_step", "quantized_matvec"):
+        require(path_launches.get(k, 0) > 0, f"kernel_api: {k} never launched")
+    emit({"phase": "kernel_api", **report, "launches": path_launches})
+
+    # 10. main path: the Max-Cut annealer on kernels 1 and 6 -----------------------
+    maxcut = {}
+    edges = graphs.sum(dim=(1, 2)).double() / 2
+    for route, kernel in (
+        (dict(backend="kernel"), "coupling_sum_batched"),
+        (dict(backend="hybrid", hybrid_impl="kernel"), "hybrid_coupling_sum_batched"),
+    ):
+        kw = dict(sweeps=MC_SWEEPS, replicas=MC_REPLICAS, stagnation=MC_STAGNATION,
+                  settle_chunk=MC_CHUNK, **route)
+        solver = api.MaxCutSolver(**kw)  # on the GPU
+
+        def key():  # the same uniforms on both devices: drawn on the CPU
+            return torch.Generator().manual_seed(args.seed)
+
+        res, seconds, path_launches = drive(lambda: solver.solve(graphs, key=key()))
+        cpu_res = api.MaxCutSolver(**kw, device="cpu").solve(graphs, key=key())
+        for f in ising.MaxCutResult._fields:
+            require(torch.equal(getattr(res, f).cpu(), getattr(cpu_res, f)),
+                    f"maxcut {route}: card != CPU in {f}")
+        if maxcut:
+            for f in ising.MaxCutResult._fields:
+                require(torch.equal(getattr(res, f), getattr(maxcut["kernel"], f)),
+                        f"maxcut: hybrid != kernel backend in {f}")
+        cfg_mc = solver.config(N)
+        groups = ising.resolve_stagger_groups(0, N)
+        ran = res.sweeps_run.cpu()
+        stepped = -(-int(ran.max()) // MC_CHUNK) * MC_CHUNK  # whole chunks
+        n_launch = path_launches.get(kernel, 0)
+        require(n_launch == groups * stepped,
+                f"maxcut {route}: {n_launch} launches of {kernel}, not {groups} per sweep")
+        metrics = warm_metrics(lambda: solver.solve(graphs, key=key()),
+                               per_solve=MC_INSTANCES, unit="instances")
+        kernel_ms = sum(v for k, v in metrics["device_ms_by_name"].items()
+                        if "coupling_gemm_kernel" in k)
+        emit({
+            "phase": "maxcut", **route, "parallel": cfg_mc.hybrid_parallel if
+            route["backend"] == "hybrid" else None, "n": N, "instances": MC_INSTANCES,
+            "replicas": MC_REPLICAS, "sweeps": MC_SWEEPS, "groups": groups,
+            "stagnation": MC_STAGNATION, "settle_chunk": MC_CHUNK,
+            "sweeps_run": ran.tolist(), "sweeps_stepped": stepped,
+            "launches_per_sweep": n_launch / stepped,
+            "mean_cut_ratio_vs_random": float((res.cut_value.cpu().double() / (edges / 2)).mean()),
+            "first_call_s": seconds, **metrics, "field_kernel_ms": kernel_ms,
+            "field_kernel_share_of_wall": kernel_ms / (metrics["warm_solve_s"] * 1e3),
+            "launches": path_launches, "equal_to_cpu": True,
+            "equal_to_kernel_backend": True if maxcut else None,
+        })
+        maxcut[route["backend"]] = res
+    # The sequential oracle's sweep at N = 506 on the card, equal to the CPU,
+    # from random spins (many flips) in a random order.
+    gen = torch.Generator().manual_seed(args.seed)
+    sig0 = (torch.randint(0, 2, (N,), generator=gen, dtype=torch.int8) * 2 - 1).to(dev)
+    order = torch.randperm(N, generator=gen)
+    swept = dyn.async_sweep(w_mc[0], sig0, order)
+    require(torch.equal(swept.cpu(), dyn.async_sweep(w_mc[0].cpu(), sig0.cpu(), order)),
+            "async_sweep: card != CPU")
+    emit({"phase": "async_sweep", "n": N, "equal_to_cpu": True,
+          "flipped": int((swept != sig0).sum())})
 
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -8,11 +8,16 @@ Quickstart::
     params = api.make_params(cfg, weights_int8)          # on the GPU
     out = api.RetrievalSolver(cfg, params).solve(corrupted_batch)
 
-Pass ``device="cpu"`` to ``make_params`` to run on the CPU through the plain
-versions of the kernels.  A config with ``mode="rtl"`` and ``sync_jitter``
-draws each request's enable-signal offset from the ``torch.Generator``
-passed as ``solve(..., key=generator)``.  Training (DO-I), the Max-Cut
-solver and engine registration wait for later slices of the port.
+    adj = api.random_graph(torch.Generator().manual_seed(0), 506)
+    solver = api.MaxCutSolver(replicas=64, backend="kernel")  # on the GPU
+    res = solver.solve(adj, key=torch.Generator().manual_seed(1))
+
+Pass ``device="cpu"`` to ``make_params`` (or to ``MaxCutSolver``) to run on
+the CPU through the plain versions of the kernels.  A config with
+``mode="rtl"`` and ``sync_jitter`` draws each request's enable-signal offset
+from the ``torch.Generator`` passed as ``solve(..., key=generator)``;
+``MaxCutSolver`` draws its initial spins and sweep orders the same way.
+Training (DO-I) and engine registration wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.core.checks import resolve_device
 from repro_torch.core.dynamics import (  # noqa: F401 — re-exported API
     BACKENDS,
     BatchState,
@@ -50,6 +56,14 @@ from repro_torch.core.dynamics import (  # noqa: F401 — re-exported API
     step,
     validate_weights,
     weighted_sum,
+)
+from repro_torch.core.ising import (  # noqa: F401 — re-exported API
+    MaxCutResult,
+    cut_value_exact,
+    maxcut_couplings,
+    random_graph,
+    solve_maxcut,
+    solve_maxcut_batch,
 )
 from repro_torch.core.learning import hebbian  # noqa: F401
 from repro_torch.core.quantization import quantize_weights  # noqa: F401
@@ -108,3 +122,72 @@ class RetrievalSolver:
             device=key.device, dtype=torch.int32,
         )
         return retrieve(cfg, self.params, batch, t0=t0.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class MaxCutSolver:
+    """Batched oscillatory Ising machine on a max-cut embedding (paper §2.2).
+
+    The fields and defaults of ``repro.api.MaxCutSolver`` (the kernel route
+    is ``backend="kernel"`` / ``hybrid_impl="kernel"``), plus ``device``: the
+    port's device rule, the GPU unless ``"cpu"``.  ``solve`` takes an (N, N)
+    adjacency matrix, or an (I, N, N) batch of same-size instances, and a
+    required ``torch.Generator``.  From it, on the generator's device, it
+    draws ``torch.rand((I, replicas, N))`` (the initial spins), then
+    ``torch.rand((I, sweeps, N))`` (one priority row per sweep), and hands
+    both to :func:`solve_maxcut_batch` on ``device``: the same seed gives the
+    same result.  Each instance runs ``replicas`` anneals of ``sweeps``
+    grouped sweeps (``stagger_groups`` groups; 0 → auto, N → asynchronous),
+    every field through ``backend``; ``stagnation`` > 0 freezes a replica
+    after that many sweeps without a better cut, checked every
+    ``settle_chunk`` sweeps.
+    """
+
+    sweeps: int = 64
+    weight_bits: int = 5
+    replicas: int = 1
+    stagger_groups: int = 0  # update groups K per sweep (0 = auto, n = async)
+    stagnation: int = 0  # sweeps without improvement before freeze (0 = off)
+    backend: str = "parallel"
+    parallel_factor: int = 0
+    hybrid_impl: str = "scan"
+    settle_chunk: int = 8
+    device: Optional[str] = None  # None: the GPU
+
+    def config(self, n: int) -> ONNConfig:
+        """The backend-carrying ONN config of an N-vertex solve."""
+        return ONNConfig(
+            n=n,
+            weight_bits=self.weight_bits,
+            max_cycles=self.sweeps,
+            backend=self.backend,
+            parallel_factor=self.parallel_factor,
+            hybrid_impl=self.hybrid_impl,
+            settle_chunk=self.settle_chunk,
+        )
+
+    def solve(self, instance: torch.Tensor, key: Optional[Any] = None) -> MaxCutResult:
+        if not isinstance(key, torch.Generator):
+            raise ValueError(
+                "MaxCutSolver.solve draws its initial spins and sweep orders; pass "
+                f"key=torch.Generator, got {type(key).__name__}"
+            )
+        dev = resolve_device(self.device)
+        adj = torch.as_tensor(instance).to(dev)
+        n = adj.shape[-1]
+        inst = 1 if adj.dim() == 2 else adj.shape[0]
+        init = torch.rand((inst, self.replicas, n), generator=key, device=key.device)
+        sweeps = torch.rand((inst, self.sweeps, n), generator=key, device=key.device)
+        if adj.dim() == 2:
+            init, sweeps = init[0], sweeps[0]
+        return solve_maxcut_batch(
+            self.config(n), adj, init.to(dev), sweeps.to(dev),
+            stagger_groups=self.stagger_groups, stagnation=self.stagnation,
+        )
+
+    def as_engine_solver(self):
+        """Waits for the engine (ROADMAP.md, Open items, Next, item 2)."""
+        raise NotImplementedError(
+            "MaxCutSolver.as_engine_solver needs the engine, which is not ported yet "
+            "(ROADMAP.md, Open items, Next, item 2: engine and serving)"
+        )

@@ -1,9 +1,10 @@
 """Carry configurations and weights over from the JAX package.
 
 The port never imports ``repro``; these functions read a reference
-``ONNConfig`` (or its ``dataclasses.asdict`` form, as checkpoint headers
-store it) by field name, and take weights as numpy arrays.  The reference's
-kernel route is named ``"pallas"``; the port's is ``"kernel"``.
+``ONNConfig`` or ``MaxCutSolver`` (or its ``dataclasses.asdict`` form, as
+checkpoint headers store a config) by field name, and take weights as numpy
+arrays.  The reference's kernel route is named ``"pallas"``; the port's is
+``"kernel"``.
 """
 
 from __future__ import annotations
@@ -18,13 +19,11 @@ from repro_torch.core.dynamics import ONNConfig, OnnParams, make_params
 _ROUTE_NAMES = {"pallas": "kernel"}
 
 
-def config_from_reference(obj_or_dict: Any) -> ONNConfig:
-    """The port's ``ONNConfig`` for a reference config object or dict.
-
-    Every init field is read by name; ``"pallas"`` maps to ``"kernel"`` for
-    both ``backend`` and ``hybrid_impl``.  Validation is the port's own.
-    """
-    names = [f.name for f in dataclasses.fields(ONNConfig) if f.init]
+def _fields_from_reference(cls, obj_or_dict: Any) -> dict:
+    """The init fields of the port's dataclass ``cls`` that a reference
+    object or dict carries, read by name, with ``"pallas"`` mapped to
+    ``"kernel"`` for both ``backend`` and ``hybrid_impl``."""
+    names = [f.name for f in dataclasses.fields(cls) if f.init]
     if isinstance(obj_or_dict, Mapping):
         values = {k: obj_or_dict[k] for k in names if k in obj_or_dict}
     else:
@@ -32,7 +31,24 @@ def config_from_reference(obj_or_dict: Any) -> ONNConfig:
     for key in ("backend", "hybrid_impl"):
         if key in values:
             values[key] = _ROUTE_NAMES.get(values[key], values[key])
-    return ONNConfig(**values)
+    return values
+
+
+def config_from_reference(obj_or_dict: Any) -> ONNConfig:
+    """The port's ``ONNConfig`` for a reference config object or dict.
+    Validation is the port's own."""
+    return ONNConfig(**_fields_from_reference(ONNConfig, obj_or_dict))
+
+
+def maxcut_solver_from_reference(obj_or_dict: Any, device=None):
+    """The port's ``MaxCutSolver`` for a reference ``MaxCutSolver`` (or its
+    fields as a dict), placing its solves on ``device`` (the GPU unless
+    ``"cpu"``)."""
+    from repro_torch.api import MaxCutSolver
+
+    values = _fields_from_reference(MaxCutSolver, obj_or_dict)
+    values["device"] = device
+    return MaxCutSolver(**values)
 
 
 def params_from_reference(

@@ -24,10 +24,12 @@ _INT8_MAG = 128
 def int_matmul(sigma: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact S = σ Wᵀ for integer ``sigma`` (..., N) and ``w`` (M, N) → int32.
 
-    Operands must lie in the int8 range (spins, 5-bit weights).  Computed in
-    float32 when N·128² ≤ 2**24, else float64 (exact to 2**53).
+    A batched ``w`` (I, M, N), one matrix per instance, takes ``sigma``
+    (I, B, N) and gives (I, B, M).  Operands must lie in the int8 range
+    (spins, 5-bit weights).  Computed in float32 when N·128² ≤ 2**24, else
+    float64 (exact to 2**53).
     """
-    n = w.shape[1]
+    n = w.shape[-1]
     bound = n * _INT8_MAG * _INT8_MAG
     if bound <= 2**24:
         ftype = torch.float32
@@ -35,26 +37,32 @@ def int_matmul(sigma: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         ftype = torch.float64
     else:
         raise ValueError(f"int_matmul: N={n} exceeds the exact float64 range")
-    out = torch.matmul(sigma.to(ftype), w.to(ftype).t())
+    out = torch.matmul(sigma.to(ftype), w.to(ftype).transpose(-1, -2))
     return out.to(torch.int32)
 
 
-def _check(w: torch.Tensor, sigma: torch.Tensor) -> None:
-    # w is (M, N): M output rows contracting over N spins (M < N: row slab).
-    if w.dim() != 2:
-        raise ValueError(f"coupling matrix must be 2-d, got {tuple(w.shape)}")
-    if sigma.shape[-1] != w.shape[1]:
+def check_shapes(w: torch.Tensor, sigma: torch.Tensor) -> None:
+    """Raise unless ``w`` (M, N) contracts ``sigma`` (..., N), or ``w``
+    (I, M, N) holds one such matrix per instance of ``sigma`` (I, B, N)."""
+    if w.dim() not in (2, 3):
+        raise ValueError(f"coupling matrix must be 2-d or 3-d, got {tuple(w.shape)}")
+    if sigma.shape[-1] != w.shape[-1]:
         raise ValueError(
             f"spin vector {tuple(sigma.shape)} incompatible with {tuple(w.shape)}"
+        )
+    if w.dim() == 3 and (sigma.dim() != 3 or sigma.shape[0] != w.shape[0]):
+        raise ValueError(
+            f"batched couplings {tuple(w.shape)} need spins (I, B, N), got {tuple(sigma.shape)}"
         )
 
 
 def weighted_sum_parallel(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Recurrent-architecture weighted sum, one fully parallel contraction.
 
-    ``w``: (M, N) int8, ``sigma``: (..., N) int8 in {−1, +1} → (..., M) int32.
+    ``w``: (M, N) int8, ``sigma``: (..., N) int8 in {−1, +1} → (..., M) int32;
+    or per instance, ``w`` (I, M, N) with ``sigma`` (I, B, N) → (I, B, M).
     """
-    _check(w, sigma)
+    check_shapes(w, sigma)
     require_int_dtype(w, "w")
     return int_matmul(sigma, w)
 
@@ -63,14 +71,14 @@ def weighted_sum_serial(w: torch.Tensor, sigma: torch.Tensor, chunk: int = 1) ->
     """Hybrid-architecture weighted sum: accumulate ``chunk`` inputs at a time
     into an int32 accumulator (the serialized MAC of Fig. 5).  A ragged tail
     is simply a shorter last chunk, which leaves the integer sum unchanged."""
-    _check(w, sigma)
+    check_shapes(w, sigma)
     require_int_dtype(w, "w")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    n = w.shape[1]
-    acc = torch.zeros((*sigma.shape[:-1], w.shape[0]), dtype=torch.int32, device=sigma.device)
+    n = w.shape[-1]
+    acc = torch.zeros((*sigma.shape[:-1], w.shape[-2]), dtype=torch.int32, device=sigma.device)
     for start in range(0, n, chunk):
-        acc = acc + int_matmul(sigma[..., start:start + chunk], w[:, start:start + chunk])
+        acc = acc + int_matmul(sigma[..., start:start + chunk], w[..., start:start + chunk])
     return acc
 
 

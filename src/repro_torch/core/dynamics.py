@@ -35,8 +35,10 @@ otherwise a loop of per-cycle updates with the bookkeeping replayed after it
 (one fused kernel launch per cycle on ``kernel`` and hybrid ``kernel``).  rtl
 keeps the per-cycle step: one coupling-sum launch per slow-clock edge.
 
-Not in this slice: ``async_sweep`` (ROADMAP queue 1, item 3, Ising) raises
-``NotImplementedError``.
+:func:`weighted_sum` also takes one coupling matrix per instance, (I, M, N)
+against spins (I, B, N), on every backend (the Max-Cut annealer of
+:mod:`repro_torch.core.ising`); :func:`async_sweep` is the sequential
+Hopfield sweep of its oracle.
 """
 
 from __future__ import annotations
@@ -302,12 +304,12 @@ def hybrid_mac_sum(w: torch.Tensor, sigma: torch.Tensor, parallel: int) -> torch
     pass runs with zero-padded (idle) lanes, which leaves the sum unchanged.
     Bit-exact with :func:`repro_torch.core.coupling.weighted_sum_parallel`
     for every P.  ``w``: (M, N) int8; ``sigma``: (..., N) int8 → (..., M)
-    int32.  The ``hybrid_impl="scan"`` route: the plain version of kernel 6
-    on any lead shape.
+    int32; or one matrix per instance, ``w`` (I, M, N) with ``sigma``
+    (I, B, N) → (I, B, M).  The ``hybrid_impl="scan"`` route: the plain
+    version of kernel 6 on any lead shape.
     """
-    m, n = w.shape
-    out = kernel_ref.hybrid_coupling_sum_ref(w, sigma.reshape(-1, n), parallel)
-    return out.reshape(*sigma.shape[:-1], m)
+    coupling_lib.check_shapes(w, sigma)
+    return kernel_ref.hybrid_coupling_sum_ref(w, sigma, parallel)
 
 
 def _hybrid_sum(cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -325,7 +327,13 @@ BACKENDS = {
 
 
 def weighted_sum(cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """S = W σ through the backend selected by ``cfg.backend``."""
+    """S = W σ through the backend selected by ``cfg.backend``.
+
+    ``w`` (M, N) with ``sigma`` (..., N) → (..., M) int32, or one matrix per
+    instance, ``w`` (I, M, N) with ``sigma`` (I, B, N) → (I, B, M): the
+    reference's ``jax.vmap`` over instances, written out (one kernel launch
+    for all instances on the kernel routes).
+    """
     return BACKENDS[cfg.backend](cfg, w, sigma)
 
 
@@ -848,8 +856,28 @@ def batch_result(cfg: ONNConfig, state: BatchState) -> ONNResult:
     return _batch_result(cfg, state)
 
 
-def async_sweep(w: torch.Tensor, sigma: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Asynchronous Hopfield sweep: waits for the Ising slice of the port."""
-    raise NotImplementedError(
-        "async_sweep is not ported yet (ROADMAP.md, Open items, queue 1, item 3: Max-Cut / Ising)"
-    )
+def async_sweep(w: torch.Tensor, sigma: torch.Tensor, order) -> torch.Tensor:
+    """One asynchronous (sequential) Hopfield sweep: σ_i ← sign(Σ_j W_ij σ_j)
+    for each i of ``order`` in turn, ties keeping σ_i.
+
+    ``w`` (N, N), ``sigma`` (N,), ``order`` a sequence or tensor of vertex
+    indices; returns a new spin vector in ``sigma``'s dtype, on its device.
+    Integer couplings accumulate exactly, in int64 (the reference's int32
+    holds every field too: |field| ≤ N · 128); float couplings accumulate in
+    ``promote_types(w.dtype, float32)``, since truncating them to an integer
+    type would zero sub-unit fields and flip sign decisions near zero (the
+    accumulator rule of ``repro.core.dynamics.async_sweep``).  One host loop
+    step per visit, with no synchronisation: the index comes from the host.
+    """
+    if w.dtype.is_floating_point:
+        acc = torch.promote_types(w.dtype, torch.float32)
+    else:
+        require_int_dtype(w, "w")
+        acc = torch.int64
+    wa = w.to(acc)
+    s = sigma.clone()
+    idx = order.tolist() if isinstance(order, torch.Tensor) else list(order)
+    for i in idx:
+        field = (wa[i] * s.to(acc)).sum()
+        s[i] = torch.where(field > 0, 1, torch.where(field < 0, -1, s[i].to(torch.int64)))
+    return s

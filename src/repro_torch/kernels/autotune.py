@@ -36,6 +36,22 @@ dynamics take the per-cycle route through kernel 3.  W itself is not in
 shared memory: it streams from L2 every cycle (50 MB of L2 holds W whole up
 to N ≈ 7,000; past that it streams from device memory and the kernel slows,
 but stays exact).
+
+**Kernel 8** (``csrc/quantized_matvec.cu``) multiplies float32 activations
+by int8 weights on the CUDA cores (no tensor cores: float32 FMA keeps the
+error bound of float32 summation).  The TPU package's ``k_minimum=128`` and
+its (8, 128) blocks follow the TPU's vector tiling and do not carry over.  A
+block of 256 threads owns :data:`QMV_ROWS` = 64 output rows and walks the
+contraction in :data:`QMV_K` = 32-element slabs of x and of W (widened to
+float32), each stored k-major with an odd pitch::
+
+    qmv_smem_bytes(lanes) = 4 · QMV_K · (lanes + 1) + 4 · QMV_K · (QMV_ROWS + 1)
+
+17 KB at 64 lanes, inside the 48 KB of static shared memory, so several
+blocks share an SM.  The lanes per tile are the one choice
+(:func:`qmv_lanes_per_tile`): 64 (4 × 4 outputs a thread) when the batch
+fills them, 16 (1 × 4) for a batch of at most 16 — the GEMV regime, where a
+64-lane tile would spend three quarters of its FMAs on masked lanes.
 """
 
 from __future__ import annotations
@@ -95,3 +111,21 @@ def multi_lanes_per_block(n: int, batch: int) -> int:
     ):
         bb //= 2
     return bb
+
+
+#: Kernel 8's output rows per block and contraction slab (fixed in the source).
+QMV_ROWS = 64
+QMV_K = 32
+#: Kernel 8's lanes per block tile: the two instantiations of its template.
+QMV_LANES = (16, 64)
+
+
+def qmv_smem_bytes(lanes: int) -> int:
+    """Static shared memory of one kernel-8 block with ``lanes`` lanes."""
+    return 4 * QMV_K * (lanes + 1) + 4 * QMV_K * (QMV_ROWS + 1)
+
+
+def qmv_lanes_per_tile(batch: int) -> int:
+    """Lanes per block tile of kernel 8 for a batch of ``batch`` rows of x:
+    the narrow tile when the batch fits it, else the wide one."""
+    return QMV_LANES[0] if batch <= QMV_LANES[0] else QMV_LANES[1]

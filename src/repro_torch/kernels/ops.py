@@ -28,10 +28,12 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES: collections.Counter = collections.Counter()
 
 #: Launch-count keys: one per kernel; the multi-cycle kernel's packed
-#: instantiation counts apart from the unpacked one.
+#: instantiation counts apart from the unpacked one, and the coupling sums'
+#: launches over an instance axis (a 3-d W) apart from the 2-d ones.
 KERNELS = (
-    "coupling_sum", "phase_step", "phase_step_packed", "phase_step_multi",
+    "coupling_sum", "onn_step", "phase_step", "phase_step_packed", "phase_step_multi",
     "phase_step_multi_packed", "hybrid_coupling_sum", "hybrid_phase_step",
+    "quantized_matvec", "coupling_sum_batched", "hybrid_coupling_sum_batched",
 )
 
 
@@ -71,33 +73,85 @@ def _bias(bias, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: S = σ Wᵀ
+# Kernels 1 and 6: S = σ Wᵀ, for one W or one W per instance
 # ---------------------------------------------------------------------------
+
+
+def _coupling_sums(name: str, w: torch.Tensor, sigma: torch.Tensor, parallel) -> torch.Tensor:
+    """Kernel 1 (``parallel`` None) or kernel 6, on a 2-d or 3-d ``w``.
+
+    A 2-d call is the kernel's I = 1 case; a 3-d ``w`` (I, M, N) takes
+    ``sigma`` (I, ..., N), one launch for every instance, counted under
+    ``<name>_batched``.
+    """
+    require_int_dtype(w, "w")
+    batched = w.dim() == 3
+    if w.dim() not in (2, 3):
+        raise ValueError(f"{name}: weights must be (M, N) or (I, M, N), got {tuple(w.shape)}")
+    m, n = w.shape[-2:]
+    inst = w.shape[0] if batched else 1
+    if sigma.shape[-1] != n or (batched and (sigma.dim() < 2 or sigma.shape[0] != inst)):
+        raise ValueError(f"{name}: spins {tuple(sigma.shape)} do not fit weights {tuple(w.shape)}")
+    lead = sigma.shape[:-1]
+    sig3 = sigma.reshape(inst, -1, n).to(torch.int8)
+    w3 = w if batched else w[None]
+    if not _on_cuda(w3, sig3):
+        out = (_ref.coupling_sum_ref(w3, sig3) if parallel is None
+               else _ref.hybrid_coupling_sum_ref(w3, sig3, parallel))
+    else:
+        b = sig3.shape[1]
+        _check_extent(inst * b * n, inst * m * n, inst * b * m)
+        w8, sig3 = w3.to(torch.int8).contiguous(), sig3.contiguous()
+        out = torch.empty((inst, b, m), dtype=torch.int32, device=sig3.device)
+        dims = (inst, b, m, n) if parallel is None else (inst, b, m, n, parallel)
+        _launch(
+            "coupling_gemm", f"onn_{name}", sig3.device,
+            sig3.data_ptr(), w8.data_ptr(), out.data_ptr(), *dims,
+        )
+        LAUNCHES[f"{name}_batched" if batched else name] += 1
+    return out.reshape(*lead, m)
 
 
 def coupling_sum(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """S = W σ for spins of shape (N,) or (..., N); returns int32 (..., M).
 
-    ``w`` is (M, N): the full coupling matrix, or a row slab with M < N.
+    ``w`` is (M, N): the full coupling matrix, or a row slab with M < N; or
+    (I, M, N), one such matrix per instance, with spins (I, ..., N) →
+    (I, ..., M) in one launch.
+    """
+    return _coupling_sums("coupling_sum", w, sigma, None)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: σ' = sign(W σ + h), ties keep σ
+# ---------------------------------------------------------------------------
+
+
+def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
+    """One fused ONN spin update: σ' = sign(W σ + h) as int8, where
+    W σ + h == 0 keeps σ.  ``w`` (N, N); ``sigma`` (N,) or (..., N); ``bias``
+    (N,) integers or None (zeros).  One launch per call.
     """
     require_int_dtype(w, "w")
-    m, n = w.shape
+    n = w.shape[0]
+    if tuple(w.shape) != (n, n):
+        raise ValueError(f"onn_step: weights {tuple(w.shape)} not square")
     batch_shape = sigma.shape[:-1]
     sig2d = sigma.reshape(-1, n).to(torch.int8)
-    if not _on_cuda(w, sig2d):
-        out = _ref.coupling_sum_ref(w, sig2d)
+    h = _bias(bias, n, w)
+    if not _on_cuda(w, sig2d, h):
+        out = _ref.onn_step_ref(w, sig2d, h)
     else:
         b = sig2d.shape[0]
-        _check_extent(b * n, m * n, b * m)
-        w8 = w.to(torch.int8).contiguous()
-        sig2d = sig2d.contiguous()
-        out = torch.empty((b, m), dtype=torch.int32, device=sig2d.device)
+        _check_extent(b * n, n * n)
+        w8, sig2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, h))
+        out = torch.empty((b, n), dtype=torch.int8, device=sig2d.device)
         _launch(
-            "coupling_gemm", "onn_coupling_sum", sig2d.device,
-            sig2d.data_ptr(), w8.data_ptr(), out.data_ptr(), b, m, n,
+            "coupling_gemm", "onn_step", sig2d.device,
+            sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), out.data_ptr(), b, n,
         )
-        LAUNCHES["coupling_sum"] += 1
-    return out.reshape(*batch_shape, m)
+        LAUNCHES["onn_step"] += 1
+    return out.reshape(*batch_shape, n)
 
 
 # ---------------------------------------------------------------------------
@@ -284,29 +338,14 @@ def _check_parallel(parallel: int) -> None:
 def hybrid_coupling_sum(w: torch.Tensor, sigma: torch.Tensor, *, parallel: int) -> torch.Tensor:
     """S = W σ as ``ceil(N / parallel)`` passes of a ``parallel``-wide MAC.
 
-    Spins of shape (N,) or (..., N); returns int32 (..., M).  ``w`` is
-    (M, N): the full coupling matrix, or a row slab with M < N.  Bit-exact
-    with :func:`coupling_sum` for every P; one launch per call, walking the
-    contraction one group of whole passes at a time.
+    Same shapes as :func:`coupling_sum`: spins (N,) or (..., N) against an
+    (M, N) matrix or row slab, or spins (I, ..., N) against one (M, N)
+    matrix per instance.  Bit-exact with :func:`coupling_sum` for every P;
+    one launch per call, walking the contraction one group of whole passes
+    at a time.
     """
-    require_int_dtype(w, "w")
     _check_parallel(parallel)
-    m, n = w.shape
-    batch_shape = sigma.shape[:-1]
-    sig2d = sigma.reshape(-1, n).to(torch.int8)
-    if not _on_cuda(w, sig2d):
-        out = _ref.hybrid_coupling_sum_ref(w, sig2d, parallel)
-    else:
-        b = sig2d.shape[0]
-        _check_extent(b * n, m * n, b * m)
-        w8, sig2d = w.to(torch.int8).contiguous(), sig2d.contiguous()
-        out = torch.empty((b, m), dtype=torch.int32, device=sig2d.device)
-        _launch(
-            "coupling_gemm", "onn_hybrid_coupling_sum", sig2d.device,
-            sig2d.data_ptr(), w8.data_ptr(), out.data_ptr(), b, m, n, parallel,
-        )
-        LAUNCHES["hybrid_coupling_sum"] += 1
-    return out.reshape(*batch_shape, m)
+    return _coupling_sums("hybrid_coupling_sum", w, sigma, parallel)
 
 
 def hybrid_phase_step(
@@ -345,3 +384,41 @@ def hybrid_phase_step(
         )
         LAUNCHES["hybrid_phase_step"] += 1
     return out.to(phase.dtype).reshape(*batch_shape, n)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8: y = (x W_qᵀ) · scale, float32 activations × int8 weights
+# ---------------------------------------------------------------------------
+
+
+def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
+    """y = (W_q · scale) x in float32 with a per-row (M,) or scalar scale.
+
+    ``w_q`` (M, K) int8; ``x`` (K,) or (..., K), cast to float32 → (..., M)
+    float32.  Each element is within K · 2⁻²⁴ · |scale_m| · Σ_k |x_k w_mk|
+    of the exact value (float32 summation, in the kernel's order on the
+    card and the matmul's on the CPU).  One launch per call.
+    """
+    require_int_dtype(w_q, "w_q")
+    m, k = w_q.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"quantized_matvec: x {tuple(x.shape)} does not fit weights {tuple(w_q.shape)}")
+    batch_shape = x.shape[:-1]
+    x2d = x.reshape(-1, k).to(torch.float32)
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.tensor(scale, dtype=torch.float32, device=w_q.device)
+    scale_full = torch.broadcast_to(scale.to(torch.float32), (m,))
+    if not _on_cuda(w_q, x2d, scale_full):
+        out = _ref.quantized_matvec_ref(w_q, scale_full, x2d)
+    else:
+        b = x2d.shape[0]
+        _check_extent(b * k, m * k, b * m)
+        w8, x2d, s = (t.contiguous() for t in (w_q.to(torch.int8), x2d, scale_full))
+        out = torch.empty((b, m), dtype=torch.float32, device=x2d.device)
+        _launch(
+            "quantized_matvec", "onn_quantized_matvec", x2d.device,
+            x2d.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), b, m, k,
+            autotune.qmv_lanes_per_tile(b),
+        )
+        LAUNCHES["quantized_matvec"] += 1
+    return out.reshape(*batch_shape, m)

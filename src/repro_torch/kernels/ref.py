@@ -2,12 +2,14 @@
 
 Each function is the semantics of one hand-written CUDA kernel in
 ``csrc/`` and of the TPU kernel it replaces (``repro.kernels.ref``): kernels
-1, 3, 4, 5 (``coupling_gemm.cu``, ``phase_step_multi.cu``) and the hybrid
-serialized-MAC kernels 6 and 7 (``coupling_gemm.cu``).  The
-wrappers in :mod:`repro_torch.kernels.ops` run these for tensors on the CPU;
+1-5 (``coupling_gemm.cu``, ``phase_step_multi.cu``), the hybrid
+serialized-MAC kernels 6 and 7 (``coupling_gemm.cu``) and the quantized
+matrix product, kernel 8 (``quantized_matvec.cu``).  The wrappers in
+:mod:`repro_torch.kernels.ops` run these for tensors on the CPU;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
 integer products go through :func:`repro_torch.core.coupling.int_matmul`,
-which is exact (tolerance 0) on both devices.
+which is exact (tolerance 0) on both devices; kernel 8 is a float32 product,
+held to the bound of reordered float32 summation.
 """
 
 from __future__ import annotations
@@ -19,9 +21,30 @@ from repro_torch.core.coupling import int_matmul
 
 
 def coupling_sum_ref(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """S = σ Wᵀ: (B, N) int8 spins × (M, N) int8 weights → (B, M) int32."""
+    """S = σ Wᵀ: (B, N) int8 spins × (M, N) int8 weights → (B, M) int32;
+    per instance, (I, B, N) × (I, M, N) → (I, B, M)."""
     require_int_dtype(w, "w")
     return int_matmul(sigma, w)
+
+
+def onn_step_ref(w: torch.Tensor, sigma: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """σ' = sign(σWᵀ + h) as int8, where S + h == 0 keeps σ (W square)."""
+    s = coupling_sum_ref(w, sigma) + require_int_dtype(bias, "bias").to(torch.int32)[None, :]
+    return torch.where(s > 0, 1, torch.where(s < 0, -1, sigma.to(torch.int32))).to(torch.int8)
+
+
+def quantized_matvec_ref(w_q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = (x W_qᵀ) · scale in float32: ``w_q`` (M, K) int8, ``scale`` (M,)
+    float32, ``x`` (B, K) float32 → (B, M) float32.
+
+    The product is one float32 matrix product, so its error against exact
+    arithmetic is that of float32 summation, |err| ≤ K · 2⁻²⁴ · |scale_m| ·
+    Σ_k |x_bk · w_mk| per element, in any summation order.  The caller keeps
+    TF32 off (``torch.backends.cuda.matmul.allow_tf32``, False by default).
+    """
+    require_int_dtype(w_q, "w_q")
+    acc = torch.matmul(x.to(torch.float32), w_q.to(torch.float32).t())
+    return acc * scale.to(torch.float32)[None, :]
 
 
 def _align(s: torch.Tensor, phase: torch.Tensor, half: int) -> torch.Tensor:
@@ -51,15 +74,16 @@ def hybrid_coupling_sum_ref(w: torch.Tensor, sigma: torch.Tensor, parallel: int)
     An explicit loop over the ``ceil(N / parallel)`` passes: each pass adds
     a ``parallel``-wide column slice of every row (the last one ragged when
     ``parallel`` does not divide N) into an int32 accumulator.  ``w`` is
-    (M, N), ``sigma`` (B, N) → (B, M) int32.
+    (M, N), ``sigma`` (B, N) → (B, M) int32; per instance, ``w`` (I, M, N),
+    ``sigma`` (I, B, N) → (I, B, M).
     """
     if parallel <= 0:
         raise ValueError(f"parallel must be positive, got {parallel}")
     require_int_dtype(w, "w")
-    n = w.shape[1]
-    acc = torch.zeros((sigma.shape[0], w.shape[0]), dtype=torch.int32, device=sigma.device)
+    n = w.shape[-1]
+    acc = torch.zeros((*sigma.shape[:-1], w.shape[-2]), dtype=torch.int32, device=sigma.device)
     for start in range(0, n, parallel):
-        acc = acc + int_matmul(sigma[:, start:start + parallel], w[:, start:start + parallel])
+        acc = acc + int_matmul(sigma[..., start:start + parallel], w[..., start:start + parallel])
     return acc
 
 

@@ -5,7 +5,9 @@ so it runs on the GPU machine as it is::
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Every output is an integer and must be exactly equal (tolerance 0).
+Every integer output must be exactly equal (tolerance 0); kernel 8's float32
+output must lie within K · 2⁻²⁴ · |scale_m| · Σ_k |x_bk w_mk| of the exact
+value, element by element (the bound of K float32 roundings).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.core import dynamics as dyn
+from repro_torch.core import ising
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as plain
 
@@ -160,3 +163,99 @@ def test_mixed_devices_raise(cuda):
     w, bias, phase, sigma = _inputs(8, 2, seed=0, device=cuda)
     with pytest.raises(ValueError, match="different devices"):
         ops.coupling_sum(w, sigma.cpu())
+
+
+@pytest.mark.parametrize("b", [1, 63, 1024])
+@pytest.mark.parametrize("n", [1, 47, 129, 506])
+def test_onn_step_kernel_matches_plain(cuda, n, b):
+    """Kernel 2, ragged B and N, with and without a bias; a third of W's
+    columns zero so that ties (S + h == 0 keeps σ) occur."""
+    w, bias, _, sigma = _inputs(n, b, seed=3 * n + b, device=cuda)
+    ops.reset_launches()
+    for h in (bias, None):
+        hh = torch.zeros(n, dtype=torch.int32, device=cuda) if h is None else h
+        got = ops.onn_step(w, sigma, h)
+        assert got.dtype == torch.int8
+        assert torch.equal(got, plain.onn_step_ref(w, sigma, hh))
+    zero = torch.zeros_like(w)
+    assert torch.equal(ops.onn_step(zero, sigma), sigma)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["onn_step"] == 3
+
+
+def _qmv_error_ratio(got, x, wq, scale) -> float:
+    """Largest |got − exact| / bound over the elements; asserts ≤ 1."""
+    x64, w64, s64 = x.double(), wq.double(), scale.double()
+    exact = (x64 @ w64.T) * s64
+    bound = x.shape[-1] * 2.0**-24 * s64.abs() * (x64.abs() @ w64.abs().T)
+    err = (got.double() - exact).abs()
+    assert bool(torch.all(err <= bound)), float((err - bound).max())
+    return float((err / bound.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("b,m,k", [(1024, 506, 506), (8, 4096, 4096), (65, 100, 333), (1, 3, 40)])
+def test_quantized_matvec_kernel_within_fp32_bound(cuda, b, m, k):
+    """Kernel 8 at the two chip_smoke shapes (GEMM and GEMV regimes, both
+    tiles) and ragged ones, per-row and scalar scale; TF32 stays off for the
+    plain version, as PyTorch's default."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(b + m + k)
+    wq = torch.randint(-15, 16, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand((m,), generator=g, device=cuda) * 0.01 + 1e-4
+    x = torch.randn((b, k), generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.quantized_matvec(wq, scale, x)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, m)
+    _qmv_error_ratio(got, x, wq, scale)
+    _qmv_error_ratio(plain.quantized_matvec_ref(wq, scale, x), x, wq, scale)
+    got = ops.quantized_matvec(wq, 0.5, x)
+    _qmv_error_ratio(got, x, wq, torch.full((m,), 0.5, device=cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantized_matvec"] == 2
+
+
+@pytest.mark.parametrize("p", [None, 1, 5, 32, 506])
+@pytest.mark.parametrize("inst,b,m,n", [(3, 5, 13, 47), (3, 64, 32, 506), (16, 64, 32, 506)])
+def test_batched_coupling_sums_match_plain(cuda, inst, b, m, n, p):
+    """Kernels 1 and 6 with an instance axis (M < 64, the Max-Cut slabs)
+    against the plain version and against one 2-d launch per instance."""
+    g = torch.Generator(device=cuda).manual_seed(inst + b + m + n)
+    w = torch.randint(-15, 16, (inst, m, n), generator=g, device=cuda, dtype=torch.int8)
+    sigma = torch.randint(0, 2, (inst, b, n), generator=g, device=cuda, dtype=torch.int8) * 2 - 1
+    ops.reset_launches()
+    if p is None:
+        got, want = ops.coupling_sum(w, sigma), plain.coupling_sum_ref(w, sigma)
+        each = [ops.coupling_sum(w[i], sigma[i]) for i in range(inst)]
+        key = "coupling_sum"
+    else:
+        got = ops.hybrid_coupling_sum(w, sigma, parallel=p)
+        want = plain.hybrid_coupling_sum_ref(w, sigma, p)
+        each = [ops.hybrid_coupling_sum(w[i], sigma[i], parallel=p) for i in range(inst)]
+        key = "hybrid_coupling_sum"
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.stack(each))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[f"{key}_batched"] == 1 and ops.LAUNCHES[key] == inst
+
+
+@pytest.mark.parametrize("route", [dict(backend="kernel"),
+                                   dict(backend="hybrid", hybrid_impl="kernel")])
+def test_maxcut_on_card_equals_cpu(cuda, route):
+    """One Max-Cut solve through MaxCutSolver on the card (kernel 1 or 6 with
+    the instance axis, one launch per group) equals the CPU on every field;
+    the uniforms come from one CPU generator seed for both."""
+    n, inst = 129, 4
+    adj = torch.stack([ising.random_graph(torch.Generator().manual_seed(i), n) for i in range(inst)])
+    kw = dict(sweeps=12, replicas=8, stagnation=3, settle_chunk=4, **route)
+    ops.reset_launches()
+    got = api.MaxCutSolver(**kw).solve(adj, key=torch.Generator().manual_seed(7))
+    want = api.MaxCutSolver(**kw, device="cpu").solve(adj, key=torch.Generator().manual_seed(7))
+    for f in ising.MaxCutResult._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    key = "hybrid_coupling_sum_batched" if route["backend"] == "hybrid" else "coupling_sum_batched"
+    assert ops.LAUNCHES[key] > 0 and ops.LAUNCHES[key] % 16 == 0
+    w = ising.maxcut_couplings(adj[0].to(cuda)).values
+    sig = got.sigma[0]
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(dyn.async_sweep(w, sig, order).cpu(),
+                       dyn.async_sweep(w.cpu(), sig.cpu(), order))

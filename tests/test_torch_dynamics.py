@@ -190,12 +190,18 @@ def test_padding_is_exact_and_matches_reference():
 
 
 def test_unported_routes_raise_not_implemented():
-    """Only ``async_sweep`` (the Ising slice) is still unported; ``step`` on an
-    rtl config is refused as in the reference; the rtl and hybrid routes that
-    used to raise now run, and ``run`` equals the batched lane."""
+    """Only the engine adapter of the Max-Cut solver is still unported
+    (``MaxCutSolver.as_engine_solver`` names its ROADMAP item); ``step`` on
+    an rtl config is refused as in the reference; the rtl, hybrid and
+    ``async_sweep`` routes that used to raise now run, and ``run`` equals the
+    batched lane."""
+    from repro_torch import api as port_api
+
     w, bias, sigma = problem(16, 2, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_dyn.async_sweep(torch.as_tensor(w), torch.as_tensor(sigma[0]), torch.arange(16))
+        port_api.MaxCutSolver(device="cpu").as_engine_solver()
+    swept = port_dyn.async_sweep(torch.as_tensor(w), torch.as_tensor(sigma[0]), torch.arange(16))
+    assert swept.shape == (16,) and swept.dtype == torch.int8
     with pytest.raises(ValueError, match="functional"):
         cfg = port_dyn.ONNConfig(n=16, mode="rtl")
         port_dyn.step(cfg, port_dyn.make_params(cfg, w, device="cpu"),

@@ -1,6 +1,7 @@
-"""The port's four kernel wrappers against ``repro.kernels.ops`` (Pallas in
-interpret mode on the CPU), on the same numpy inputs.  Every output is an
-integer and must be exactly equal.
+"""The port's kernel wrappers against ``repro.kernels.ops`` (Pallas in
+interpret mode on the CPU) and ``repro.kernels.ref``, on the same numpy
+inputs.  Every integer output must be exactly equal; kernel 8's float32
+output must lie within the bound of float32 summation of the exact value.
 
 On the CPU the wrappers run the plain versions (``repro_torch.kernels.ref``).
 The hand-written CUDA kernels are held against those plain versions on the
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels as port_kernels
 from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
 from repro_torch.kernels import autotune
 from repro_torch.kernels import ops
 
@@ -203,4 +206,137 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sigma))
     ops.phase_step(torch.as_tensor(w), torch.as_tensor(sigma), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF)
     ops.phase_step_packed(torch.as_tensor(w), torch.as_tensor(bias), torch.as_tensor(phase), half=HALF)
+    ops.onn_step(torch.as_tensor(w), torch.as_tensor(sigma), torch.as_tensor(bias))
+    ops.quantized_matvec(torch.as_tensor(w), 0.5, torch.as_tensor(phase).float())
+    ops.coupling_sum(torch.as_tensor(w)[None], torch.as_tensor(sigma)[None])
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: onn_step, σ' = sign(σWᵀ + h), ties keep σ (exact)
+# ---------------------------------------------------------------------------
+
+#: (B, N) shapes of the reference's own kernel tests (tests/test_kernels.py).
+SHAPES_BN = [(1, 9), (4, 48), (8, 128), (3, 506), (16, 512), (100, 484), (257, 130)]
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b,n", SHAPES_BN)
+def test_onn_step_matches_pallas_and_ref(b, n, with_bias):
+    rng = np.random.default_rng(b * 7 + n)
+    w = rng.integers(-15, 16, (n, n)).astype(np.int8)
+    w[:, : n // 3] = 0  # many exact ties: S + h == 0 keeps σ
+    sig = rng.choice([-1, 1], (b, n)).astype(np.int8)
+    bias = rng.integers(-2, 3, (n,)).astype(np.int32) if with_bias else None
+    got = port_kernels.onn_step(
+        torch.as_tensor(w), torch.as_tensor(sig), None if bias is None else torch.as_tensor(bias))
+    jb = None if bias is None else jnp.asarray(bias)
+    same(got, ref_ops.onn_step(jnp.asarray(w), jnp.asarray(sig), jb, use_pallas=True))
+    same(got, ref_ref.onn_step_ref(jnp.asarray(w), jnp.asarray(sig), jb))
+    assert got.dtype == torch.int8
+    same(ops.onn_step(torch.as_tensor(w), torch.as_tensor(sig[0])),
+         ref_ops.onn_step(jnp.asarray(w), jnp.asarray(sig[0]), use_pallas=True))
+
+
+def test_onn_step_zero_weights_keep_every_spin():
+    n = 16
+    sig = np.random.default_rng(0).choice([-1, 1], (4, n)).astype(np.int8)
+    w = np.zeros((n, n), np.int8)
+    got = ops.onn_step(torch.as_tensor(w), torch.as_tensor(sig))
+    same(got, sig)
+    same(got, ref_ops.onn_step(jnp.asarray(w), jnp.asarray(sig), use_pallas=True))
+    with pytest.raises(ValueError, match="square"):
+        ops.onn_step(torch.zeros((4, 6), dtype=torch.int8), torch.ones((2, 6), dtype=torch.int8))
+    with pytest.raises(TypeError):
+        ops.onn_step(torch.zeros((4, 4)), torch.ones((2, 4), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8: quantized_matvec, within the float32 summation bound
+# ---------------------------------------------------------------------------
+
+
+def within_fp32_bound(got, x, wq, scale) -> float:
+    """Assert |got − exact| ≤ K · 2⁻²⁴ · |scale_m| · Σ_k |x_bk w_mk| for
+    every element (the bound of K float32 roundings, in any order); return
+    the largest ratio of error to bound."""
+    g = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    x64, w64 = np.asarray(x, np.float64), np.asarray(wq, np.float64)
+    s64 = np.broadcast_to(np.asarray(scale, np.float64), (w64.shape[0],))
+    exact = (x64 @ w64.T) * s64
+    bound = x64.shape[-1] * 2.0**-24 * np.abs(s64) * (np.abs(x64) @ np.abs(w64).T)
+    err = np.abs(g.astype(np.float64) - exact)
+    assert np.all(err <= bound), float(np.max(err - bound))
+    return float(np.max(err / np.where(bound > 0, bound, 1.0)))
+
+
+@pytest.mark.parametrize("b,m,k", [(1, 256, 512), (4, 100, 300), (8, 512, 1024), (2, 384, 640)])
+def test_quantized_matvec_within_fp32_bound(b, m, k):
+    rng = np.random.default_rng(m + k)
+    wq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    scale = (rng.random((m,)) * 0.01 + 1e-4).astype(np.float32)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    got = port_kernels.quantized_matvec(torch.as_tensor(wq), torch.as_tensor(scale), torch.as_tensor(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, m)
+    within_fp32_bound(got, x, wq, scale)
+    for want in (
+        ref_ops.quantized_matvec(jnp.asarray(wq), jnp.asarray(scale), jnp.asarray(x), use_pallas=True),
+        ref_ref.quantized_matvec_ref(jnp.asarray(wq), jnp.asarray(scale), jnp.asarray(x)),
+    ):
+        within_fp32_bound(want, x, wq, scale)  # both sides hold the same bound
+    one = ops.quantized_matvec(torch.as_tensor(wq), torch.as_tensor(scale), torch.as_tensor(x[0]))
+    assert tuple(one.shape) == (m,)
+    within_fp32_bound(one[None], x[:1], wq, scale)
+
+
+def test_quantized_matvec_scalar_scale():
+    rng = np.random.default_rng(3)
+    wq = rng.integers(-127, 128, (128, 256)).astype(np.int8)
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    for scale in (0.5, torch.tensor(0.5)):
+        got = ops.quantized_matvec(torch.as_tensor(wq), scale, torch.as_tensor(x))
+        within_fp32_bound(got, x, wq, 0.5)
+    want = ref_ops.quantized_matvec(jnp.asarray(wq), jnp.float32(0.5), jnp.asarray(x), use_pallas=True)
+    within_fp32_bound(want, x, wq, 0.5)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.quantized_matvec(torch.as_tensor(wq), 0.5, torch.as_tensor(x[:, :100]))
+
+
+def test_qmv_tile_choice_fits_shared_memory():
+    assert autotune.qmv_lanes_per_tile(8) == 16 and autotune.qmv_lanes_per_tile(16) == 16
+    assert autotune.qmv_lanes_per_tile(17) == 64 and autotune.qmv_lanes_per_tile(1024) == 64
+    assert max(autotune.qmv_smem_bytes(lanes) for lanes in autotune.QMV_LANES) <= 48 * 1024
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 6 with an instance axis: one W per instance (exact)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("parallel", [None, 1, 5, 32])
+@pytest.mark.parametrize("inst,b,m,n", [(1, 3, 12, 12), (3, 4, 7, 33), (16, 5, 32, 129)])
+def test_batched_coupling_sums_match_per_instance_pallas(inst, b, m, n, parallel):
+    rng = np.random.default_rng(inst * 100 + m + n)
+    w = rng.integers(-15, 16, (inst, m, n)).astype(np.int8)
+    sig = rng.choice([-1, 1], (inst, b, n)).astype(np.int8)
+    if parallel is None:
+        got = ops.coupling_sum(torch.as_tensor(w), torch.as_tensor(sig))
+        wants = [ref_ops.coupling_sum(jnp.asarray(w[i]), jnp.asarray(sig[i]), use_pallas=True)
+                 for i in range(inst)]
+    else:
+        got = ops.hybrid_coupling_sum(torch.as_tensor(w), torch.as_tensor(sig), parallel=parallel)
+        wants = [ref_ops.hybrid_coupling_sum(jnp.asarray(w[i]), jnp.asarray(sig[i]),
+                                             parallel=parallel, use_pallas=True)
+                 for i in range(inst)]
+    assert tuple(got.shape) == (inst, b, m) and got.dtype == torch.int32
+    same(got, np.stack([np.asarray(x) for x in wants]))
+
+
+def test_batched_coupling_sum_rejects_mismatched_instances():
+    w = torch.zeros((3, 4, 6), dtype=torch.int8)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.coupling_sum(w, torch.ones((2, 5, 6), dtype=torch.int8))
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.hybrid_coupling_sum(w, torch.ones((3, 5, 7), dtype=torch.int8), parallel=2)
+    with pytest.raises(ValueError, match="weights must be"):
+        ops.coupling_sum(torch.zeros((1, 3, 4, 6), dtype=torch.int8), torch.ones((6,), dtype=torch.int8))
