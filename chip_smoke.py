@@ -20,8 +20,10 @@ and prints one JSON line per phase:
    update ``onn_step`` (ties forced in 64 lanes); the quantized product
    ``quantized_matvec`` at (B, M, K) = (1024, 506, 506) on per-row quantized
    Hebbian weights and at (8, 4096, 4096), each element within the float32
-   summation bound of the exact value, against one ``torch.matmul`` on
-   pre-dequantized weights; the coupling sums with an instance axis at the
+   summation bound of the exact value, two calls bit-identical, with its
+   launch plan, against one ``torch.matmul`` on pre-dequantized weights,
+   and at the ragged (65, 100, 333) and (1, 3, 40) within the bound (not
+   timed); the coupling sums with an instance axis at the
    Max-Cut shape (16 instances, 64 replicas, 32-row slabs, P = 32);
 4. ``retrieve`` (twice, ``phase_pack`` off and on): ``RetrievalSolver`` at
    ``ONN_HYBRID_506`` on the kernel backend, 1024 corrupted requests on
@@ -128,6 +130,9 @@ FIELDS = ("final_phase", "final_sigma", "settle_cycle", "settled", "cycled")
 MC_INSTANCES, MC_REPLICAS, MC_SWEEPS, MC_STAGNATION, MC_CHUNK = 16, 64, 64, 16, 8
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
 QMV_GEMV = (8, 4096, 4096)
+#: Kernel 8's ragged shapes (B, M, K), held to the bound but not timed: one
+#: per regime, K unaligned so that both take the scalar load path.
+QMV_RAGGED = ((65, 100, 333), (1, 3, 40))
 
 
 def emit(obj) -> None:
@@ -169,7 +174,7 @@ SYMBOLS = {
     "phase_step_multi_packed": ("phase_step_multi_kernel<true", "phase_step_multi_kernelILb1E"),
     "hybrid_coupling_sum": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
     "hybrid_phase_step": ("coupling_gemm_kernel<1>", "coupling_gemm_kernelILi1E"),
-    "quantized_matvec": ("quantized_matvec_kernel<", "quantized_matvec_kernelILi"),
+    "quantized_matvec": ("qmv_gemv_kernel", "qmv_gemm_kernel"),
     "coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
     "hybrid_coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
 }
@@ -288,6 +293,13 @@ def fp32_error(got, x, wq, scale) -> tuple:
     bnd = x.shape[-1] * 2.0**-24 * s64.abs() * (x64.abs() @ w64.abs().T)
     err = (got.double() - exact).abs()
     return float(err.max()), float((err / bnd.clamp_min(1e-300)).max())
+
+
+def qmv_plan_dict(plan) -> dict:
+    """Kernel 8's launch plan as the ``kernels`` row reports it."""
+    return {"regime": plan.regime, "lanes": plan.lanes, "k_chunk": plan.k_chunk,
+            "splits": plan.splits, "vector": plan.vector, "grid": list(plan.grid),
+            "blocks": plan.blocks}
 
 
 def max_abs_err(got, want) -> int:
@@ -567,6 +579,10 @@ def main() -> None:
     per_shape = {}
     for label, (wq, scale, x) in qmv_shapes.items():
         got = ops.quantized_matvec(wq, scale, x)
+        again = ops.quantized_matvec(wq, scale, x)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"quantized_matvec {label}: two calls differ")
         err, ratio = fp32_error(got, x, wq, scale)
         p_err, p_ratio = fp32_error(plain.quantized_matvec_ref(wq, scale, x), x, wq, scale)
         require(ratio <= 1.0, f"quantized_matvec {label}: error {ratio} x its bound")
@@ -584,11 +600,24 @@ def main() -> None:
         per_shape[label] = {k: rows[name][k] for k in (
             "max_abs_err", "ms", "ms_of", "kernel_ms", "wrapper_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")}
+        plan = autotune.qmv_plan(b_, m_, k_, aligned=x.data_ptr() % 16 == 0
+                                 and wq.data_ptr() % 16 == 0)
         per_shape[label].update(error_bound_ratio=ratio, plain_max_abs_err=p_err,
-                                plain_error_bound_ratio=p_ratio,
-                                lanes_per_tile=autotune.qmv_lanes_per_tile(b_))
+                                plain_error_bound_ratio=p_ratio, bit_identical=True,
+                                plan=qmv_plan_dict(plan))
+    # The ragged shapes, both regimes on the scalar load path: the bound only.
+    ragged = {}
+    for qb, qm, qk in QMV_RAGGED:
+        wq = torch.randint(-127, 128, (qm, qk), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand((qm,), generator=g, device=dev) * 0.01 + 1e-4
+        x = torch.randn((qb, qk), generator=g, device=dev)
+        r_err, r_ratio = fp32_error(ops.quantized_matvec(wq, scale, x), x, wq, scale)
+        label_r = f"{qb}x{qm}x{qk}"
+        require(r_ratio <= 1.0, f"quantized_matvec {label_r}: error {r_ratio} x its bound")
+        ragged[label_r] = {"max_abs_err": r_err, "error_bound_ratio": r_ratio,
+                           "plan": qmv_plan_dict(autotune.qmv_plan(qb, qm, qk))}
     rows["quantized_matvec"].update(error_bound_ratio=ratio, shape=label, exact=False,
-                                    within_bound=True, per_shape=per_shape)
+                                    within_bound=True, per_shape=per_shape, ragged=ragged)
 
     # Kernels 1 and 6 with the instance axis, at the Max-Cut shape: one
     # 32-row slab of each instance's couplings against its 64 replicas.

@@ -141,6 +141,12 @@ class MaxCutSolver:
     every field through ``backend``; ``stagnation`` > 0 freezes a replica
     after that many sweeps without a better cut, checked every
     ``settle_chunk`` sweeps.
+
+    Every result field equals the reference's under the same draws for
+    integer edge weights.  For other weights the spins and sweep counts are
+    the reference's and ``cut_value``, ``trace`` and ``replica_cuts`` are
+    within 2 · (γ_E + 2⁻²⁴) · Σ_{i<j} |A_ij| of its values (float32 sums in
+    another order; see ``ising.cut_value_exact``).
     """
 
     sweeps: int = 64
@@ -186,8 +192,8 @@ class MaxCutSolver:
         )
 
     def as_engine_solver(self):
-        """Waits for the engine (ROADMAP.md, Open items, Next, item 2)."""
+        """Waits for the engine (ROADMAP.md, section 1, item 1)."""
         raise NotImplementedError(
             "MaxCutSolver.as_engine_solver needs the engine, which is not ported yet "
-            "(ROADMAP.md, Open items, Next, item 2: engine and serving)"
+            "(ROADMAP.md, section 1, item 1: the engine)"
         )

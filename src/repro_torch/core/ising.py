@@ -26,9 +26,12 @@ group, so a bucket-padded solve equals the unpadded one on the real
 vertices.  ``repro_torch.api.MaxCutSolver`` draws the uniforms from a
 ``torch.Generator``.
 
-Every ``MaxCutResult`` field is bit-exact with the reference under the same
-draws: the priority sort is stable, the best replica is the first maximum,
-and cut values are sums of integers below 2**24 (see :func:`cut_value_exact`).
+With integer edge weights every ``MaxCutResult`` field is bit-exact with the
+reference under the same draws: the priority sort is stable, the best
+replica is the first maximum, and cut values are sums of integers below
+2**24 (see :func:`cut_value_exact`).  With other weights the cut values are
+float32 sums in another order than the reference's, within the bound that
+:func:`cut_value_exact` states.
 """
 
 from __future__ import annotations
@@ -99,10 +102,15 @@ def cut_value_exact(adjacency: torch.Tensor, sigma: torch.Tensor) -> torch.Tenso
     """Weighted cut size Σ_{i<j} A_ij (1 − σ_i σ_j) / 2 in float32;
     ``adjacency`` (N, N), ``sigma`` (..., N).
 
-    0.5 · (total − σ A_triu σ), as the reference computes it.  With integer
-    weights whose total is below 2**24 — every 0/1 graph up to N = 5,793, and
-    at N = 506 at most N(N−1)/2 = 127,765 edges — every partial sum is an
-    integer below 2**24, so the float32 result is exact in any order.
+    0.5 · (total − σ A_triu σ), as the reference computes it.  Exact for
+    integer weights only: when their total is below 2**24 — every 0/1 graph
+    up to N = 5,793, and at N = 506 at most N(N−1)/2 = 127,765 edges — every
+    partial sum is an integer below 2**24, so the float32 result is exact in
+    any order.  For other weights the sums round, in torch's order here and
+    in XLA's einsum order in the reference: each result is within
+    (γ_E + 2⁻²⁴) · Σ_{i<j} |A_ij| of the exact cut, E the number of nonzero
+    A_ij (i < j) and γ_E = E·2⁻²⁴ / (1 − E·2⁻²⁴), so the two packages differ
+    by at most twice that.
     """
     a = torch.triu(adjacency.to(torch.float32), diagonal=1)
     return 0.5 * (a.sum() - _pair_sums(sigma.to(torch.float32), a))

@@ -40,21 +40,40 @@ but stays exact).
 **Kernel 8** (``csrc/quantized_matvec.cu``) multiplies float32 activations
 by int8 weights on the CUDA cores (no tensor cores: float32 FMA keeps the
 error bound of float32 summation).  The TPU package's ``k_minimum=128`` and
-its (8, 128) blocks follow the TPU's vector tiling and do not carry over.  A
-block of 256 threads owns :data:`QMV_ROWS` = 64 output rows and walks the
-contraction in :data:`QMV_K` = 32-element slabs of x and of W (widened to
-float32), each stored k-major with an odd pitch::
+its (8, 128) blocks follow the TPU's vector tiling and do not carry over.
+:func:`qmv_plan` picks one of two regimes, the K chunk each block owns and
+whether the 16-byte vector path may run:
 
-    qmv_smem_bytes(lanes) = 4 · QMV_K · (lanes + 1) + 4 · QMV_K · (QMV_ROWS + 1)
+* **GEMV** (B ≤ :data:`QMV_GEMV_MAX_B`), bound by the bytes of W.  A block
+  of 256 threads owns :data:`QMV_GEMV_ROWS` = 128 output rows and one K
+  chunk; eight threads share a row group, each loading 16 bytes of W per
+  step (:data:`QMV_GEMV_KSTEP` = 128 bytes of a row per step).  The batch is
+  rounded up to a power of two (``lanes``), the kernel's template size.  x's
+  chunk sits in dynamic shared memory with each 16 floats padded to 20::
 
-17 KB at 64 lanes, inside the 48 KB of static shared memory, so several
-blocks share an SM.  The lanes per tile are the one choice
-(:func:`qmv_lanes_per_tile`): 64 (4 × 4 outputs a thread) when the batch
-fills them, 16 (1 × 4) for a batch of at most 16 — the GEMV regime, where a
-64-lane tile would spend three quarters of its FMAs on masked lanes.
+      qmv_gemv_smem_bytes(lanes, k_chunk) = 4 · lanes · (k_chunk / 16) · 20
+
+  kept within the 48 KB that needs no opt-in.  The chunk is a multiple of
+  128, cut so that the grid is one wave at two blocks per SM (at most
+  2 · :data:`NUM_SMS` blocks: a second, partial wave costs more than it
+  spreads), or as narrow as one step where the shape is too small for that.
+* **GEMM** (B > 16), bound by operations.  A block owns 128 lanes × 128 rows
+  (8 × 8 per thread) and walks its chunk in double-buffered 32-wide slabs:
+  :data:`QMV_GEMM_SMEM` bytes of static shared memory.  K is split only
+  when the tile grid fills fewer than :data:`NUM_SMS` SMs, into chunks of at
+  least :data:`QMV_GEMM_MIN_K_CHUNK`.
+
+With more than one chunk the blocks of an output tile meet in a workspace of
+``splits · B · M`` float32 partial sums and one int32 counter per tile; the
+last to arrive sums the partials in chunk order, so results are bit-identical
+from call to call.  The vector path needs K % 16 == 0 and 16-byte aligned x
+and W; otherwise the kernels load W byte by byte and x by 4-byte copies.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
 
 #: Dynamic shared memory one block may use on an H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
@@ -113,19 +132,102 @@ def multi_lanes_per_block(n: int, batch: int) -> int:
     return bb
 
 
-#: Kernel 8's output rows per block and contraction slab (fixed in the source).
-QMV_ROWS = 64
-QMV_K = 32
-#: Kernel 8's lanes per block tile: the two instantiations of its template.
-QMV_LANES = (16, 64)
+#: Kernel 8: the largest batch of the GEMV regime, and its template sizes.
+QMV_GEMV_MAX_B = 16
+QMV_GEMV_LANES = (1, 2, 4, 8, 16)
+#: GEMV: output rows per block, and bytes of a W row per step of a row group.
+QMV_GEMV_ROWS = 128
+QMV_GEMV_KSTEP = 128
+#: Shared memory a block may use without an opt-in (kernel 8 stays within it).
+QMV_STATIC_SMEM = 48 * 1024
+#: GEMM: lanes and rows per block tile, slab width, smallest split-K chunk.
+QMV_GEMM_TILE = 128
+QMV_GEMM_BK = 32
+QMV_GEMM_MIN_K_CHUNK = 64
+#: Static shared memory of the split-K arrival flag, as compiled (16 bytes).
+QMV_FLAG_SMEM = 16
+#: GEMM static shared memory: two x slabs (128 × 36 float32) and two W slabs
+#: (128 × 36 bytes), plus the split-K arrival flag (46,096 bytes).
+QMV_GEMM_SMEM = (2 * QMV_GEMM_TILE * (QMV_GEMM_BK + 4) * 4 + 2 * QMV_GEMM_TILE * (QMV_GEMM_BK + 4)
+                 + QMV_FLAG_SMEM)
+#: Grid limit of the split axis (gridDim.y).
+_MAX_GRID_Y = 65_535
 
 
-def qmv_smem_bytes(lanes: int) -> int:
-    """Static shared memory of one kernel-8 block with ``lanes`` lanes."""
-    return 4 * QMV_K * (lanes + 1) + 4 * QMV_K * (QMV_ROWS + 1)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def qmv_lanes_per_tile(batch: int) -> int:
-    """Lanes per block tile of kernel 8 for a batch of ``batch`` rows of x:
-    the narrow tile when the batch fits it, else the wide one."""
-    return QMV_LANES[0] if batch <= QMV_LANES[0] else QMV_LANES[1]
+def qmv_gemv_smem_bytes(lanes: int, k_chunk: int) -> int:
+    """Dynamic shared memory of one GEMV block: x's chunk, 16 floats padded to 20."""
+    return 4 * lanes * (k_chunk // 16) * 20
+
+
+@dataclasses.dataclass(frozen=True)
+class QmvPlan:
+    """One launch of kernel 8: the regime, the GEMV template size (``lanes``;
+    0 in the GEMM regime), the K chunk each block owns and their number
+    (``splits``), and whether the 16-byte vector path runs."""
+
+    batch: int
+    m: int
+    k: int
+    regime: str  # "gemv" or "gemm"
+    lanes: int
+    k_chunk: int
+    splits: int
+    vector: bool
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(row tiles, K chunks, lane tiles), as the kernel launches it."""
+        if self.regime == "gemv":
+            return (_cdiv(self.m, QMV_GEMV_ROWS), self.splits, 1)
+        return (_cdiv(self.m, QMV_GEMM_TILE), self.splits, _cdiv(self.batch, QMV_GEMM_TILE))
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def smem_bytes(self) -> int:
+        if self.regime == "gemv":
+            return qmv_gemv_smem_bytes(self.lanes, self.k_chunk) + QMV_FLAG_SMEM
+        return QMV_GEMM_SMEM
+
+    @property
+    def counters(self) -> int:
+        """int32 arrival counters (one per output tile) when K is split."""
+        gx, _, gz = self.grid
+        return gx * gz if self.splits > 1 else 0
+
+    @property
+    def workspace(self) -> int:
+        """float32 partial sums (splits, B, M) when K is split."""
+        return self.splits * self.batch * self.m if self.splits > 1 else 0
+
+
+def qmv_plan(batch: int, m: int, k: int, *, aligned: bool = True) -> QmvPlan:
+    """Kernel 8's launch for x (batch, k) · W_q (m, k)ᵀ; ``aligned`` says
+    that both base pointers are 16-byte aligned."""
+    vector = aligned and k % 16 == 0
+    if batch <= QMV_GEMV_MAX_B:
+        lanes = next(n for n in QMV_GEMV_LANES if n >= batch)
+        step = QMV_GEMV_KSTEP
+        widest = (QMV_STATIC_SMEM - QMV_FLAG_SMEM) // (4 * lanes * 20) * 16 // step * step
+        want = max(1, 2 * NUM_SMS // _cdiv(m, QMV_GEMV_ROWS))
+        k_chunk = min(widest, max(step, _cdiv(_cdiv(k, want), step) * step))
+        regime = "gemv"
+    else:
+        lanes, step = 0, QMV_GEMM_BK
+        tiles = _cdiv(m, QMV_GEMM_TILE) * _cdiv(batch, QMV_GEMM_TILE)
+        if tiles >= NUM_SMS:
+            k_chunk = max(step, _cdiv(k, step) * step)
+        else:
+            per = _cdiv(_cdiv(k, _cdiv(NUM_SMS, tiles)), step) * step
+            k_chunk = max(QMV_GEMM_MIN_K_CHUNK, per)
+        regime = "gemm"
+    k_chunk = max(k_chunk, _cdiv(_cdiv(k, _MAX_GRID_Y), step) * step)
+    splits = max(1, _cdiv(k, k_chunk))
+    return QmvPlan(batch, m, k, regime, lanes, k_chunk, splits, vector)

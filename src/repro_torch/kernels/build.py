@@ -43,7 +43,7 @@ SOURCES: Dict[str, Dict[str, List]] = {
         ],
     },
     "quantized_matvec": {
-        "onn_quantized_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "onn_quantized_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -397,7 +397,11 @@ def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
     ``w_q`` (M, K) int8; ``x`` (K,) or (..., K), cast to float32 → (..., M)
     float32.  Each element is within K · 2⁻²⁴ · |scale_m| · Σ_k |x_k w_mk|
     of the exact value (float32 summation, in the kernel's order on the
-    card and the matmul's on the CPU).  One launch per call.
+    card and the matmul's on the CPU).  One launch per call, planned by
+    :func:`~repro_torch.kernels.autotune.qmv_plan`; when it splits K, the
+    wrapper also allocates the partial sums and the zeroed arrival counters,
+    and the kernel sums the partials in a fixed order, so two calls on the
+    same inputs give the same bits.
     """
     require_int_dtype(w_q, "w_q")
     m, k = w_q.shape
@@ -414,11 +418,19 @@ def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
         b = x2d.shape[0]
         _check_extent(b * k, m * k, b * m)
         w8, x2d, s = (t.contiguous() for t in (w_q.to(torch.int8), x2d, scale_full))
+        aligned = x2d.data_ptr() % 16 == 0 and w8.data_ptr() % 16 == 0
+        plan = autotune.qmv_plan(b, m, k, aligned=aligned)
         out = torch.empty((b, m), dtype=torch.float32, device=x2d.device)
+        partial = counters = None
+        if plan.splits > 1:
+            partial = torch.empty((plan.workspace,), dtype=torch.float32, device=x2d.device)
+            counters = torch.zeros((plan.counters,), dtype=torch.int32, device=x2d.device)
         _launch(
             "quantized_matvec", "onn_quantized_matvec", x2d.device,
-            x2d.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), b, m, k,
-            autotune.qmv_lanes_per_tile(b),
+            x2d.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, m, k, plan.lanes, plan.k_chunk, plan.splits, int(plan.vector),
         )
         LAUNCHES["quantized_matvec"] += 1
     return out.reshape(*batch_shape, m)

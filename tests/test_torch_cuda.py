@@ -193,16 +193,30 @@ def _qmv_error_ratio(got, x, wq, scale) -> float:
     return float((err / bound.clamp_min(1e-300)).max())
 
 
-@pytest.mark.parametrize("b,m,k", [(1024, 506, 506), (8, 4096, 4096), (65, 100, 333), (1, 3, 40)])
+#: Kernel 8's shapes on the card, one or more per branch of its planner
+#: (``autotune.qmv_plan``): the two chip_smoke shapes (GEMM split-K with
+#: K = 506 unaligned, GEMV split-K on the vector path), ragged ones, the
+#: GEMV edge B = 16 and the GEMM edge B = 17 with unaligned K, GEMV and GEMM
+#: split-K on the vector path, and GEMM grids of at least 132 tiles (no
+#: split) on both load paths.
+QMV_SHAPES = [(1024, 506, 506), (8, 4096, 4096), (65, 100, 333), (1, 3, 40), (16, 506, 506),
+              (17, 506, 506), (3, 300, 1024), (40, 200, 256), (1408, 1536, 64), (1536, 1536, 40)]
+
+
+def _qmv_inputs(b, m, k, device):
+    g = torch.Generator(device=device).manual_seed(b + m + k)
+    wq = torch.randint(-15, 16, (m, k), generator=g, device=device, dtype=torch.int8)
+    scale = torch.rand((m,), generator=g, device=device) * 0.01 + 1e-4
+    x = torch.randn((b, k), generator=g, device=device)
+    return wq, scale, x
+
+
+@pytest.mark.parametrize("b,m,k", QMV_SHAPES)
 def test_quantized_matvec_kernel_within_fp32_bound(cuda, b, m, k):
-    """Kernel 8 at the two chip_smoke shapes (GEMM and GEMV regimes, both
-    tiles) and ragged ones, per-row and scalar scale; TF32 stays off for the
-    plain version, as PyTorch's default."""
+    """Kernel 8 at one shape per planner branch, per-row and scalar scale;
+    TF32 stays off for the plain version, as PyTorch's default."""
     assert not torch.backends.cuda.matmul.allow_tf32
-    g = torch.Generator(device=cuda).manual_seed(b + m + k)
-    wq = torch.randint(-15, 16, (m, k), generator=g, device=cuda, dtype=torch.int8)
-    scale = torch.rand((m,), generator=g, device=cuda) * 0.01 + 1e-4
-    x = torch.randn((b, k), generator=g, device=cuda)
+    wq, scale, x = _qmv_inputs(b, m, k, cuda)
     ops.reset_launches()
     got = ops.quantized_matvec(wq, scale, x)
     assert got.dtype == torch.float32 and tuple(got.shape) == (b, m)
@@ -212,6 +226,25 @@ def test_quantized_matvec_kernel_within_fp32_bound(cuda, b, m, k):
     _qmv_error_ratio(got, x, wq, torch.full((m,), 0.5, device=cuda))
     torch.cuda.synchronize()
     assert ops.LAUNCHES["quantized_matvec"] == 2
+
+
+@pytest.mark.parametrize("b,m,k", QMV_SHAPES)
+def test_quantized_matvec_kernel_two_calls_bit_identical(cuda, b, m, k):
+    """Two calls on the same inputs give the same bits (split-K partials are
+    summed in chunk order, never by float atomics), also with x and W at
+    addresses that are not 16-byte aligned (the scalar load path)."""
+    wq, scale, x = _qmv_inputs(b, m, k, cuda)
+    first = ops.quantized_matvec(wq, scale, x)
+    second = ops.quantized_matvec(wq, scale, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    x_off = torch.empty(b * k + 1, device=cuda)[1:].view(b, k)
+    w_off = torch.empty(m * k + 1, device=cuda, dtype=torch.int8)[1:].view(m, k)
+    x_off.copy_(x)
+    w_off.copy_(wq)
+    shifted = ops.quantized_matvec(w_off, scale, x_off)
+    _qmv_error_ratio(shifted, x, wq, scale)
+    assert torch.equal(shifted.view(torch.int32), ops.quantized_matvec(w_off, scale, x_off).view(torch.int32))
 
 
 @pytest.mark.parametrize("p", [None, 1, 5, 32, 506])

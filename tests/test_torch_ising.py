@@ -5,9 +5,12 @@ sequential oracle), ``dynamics.async_sweep``, the batched ``weighted_sum``
 and ``api.MaxCutSolver`` are fed the same graphs and the same random draws
 as ``repro``: the reference draws from JAX keys, and :func:`reference_draws`
 rebuilds those uniforms with the reference's own functions and hands them to
-the port, which draws nothing itself.  Every ``MaxCutResult`` field must be
-equal, value and dtype (tolerance 0): spins, cut values and traces are
-integers or float32 sums of integers below 2**24.
+the port, which draws nothing itself.  On 0/1 graphs every ``MaxCutResult``
+field must be equal, value and dtype (tolerance 0): spins, cut values and
+traces are integers or float32 sums of integers below 2**24.  On graphs with
+non-integer weights the spins and sweep counts must be equal and the cut
+fields agree within the float32 bound of :func:`cut_bound` (the two packages
+sum in different orders).
 
 These tests hold the port to the reference's output under the same draws,
 not to optimality (ROADMAP, faults of the reference, item 2).  The reference
@@ -206,6 +209,82 @@ def test_staggered_sweep_matches_reference():
                                     frozen=torch.as_tensor(frozen))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got[1].numpy(), sig[1])  # a frozen replica stays
+
+
+def weighted_graphs(seed: int, instances: int, n: int) -> np.ndarray:
+    """(I, n, n) symmetric float32 adjacencies, zero diagonal: each pair an
+    edge with probability 0.5 and weight U[0, 1), from numpy's generator."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(instances):
+        a = rng.random((n, n), dtype=np.float32) * (rng.random((n, n)) < 0.5)
+        a = np.triu(a, 1)
+        out.append(a + a.T)
+    return np.stack(out).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_weighted_solve(seed, n, instances, replicas=4, sweeps=16, settle_chunk=2,
+                             stagnation=2):
+    adj = weighted_graphs(seed, instances, n)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 1_000)
+    cfg = ref_dyn.ONNConfig(n=n, max_cycles=sweeps, settle_chunk=settle_chunk)
+    res = ref_ising.solve_maxcut_batch(cfg, jnp.asarray(adj), key, replicas=replicas,
+                                       stagnation=stagnation)
+    init, per_sweep = reference_draws(key, instances, replicas, n, sweeps)
+    return adj, init, per_sweep, {f: np.asarray(getattr(res, f)) for f in res._fields}
+
+
+def cut_bound(adj: np.ndarray) -> np.ndarray:
+    """(I,) bound on |port − reference| for any float32 cut of each instance.
+
+    A cut is 0.5 · fl(T − P), T = Σ_{i<j} A_ij and P = σ A_triu σ.  Each of
+    T and P adds the E nonzero entries of A_triu (σ = ±1 and the zeros add
+    no rounding), so in any order each is within γ_E · S of its exact value,
+    S = Σ_{i<j} |A_ij|, γ_E = E·u / (1 − E·u), u = 2⁻²⁴ (a sum tree over E
+    terms is at most E − 1 deep); the subtraction adds u·|T − P| ≤ 2u·S
+    and the halving is exact.  So one side is within (γ_E + u) · S of the
+    exact cut, and the two sides differ by at most 2 · (γ_E + u) · S.
+    """
+    tri = np.triu(np.abs(adj.astype(np.float64)), 1)
+    s, e = tri.sum((-2, -1)), (tri != 0).sum((-2, -1))
+    u = 2.0**-24
+    return 2.0 * (e * u / (1.0 - e * u) + u) * s
+
+
+def assert_weighted_within_bound(got: ising.MaxCutResult, want: dict, adj, what: str) -> None:
+    for f in ("sigma", "sweeps_run"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), want[f], err_msg=f"{what} {f}")
+    bound = cut_bound(adj)
+    for f in ("cut_value", "trace", "replica_cuts"):
+        g, w = getattr(got, f).numpy(), want[f]
+        assert g.dtype == w.dtype == np.float32 and g.shape == w.shape, (what, f)
+        err = np.abs(g.astype(np.float64) - w).reshape(len(bound), -1).max(-1)
+        assert np.all(err <= bound), (what, f, err, bound)
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_weighted_graphs_match_reference_within_bound(route):
+    """Non-integer edge weights (U[0, 1) at density 0.5), seeds 0-19, n = 24,
+    2 instances, 4 replicas, 16 sweeps, settle_chunk 2, stagnation 2, under
+    the reference's own draws.  ``sigma`` and ``sweeps_run`` must be equal;
+    ``cut_value``, ``trace`` and ``replica_cuts`` are float32 sums taken in
+    torch's order here and in XLA's einsum order there, and must agree
+    within :func:`cut_bound`: 2 · (γ_E + 2⁻²⁴) · Σ_{i<j} |A_ij|, with E the
+    instance's edge count and γ_E = E·2⁻²⁴ / (1 − E·2⁻²⁴)."""
+    for seed in range(20):
+        adj, init, per_sweep, want = reference_weighted_solve(seed, 24, 2)
+        got = port_solve(route, adj, init, per_sweep, stagnation=2, settle_chunk=2)
+        assert_weighted_within_bound(got, want, adj, f"{route} seed {seed}")
+
+
+def test_weighted_graphs_at_n40_match_reference_within_bound():
+    """The same check at n = 40 with 3 instances (seeds 0-4), every route."""
+    for seed in range(5):
+        adj, init, per_sweep, want = reference_weighted_solve(seed, 40, 3)
+        for route in ROUTES:
+            got = port_solve(route, adj, init, per_sweep, stagnation=2, settle_chunk=2)
+            assert_weighted_within_bound(got, want, adj, f"{route} seed {seed}")
 
 
 # ---------------------------------------------------------------------------

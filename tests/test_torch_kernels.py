@@ -302,10 +302,68 @@ def test_quantized_matvec_scalar_scale():
         ops.quantized_matvec(torch.as_tensor(wq), 0.5, torch.as_tensor(x[:, :100]))
 
 
-def test_qmv_tile_choice_fits_shared_memory():
-    assert autotune.qmv_lanes_per_tile(8) == 16 and autotune.qmv_lanes_per_tile(16) == 16
-    assert autotune.qmv_lanes_per_tile(17) == 64 and autotune.qmv_lanes_per_tile(1024) == 64
-    assert max(autotune.qmv_smem_bytes(lanes) for lanes in autotune.QMV_LANES) <= 48 * 1024
+#: Kernel 8's planner shapes, one or more per branch: GEMV with K ragged,
+#: aligned and at the regime's edge (B = 16); GEMM just past it, ragged, and
+#: at the main path's shape.
+QMV_PLAN_SHAPES = [(1, 3, 40), (8, 4096, 4096), (16, 506, 506), (17, 506, 506),
+                   (65, 100, 333), (1024, 506, 506)]
+
+
+@pytest.mark.parametrize("b,m,k", QMV_PLAN_SHAPES)
+def test_qmv_tile_choice_fits_shared_memory(b, m, k):
+    """Kernel 8's launch planner (pure Python; the kernel takes its plan):
+    the regime, K chunks that cover K exactly once, shared memory within a
+    block's budget, a GEMV grid of at least one block per SM where the
+    shape allows it, split-K in the GEMM regime only for a grid smaller than
+    the card, and the 16-byte vector path only where K and the alignment
+    allow it."""
+    for aligned in (True, False):
+        plan = autotune.qmv_plan(b, m, k, aligned=aligned)
+        gemv = b <= autotune.QMV_GEMV_MAX_B
+        assert plan.regime == ("gemv" if gemv else "gemm")
+        chunks = [(s * plan.k_chunk, min(k, (s + 1) * plan.k_chunk)) for s in range(plan.splits)]
+        assert chunks[0][0] == 0 and chunks[-1][1] == k
+        assert all(end == nxt for (_, end), (nxt, _) in zip(chunks, chunks[1:]))
+        assert all(end > start for start, end in chunks)
+        assert plan.splits == len(chunks) == plan.grid[1]
+        assert plan.smem_bytes <= autotune.QMV_STATIC_SMEM <= autotune.SMEM_PER_BLOCK
+        assert plan.workspace == (plan.splits * b * m if plan.splits > 1 else 0)
+        gx, _, gz = plan.grid
+        assert plan.counters == (gx * gz if plan.splits > 1 else 0)
+        if gemv:
+            assert plan.lanes in autotune.QMV_GEMV_LANES and b <= plan.lanes < max(2 * b, 2)
+            assert plan.k_chunk % autotune.QMV_GEMV_KSTEP == 0
+            assert gx * autotune.QMV_GEMV_ROWS >= m and gz == 1
+            # At least one block per SM, or chunks already one step wide.
+            assert plan.blocks >= autotune.NUM_SMS or plan.k_chunk == autotune.QMV_GEMV_KSTEP
+        else:
+            assert plan.lanes == 0 and plan.k_chunk % autotune.QMV_GEMM_BK == 0
+            assert gx * autotune.QMV_GEMM_TILE >= m and gz * autotune.QMV_GEMM_TILE >= b
+            if gx * gz >= autotune.NUM_SMS:
+                assert plan.splits == 1
+            else:
+                assert plan.k_chunk >= min(autotune.QMV_GEMM_MIN_K_CHUNK, -(-k // 32) * 32)
+        assert plan.vector == (aligned and k % 16 == 0)
+    assert autotune.qmv_plan(8, 4096, 4096).blocks >= autotune.NUM_SMS
+    assert autotune.qmv_plan(1024, 506, 506).blocks >= autotune.NUM_SMS // 2
+
+
+@pytest.mark.parametrize("b,m,k", QMV_PLAN_SHAPES)
+def test_quantized_matvec_plain_matches_pallas_at_plan_shapes(b, m, k):
+    """The wrapper's CPU route (the plain version) and ``repro``'s Pallas
+    kernel (interpret mode) at the planner's shapes, full int8 range and a
+    per-row scale: each element of both within K · 2⁻²⁴ · |scale_m| ·
+    Σ_k |x_bk w_mk| of the exact value."""
+    rng = np.random.default_rng(b * 31 + m + k)
+    wq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    scale = (rng.random((m,)) * 0.01 + 1e-4).astype(np.float32)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    got = ops.quantized_matvec(torch.as_tensor(wq), torch.as_tensor(scale), torch.as_tensor(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, m)
+    within_fp32_bound(got, x, wq, scale)
+    want = ref_ops.quantized_matvec(jnp.asarray(wq), jnp.asarray(scale), jnp.asarray(x),
+                                    use_pallas=True)
+    within_fp32_bound(want, x, wq, scale)
 
 
 # ---------------------------------------------------------------------------
