@@ -24,7 +24,10 @@ and prints one JSON line per phase:
    launch plan, against one ``torch.matmul`` on pre-dequantized weights,
    and at the ragged (65, 100, 333) and (1, 3, 40) within the bound (not
    timed); the coupling sums with an instance axis at the
-   Max-Cut shape (16 instances, 64 replicas, 32-row slabs, P = 32);
+   Max-Cut shape (16 instances, 64 replicas, 32-row slabs, P = 32); the
+   rows of the coupling GEMM's kernels 1, 2 and 6 (and their instance-axis
+   rows) carry the launch plan of ``autotune.coupling_plan``: tile, grid,
+   stages, K walk, load path;
 4. ``retrieve`` (twice, ``phase_pack`` off and on): ``RetrievalSolver`` at
    ``ONN_HYBRID_506`` on the kernel backend, 1024 corrupted requests on
    Hebbian 5-bit weights; the card's results must equal the CPU's lane for
@@ -166,17 +169,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 #: mangled) fragments of its template instantiation (the hybrid kernels are
 #: instantiations of the coupling GEMM; each trace holds one kernel's calls).
 SYMBOLS = {
-    "coupling_sum": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
-    "onn_step": ("coupling_gemm_kernel<3>", "coupling_gemm_kernelILi3E"),
-    "phase_step": ("coupling_gemm_kernel<1>", "coupling_gemm_kernelILi1E"),
-    "phase_step_packed": ("coupling_gemm_kernel<2>", "coupling_gemm_kernelILi2E"),
+    "coupling_sum": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
+    "onn_step": ("coupling_gemm_kernel<3,", "coupling_gemm_kernelILi3E"),
+    "phase_step": ("coupling_gemm_kernel<1,", "coupling_gemm_kernelILi1E"),
+    "phase_step_packed": ("coupling_gemm_kernel<2,", "coupling_gemm_kernelILi2E"),
     "phase_step_multi": ("phase_step_multi_kernel<false", "phase_step_multi_kernelILb0E"),
     "phase_step_multi_packed": ("phase_step_multi_kernel<true", "phase_step_multi_kernelILb1E"),
-    "hybrid_coupling_sum": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
-    "hybrid_phase_step": ("coupling_gemm_kernel<1>", "coupling_gemm_kernelILi1E"),
+    "hybrid_coupling_sum": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
+    "hybrid_phase_step": ("coupling_gemm_kernel<1,", "coupling_gemm_kernelILi1E"),
     "quantized_matvec": ("qmv_gemv_kernel", "qmv_gemm_kernel"),
-    "coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
-    "hybrid_coupling_sum_batched": ("coupling_gemm_kernel<0>", "coupling_gemm_kernelILi0E"),
+    "coupling_sum_batched": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
+    "hybrid_coupling_sum_batched": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
 }
 
 
@@ -300,6 +303,15 @@ def qmv_plan_dict(plan) -> dict:
     return {"regime": plan.regime, "lanes": plan.lanes, "k_chunk": plan.k_chunk,
             "splits": plan.splits, "vector": plan.vector, "grid": list(plan.grid),
             "blocks": plan.blocks}
+
+
+def coupling_plan_dict(plan) -> dict:
+    """The coupling GEMM's launch plan as a ``kernels`` row reports it."""
+    t = plan.tile
+    return {"tile": t.name, "lanes": t.bm, "rows": t.bn, "k_split": t.ks,
+            "stages": plan.stages, "load": "realign",  # the kernel's one load path
+            "group_width": plan.group_width, "span": plan.span,
+            "grid": list(plan.grid), "blocks": plan.blocks, "smem_bytes": plan.smem_bytes}
 
 
 def max_abs_err(got, want) -> int:
@@ -645,6 +657,18 @@ def main() -> None:
     for name in ("coupling_sum_batched", "hybrid_coupling_sum_batched"):
         rows[name]["shape"] = {"I": MC_INSTANCES, "B": MC_REPLICAS, "M": 32, "N": N}
     rows["hybrid_coupling_sum_batched"]["parallel"] = AUTO_P
+    # The coupling GEMM's launch plans, as the wrappers chose them.
+    for name, (spins, wts), parallel in (
+        ("coupling_sum", (sigma, w), None),
+        ("onn_step", (sigma_t, w), None),
+        ("hybrid_coupling_sum", (sigma, w), AUTO_P),
+        ("coupling_sum_batched", (reps, slabs), None),
+        ("hybrid_coupling_sum_batched", (reps, slabs), AUTO_P),
+    ):
+        inst = wts.shape[0] if wts.dim() == 3 else 1
+        m_, n_ = wts.shape[-2:]
+        rows[name]["plan"] = coupling_plan_dict(
+            autotune.coupling_plan(inst, spins.numel() // (inst * n_), m_, n_, parallel))
     emit({"phase": "kernels", "shape": {"B": B, "N": N, "chunk": CHUNK},
           "kernels": list(rows.values())})
 

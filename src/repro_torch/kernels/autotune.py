@@ -7,21 +7,45 @@ carries over.  On an H100 the limits that matter are:
 * shared memory a block can use: 232,448 bytes (227 KB), above 48 KB only as
   dynamic shared memory after an opt-in;
 * 132 streaming multiprocessors, which the grid should fill;
-* ``__dp4a`` consumes four int8 values per instruction, so the contraction
-  is loaded in 4-byte words (kernels 1, 3, 4, 6, 7) or 16-byte vectors
-  (kernel 5).
+* the int8 tensor cores take a k32 step per ``mma.sync`` (kernels 1-4, 6
+  and 7); kernel 5 loads the contraction in 16-byte vectors.
 
-**Kernels 1, 3, 4, 6 and 7** (``csrc/coupling_gemm.cu``) use one fixed
-tile: 64 lanes × 64 output rows × 64 contraction bytes, 256 threads each
-owning 4 × 4 outputs.  Two 64 × 68-byte int8 tiles take 8.5 KB of static
-shared memory, so the tile fits at every shape and the ragged edges are
-masked in the kernel; nothing here depends on N.  The hybrid kernels 6 and 7
-take the MAC width P and walk the contraction in groups of whole passes, by
-the TPU package's pass-group rule
-(``repro.kernels.coupling_kernel.hybrid_pass_groups``) with the 64-byte tile
-in place of the VMEM block: ``max(1, 64 // P)`` passes per group, a P wider
-than the tile walked in 64-byte sub-tiles.  The rule lives in the kernel
-source (``group_width``); kernels 1, 3 and 4 walk 64-byte groups.
+**Kernels 1, 2, 3, 4, 6 and 7** (``csrc/coupling_gemm.cu``) run one body on
+``mma.sync.m16n8k32`` s8 → s32, and :func:`coupling_plan` picks its launch
+per shape: a tile of :data:`GEMM_TILES`, the grid, and the K walk's unit.
+
+* **Tile.** Both of eight warps.  ``wide``: 64 lanes × 32 output rows per
+  block, four warp pairs each owning a 32 × 16 quarter and splitting its
+  k32 steps.  ``split``: 16 × 16 per block, the k32 steps dealt round robin
+  to the eight warps.  The warps' partial sums meet in shared memory (one
+  launch, no atomics).  The plan takes the first tile whose grid fills
+  :data:`NUM_SMS` blocks, else ``split``, the tile with the most blocks:
+  256 blocks at (1024, 506, 506), 128 at the Max-Cut instance shape
+  16 × (64, 506) · (32, 506), where ``wide`` has 16.
+* **Ring.** Each block keeps ``stages`` K-steps of :data:`GEMM_BK` bytes in
+  shared memory, filled by 16-byte ``cp.async``, and two realigned fragment
+  tiles: a staged row holds the nine 16-byte aligned chunks that cover 128
+  bytes at any offset, and one pass per step rebuilds it aligned.  Shared
+  memory per block, :func:`gemm_smem_bytes`, dynamic (opted in above
+  48 KB): ``(stages + 2) · (bm + bn) · 144`` bytes; two ``wide`` blocks
+  share an SM.
+* **Load path.** One for every N and alignment: the aligned 16-byte
+  chunks around each row, realigned with ``__funnelshift_r`` (rows of
+  N = 506 start 2 bytes off a word).  Only a chunk at either end of a
+  tensor that is not wholly inside it is copied by words, its partial words
+  by bytes.
+* **K walk.** The hybrid kernels 6 and 7 take the MAC width P and walk the
+  contraction in groups of whole passes, by the TPU package's pass-group
+  rule (``repro.kernels.coupling_kernel.hybrid_pass_groups``) with a
+  64-byte tile in place of the VMEM block: ``max(1, 64 // P)`` passes per
+  group (:func:`gemm_group_width`).  Groups that are whole k32 steps (G a
+  multiple of 32, as at P = 1, 32, 64) pack contiguously, 128 columns a
+  K-step; any other group is walked alone in 128-byte steps, its last one
+  zero-padded to whole k32 steps (:func:`coupling_k_steps`).  The rule
+  lives here only: the kernel takes the walk's unit (``span``) from the
+  plan, and the tile's index with its shape, which it checks against the
+  tiles it instantiates (``Tile<>``).  Kernels 1-4 walk 64-byte groups, so
+  128-byte steps.
 
 **Kernel 5** (``csrc/phase_step_multi.cu``) gives each block ``bb`` whole
 lanes.  Its shared memory is the per-lane state: three int32 phase buffers
@@ -73,6 +97,7 @@ and W; otherwise the kernels load W byte by byte and x by 4-byte copies.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 #: Dynamic shared memory one block may use on an H100 (opt-in maximum).
@@ -231,3 +256,149 @@ def qmv_plan(batch: int, m: int, k: int, *, aligned: bool = True) -> QmvPlan:
     k_chunk = max(k_chunk, _cdiv(_cdiv(k, _MAX_GRID_Y), step) * step)
     splits = max(1, _cdiv(k, k_chunk))
     return QmvPlan(batch, m, k, regime, lanes, k_chunk, splits, vector)
+
+
+#: Kernels 1-4, 6, 7: contraction bytes per K-step, the tile of the hybrid
+#: pass-group rule, and bytes per staged row (the nine 16-byte chunks that
+#: cover a K-step at any offset).
+GEMM_BK = 128
+GEMM_GROUP_TILE = 64
+GEMM_ROW_BYTES = 144
+#: Shared memory of one SM: the wide tile's two blocks per SM share it.
+SMEM_PER_SM = 233_472
+#: The mma depth (bytes of one k32 step).
+GEMM_MMA_K = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmTile:
+    """One block tile of the coupling GEMM, as ``csrc/coupling_gemm.cu``
+    instantiates it (``Tile<FM, FN, WM, WN, KS, STAGES>``): ``fm`` × ``fn``
+    mma tiles of 16 × 8 per warp, ``wm`` × ``wn`` warps over the output
+    tile, ``ks`` warps over the k32 steps, ``stages`` K-steps in the ring."""
+
+    name: str
+    index: int  # the kernel's `tile` argument
+    fm: int
+    fn: int
+    wm: int
+    wn: int
+    ks: int
+    stages: int
+
+    @property
+    def bm(self) -> int:
+        """Lanes (rows of σ) per block."""
+        return 16 * self.fm * self.wm
+
+    @property
+    def bn(self) -> int:
+        """Output rows (rows of W) per block."""
+        return 8 * self.fn * self.wn
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.wm * self.wn * self.ks
+
+
+GEMM_TILES = (
+    GemmTile("wide", 0, fm=2, fn=2, wm=2, wn=2, ks=2, stages=3),
+    GemmTile("split", 1, fm=1, fn=2, wm=1, wn=1, ks=8, stages=4),
+)
+
+
+def gemm_smem_bytes(tile: GemmTile) -> int:
+    """Dynamic shared memory of one block: its ring of staged K-steps and
+    two realigned fragment tiles."""
+    return (tile.stages + 2) * (tile.bm + tile.bn) * GEMM_ROW_BYTES
+
+
+def gemm_group_width(parallel: int, n: int) -> int:
+    """Columns per group of MAC width P: as many whole passes as fit the
+    64-byte group tile, or one pass if P is wider; no group is wider than N."""
+    if parallel <= 0:
+        raise ValueError(f"parallel must be positive, got {parallel}")
+    t = GEMM_GROUP_TILE
+    return min(parallel if parallel >= t else (t // parallel) * parallel, n)
+
+
+def gemm_walk_span(parallel: int, n: int) -> int:
+    """Columns of the walk's unit: a K-step where the groups are whole k32
+    steps and pack contiguously, else one group."""
+    g = gemm_group_width(parallel, n)
+    return GEMM_BK if g % GEMM_MMA_K == 0 else g
+
+
+def coupling_k_steps(n: int, parallel: int = GEMM_GROUP_TILE) -> Tuple[Tuple[int, int], ...]:
+    """The kernel's walk over the contraction: (first column, live width) of
+    every K-step, unit by unit; a step past a ragged last group's end has
+    width ≤ 0 and stages nothing.  Each step is zero-padded to
+    ``ceil(width / 32)`` k32 steps."""
+    if n <= 0:
+        return ()
+    span = gemm_walk_span(parallel, n)
+    per_unit = _cdiv(span, GEMM_BK)
+    steps = []
+    for u in range(_cdiv(n, span)):
+        for sub in range(per_unit):
+            k0 = u * span + sub * GEMM_BK
+            steps.append((k0, min(GEMM_BK, span - sub * GEMM_BK, n - k0)))
+    return tuple(steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class CouplingPlan:
+    """One launch of the coupling GEMM: ``inst`` × σ (b, n) · W (m, n)ᵀ, its
+    tile, the MAC width it walks (``parallel``; 64, one group tile, for
+    kernels 1-4) and the walk's unit, ``span`` columns."""
+
+    inst: int
+    b: int
+    m: int
+    n: int
+    parallel: int
+    tile: GemmTile
+    span: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(row tiles, lane tiles, instances), as the kernel launches it."""
+        return (_cdiv(self.m, self.tile.bn), _cdiv(self.b, self.tile.bm), self.inst)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def stages(self) -> int:
+        return self.tile.stages
+
+    @property
+    def group_width(self) -> int:
+        return gemm_group_width(self.parallel, self.n)
+
+    @property
+    def smem_bytes(self) -> int:
+        return gemm_smem_bytes(self.tile)
+
+    @property
+    def args(self) -> Tuple[int, int, int, int]:
+        """The kernel's last arguments: tile index, its lanes and rows, span."""
+        return (self.tile.index, self.tile.bm, self.tile.bn, self.span)
+
+
+@functools.lru_cache(maxsize=1024)
+def coupling_plan(inst: int, b: int, m: int, n: int, parallel: int | None = None) -> CouplingPlan:
+    """The coupling GEMM's launch for ``inst`` × σ (b, n) · W (m, n)ᵀ;
+    ``parallel`` is the hybrid kernels' MAC width (None: kernels 1-4, one
+    64-byte group).  Plans are cached (the rtl and Max-Cut loops launch the
+    same shapes thousands of times per solve); the wrappers call it with
+    positional arguments, the cheapest key."""
+    p = GEMM_GROUP_TILE if parallel is None else parallel
+    tile = GEMM_TILES[-1]
+    for t in GEMM_TILES:
+        if inst * _cdiv(b, t.bm) * _cdiv(m, t.bn) >= NUM_SMS:
+            tile = t
+            break
+    return CouplingPlan(inst, b, m, n, p, tile, gemm_walk_span(p, n))

@@ -30,12 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES: Dict[str, Dict[str, List]] = {
     "coupling_gemm": {
-        "onn_coupling_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "onn_step": [_P, _P, _P, _P, _I, _I, _P],
-        "onn_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "onn_hybrid_coupling_sum": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "onn_hybrid_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # ... (operands, extents), then the launch plan's tile, bm, bn, span
+        # (autotune.CouplingPlan.args), then the stream.
+        "onn_coupling_sum": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "onn_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "onn_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "phase_step_multi": {
         "onn_phase_step_multi": [

@@ -103,10 +103,10 @@ def _coupling_sums(name: str, w: torch.Tensor, sigma: torch.Tensor, parallel) ->
         _check_extent(inst * b * n, inst * m * n, inst * b * m)
         w8, sig3 = w3.to(torch.int8).contiguous(), sig3.contiguous()
         out = torch.empty((inst, b, m), dtype=torch.int32, device=sig3.device)
-        dims = (inst, b, m, n) if parallel is None else (inst, b, m, n, parallel)
+        plan = autotune.coupling_plan(inst, b, m, n, parallel)
         _launch(
-            "coupling_gemm", f"onn_{name}", sig3.device,
-            sig3.data_ptr(), w8.data_ptr(), out.data_ptr(), *dims,
+            "coupling_gemm", "onn_coupling_sum", sig3.device,
+            sig3.data_ptr(), w8.data_ptr(), out.data_ptr(), inst, b, m, n, *plan.args,
         )
         LAUNCHES[f"{name}_batched" if batched else name] += 1
     return out.reshape(*lead, m)
@@ -149,6 +149,7 @@ def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
         _launch(
             "coupling_gemm", "onn_step", sig2d.device,
             sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), out.data_ptr(), b, n,
+            *autotune.coupling_plan(1, b, n, n).args,
         )
         LAUNCHES["onn_step"] += 1
     return out.reshape(*batch_shape, n)
@@ -187,7 +188,7 @@ def phase_step(
         _launch(
             "coupling_gemm", "onn_phase_step", sig2d.device,
             sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), ph2d.data_ptr(),
-            out.data_ptr(), b, n, half,
+            out.data_ptr(), b, n, half, *autotune.coupling_plan(1, b, n, n).args,
         )
         LAUNCHES["phase_step"] += 1
     return out.to(phase.dtype).reshape(*batch_shape, n)
@@ -230,6 +231,7 @@ def phase_step_packed(
         _launch(
             "coupling_gemm", "onn_phase_step_packed", ph2d.device,
             packed.data_ptr(), w8.data_ptr(), h.data_ptr(), out.data_ptr(), b, n, half,
+            *autotune.coupling_plan(1, b, n, n).args,
         )
         LAUNCHES["phase_step_packed"] += 1
     return out.to(phase.dtype).reshape(*batch_shape, n)
@@ -377,10 +379,11 @@ def hybrid_phase_step(
         _check_extent(b * n, n * n)
         w8, sig2d, ph2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, ph2d, h))
         out = torch.empty((b, n), dtype=torch.int32, device=sig2d.device)
+        # Kernel 7 is kernel 3's entry point on the walk of MAC width P.
         _launch(
-            "coupling_gemm", "onn_hybrid_phase_step", sig2d.device,
+            "coupling_gemm", "onn_phase_step", sig2d.device,
             sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), ph2d.data_ptr(),
-            out.data_ptr(), b, n, parallel, half,
+            out.data_ptr(), b, n, half, *autotune.coupling_plan(1, b, n, n, parallel).args,
         )
         LAUNCHES["hybrid_phase_step"] += 1
     return out.to(phase.dtype).reshape(*batch_shape, n)

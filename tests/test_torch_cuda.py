@@ -21,7 +21,7 @@ import torch
 from repro_torch import api
 from repro_torch.core import dynamics as dyn
 from repro_torch.core import ising
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import ref as plain
 
 HALF = 8
@@ -292,3 +292,113 @@ def test_maxcut_on_card_equals_cpu(cuda, route):
     order = torch.randperm(n, generator=torch.Generator().manual_seed(1))
     assert torch.equal(dyn.async_sweep(w, sig, order).cpu(),
                        dyn.async_sweep(w.cpu(), sig.cpu(), order))
+
+
+# ---------------------------------------------------------------------------
+# The coupling GEMM (kernels 1-4, 6, 7) on the int8 tensor cores: operands
+# off any alignment, and every branch of its planner
+# ---------------------------------------------------------------------------
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous view one element past the start of its
+    allocation: rows off every 4- and 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _gemm_mode(mode, w, sigma, bias, phase):
+    """(kernel output, plain output) of one coupling-GEMM entry point."""
+    calls = {
+        "sum": (lambda: ops.coupling_sum(w, sigma), lambda: plain.coupling_sum_ref(w, sigma)),
+        "step": (lambda: ops.onn_step(w, sigma, bias), lambda: plain.onn_step_ref(w, sigma, bias)),
+        "phase": (lambda: ops.phase_step(w, sigma, bias, phase, half=HALF),
+                  lambda: plain.phase_step_ref(w, sigma, bias, phase, HALF)),
+        "packed": (lambda: ops.phase_step_packed(w, bias, phase, half=HALF),
+                   lambda: plain.phase_step_packed_ref(w, bias, phase, HALF)),
+        "hybrid_sum": (lambda: ops.hybrid_coupling_sum(w, sigma, parallel=5),
+                       lambda: plain.hybrid_coupling_sum_ref(w, sigma, 5)),
+        "hybrid_phase": (
+            lambda: ops.hybrid_phase_step(w, sigma, bias, phase, half=HALF, parallel=5),
+            lambda: plain.hybrid_phase_step_ref(w, sigma, bias, phase, HALF, 5)),
+    }
+    kernel, ref_fn = calls[mode]
+    return kernel(), ref_fn()
+
+
+GEMM_MODES = ["sum", "step", "phase", "packed", "hybrid_sum", "hybrid_phase"]
+
+
+@pytest.mark.parametrize("mode", GEMM_MODES)
+@pytest.mark.parametrize("n", [32, 64, 506, 512, 1000])
+def test_gemm_kernels_on_offset_operands(cuda, n, mode):
+    """Every mode with σ and W (and θ) one element past an aligned base, so
+    that every row starts off a word: the realigning loads, and the partial
+    words at both ends of each tensor; exact."""
+    b = 67
+    w, bias, phase, sigma = _inputs(n, b, seed=n + len(mode), device=cuda)
+    w_o, sigma_o, phase_o = _offset(w), _offset(sigma), _offset(phase)
+    assert w_o.data_ptr() % 4 and sigma_o.data_ptr() % 4
+    got, want = _gemm_mode(mode, w_o, sigma_o, bias, phase_o)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(got, _gemm_mode(mode, w, sigma, bias, phase)[1])
+
+
+#: Each tile of ``autotune.coupling_plan`` at N = 506 (rows 2 bytes off a
+#: word) and N = 512 (rows on 16 bytes): (inst, b, n, tile).
+GEMM_BRANCHES = [(1, 1024, 512, "wide"), (1, 1024, 506, "wide"),
+                 (1, 16, 512, "split"), (1, 16, 506, "split"),
+                 (16, 64, 506, "split"), (16, 64, 512, "split")]
+
+
+@pytest.mark.parametrize("inst,b,n,tile", GEMM_BRANCHES)
+def test_gemm_kernels_at_every_plan_branch(cuda, inst, b, n, tile):
+    """Each tile at both row alignments, every mode (with the instance axis,
+    kernels 1 and 6, at the Max-Cut slab width M = 32); exact."""
+    m = 32 if inst > 1 else n
+    w, bias, phase, sigma = _inputs(n, b, seed=inst + b + n, device=cuda)
+    if inst > 1:
+        g = torch.Generator(device=cuda).manual_seed(n)
+        slabs = torch.randint(-15, 16, (inst, m, n), generator=g, device=cuda, dtype=torch.int8)
+        reps = torch.randint(0, 2, (inst, b, n), generator=g, device=cuda, dtype=torch.int8) * 2 - 1
+        plan = autotune.coupling_plan(inst, b, m, n, 32)
+        assert plan.tile.name == tile
+        assert plan.blocks >= 64
+        assert torch.equal(ops.coupling_sum(slabs, reps), plain.coupling_sum_ref(slabs, reps))
+        assert torch.equal(ops.hybrid_coupling_sum(slabs, reps, parallel=32),
+                           plain.coupling_sum_ref(slabs, reps))
+        torch.cuda.synchronize()
+        return
+    assert autotune.coupling_plan(1, b, n, n).tile.name == tile
+    for mode in GEMM_MODES:
+        got, want = _gemm_mode(mode, w, sigma, bias, phase)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+
+
+def test_gemm_refuses_a_plan_it_cannot_run(cuda):
+    """An unknown tile, a tile shape other than the source's, a walk unit
+    of no columns, or an odd one for the packed operand is refused with an
+    error, not run wrong."""
+    from repro_torch.kernels import build
+
+    n, b = 512, 16
+    w, bias, _, sigma = _inputs(n, b, seed=1, device=cuda)
+    out = torch.empty((b, n), dtype=torch.int32, device=cuda)
+    lib = build.library("coupling_gemm")
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = autotune.coupling_plan(1, b, n, n)
+    idx, bm, bn, span = plan.args
+    ptrs = (sigma.data_ptr(), w.data_ptr(), out.data_ptr(), 1, b, n, n)
+    assert lib.onn_coupling_sum(*ptrs, 2, bm, bn, span, stream) != 0
+    assert lib.onn_coupling_sum(*ptrs, idx, bm + 16, bn, span, stream) != 0
+    assert lib.onn_coupling_sum(*ptrs, idx, bm, bn, 0, stream) != 0
+    packed = torch.zeros((b, n // 2), dtype=torch.uint8, device=cuda)
+    assert lib.onn_phase_step_packed(packed.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                     out.data_ptr(), b, n, HALF, idx, bm, bn, 33, stream) != 0
+    assert lib.onn_coupling_sum(*ptrs, *plan.args, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain.coupling_sum_ref(w, sigma))

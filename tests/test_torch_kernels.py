@@ -398,3 +398,117 @@ def test_batched_coupling_sum_rejects_mismatched_instances():
         ops.hybrid_coupling_sum(w, torch.ones((3, 5, 7), dtype=torch.int8), parallel=2)
     with pytest.raises(ValueError, match="weights must be"):
         ops.coupling_sum(torch.zeros((1, 3, 4, 6), dtype=torch.int8), torch.ones((6,), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1-4, 6, 7: the coupling GEMM's launch planner (pure Python; the
+# kernel takes its plan from the wrapper) and the CPU route at its shapes
+# ---------------------------------------------------------------------------
+
+#: (inst, b, m, n): tiny and ragged shapes, the main path's (1024, 506, 506),
+#: the Max-Cut instance shape (16 × σ (64, 506) · W slab (32, 506)), and
+#: N = 512 (rows on 16 bytes) and N = 1000 (16 ∤ N).
+GEMM_PLAN_SHAPES = [(1, 1, 1, 1), (1, 3, 47, 47), (1, 65, 129, 129), (1, 1024, 506, 506),
+                    (3, 5, 13, 47), (16, 64, 32, 506), (1, 16, 512, 512), (1, 4, 1000, 1000)]
+#: MAC widths of the hybrid kernels' walk: several passes per K-step, one
+#: pass per step, passes wider than a step, one pass for all of N = 506.
+GEMM_PARALLEL = [1, 5, 32, 64, 65, 506]
+
+
+@pytest.mark.parametrize("inst,b,m,n", GEMM_PLAN_SHAPES)
+def test_coupling_plan_fits_the_block_and_fills_the_card(inst, b, m, n):
+    """Every plan's tile fits a block's thread and shared-memory budget, its
+    grid covers the output once, the wide tile runs only where its grid
+    alone fills the card, and the kernel's arguments are the tile's index
+    and shape and the K walk's unit."""
+    wide, split = autotune.GEMM_TILES
+    for parallel in [None, *GEMM_PARALLEL]:
+        plan = autotune.coupling_plan(inst, b, m, n, parallel)
+        tile = plan.tile
+        assert tile.threads % 32 == 0 and tile.threads <= 1024
+        assert plan.smem_bytes <= autotune.SMEM_PER_BLOCK
+        assert 2 * plan.smem_bytes <= autotune.SMEM_PER_SM  # two blocks per SM
+        assert tile.bm == 16 * tile.fm * tile.wm and tile.bn == 8 * tile.fn * tile.wn
+        assert tile.ks * tile.wm * tile.wn * 32 == tile.threads and tile.stages >= 2
+        gx, gy, gz = plan.grid
+        assert (gx - 1) * tile.bn < m <= gx * tile.bn
+        assert (gy - 1) * tile.bm < b <= gy * tile.bm
+        assert gz == inst and gy <= 65_535
+        wide_blocks = inst * -(-b // wide.bm) * -(-m // wide.bn)
+        assert tile is (wide if wide_blocks >= autotune.NUM_SMS else split)
+        assert plan.blocks >= min(wide_blocks, autotune.NUM_SMS)
+        assert plan.parallel == (autotune.GEMM_GROUP_TILE if parallel is None else parallel)
+        span = plan.span  # the K walk's unit: one K-step, or one group
+        assert span in (autotune.GEMM_BK, plan.group_width) and span > 0
+        assert span == autotune.gemm_walk_span(plan.parallel, n)
+        assert plan.args == (tile.index, tile.bm, tile.bn, span)
+        assert autotune.GEMM_TILES[tile.index] is tile
+        if parallel is None:  # kernel 4 reads two spins a byte: steps start on even columns
+            assert span % 2 == 0 or span >= n
+
+
+def test_coupling_plan_at_the_main_path_shapes():
+    """At (1024, 506, 506) the grid fills the card; at the Max-Cut instance
+    shape it has at least 4× the 16 blocks of the fixed 64 × 64 tile, on
+    both of its routes (kernel 1, and kernel 6 at P = 32, which walks
+    128-byte steps like kernel 1)."""
+    main = autotune.coupling_plan(1, 1024, 506, 506)
+    assert main.blocks >= autotune.NUM_SMS and main.tile.name == "wide"
+    assert main.span == autotune.GEMM_BK
+    for parallel in (None, 32):
+        mc = autotune.coupling_plan(16, 64, 32, 506, parallel)
+        assert mc.blocks >= 4 * 16 and mc.tile.name == "split" and mc.tile.ks > 1
+        assert mc.span == autotune.GEMM_BK
+    assert autotune.coupling_plan(1, 1024, 506, 506, 5).span == 60  # twelve 5-wide passes
+
+
+@pytest.mark.parametrize("parallel", GEMM_PARALLEL)
+@pytest.mark.parametrize("n", [1, 47, 506, 512, 1000])
+def test_coupling_k_walk_covers_each_column_once_in_whole_passes(n, parallel):
+    """The kernel's K walk, group by group: every column of N in exactly one
+    K-step, every group a run of whole passes from a pass boundary (the last
+    one ragged at N), every k32 step of a K-step inside one group, and each
+    K-step zero-padded to whole k32 steps; groups of whole k32 steps share
+    K-steps, any other group has its own."""
+    g = autotune.gemm_group_width(parallel, n)
+    assert g == n or g % parallel == 0
+    assert g == n or g >= min(parallel, autotune.GEMM_GROUP_TILE)
+    cover = np.zeros(n, np.int64)
+    for k0, width in autotune.coupling_k_steps(n, parallel):
+        assert width <= autotune.GEMM_BK
+        if width <= 0:
+            continue
+        assert 0 <= k0 and k0 + width <= n
+        cover[k0:k0 + width] += 1
+        pad = -(-width // autotune.GEMM_MMA_K) * autotune.GEMM_MMA_K
+        assert width <= pad <= autotune.GEMM_BK
+        for c in range(k0, k0 + width, autotune.GEMM_MMA_K):
+            last = min(c + autotune.GEMM_MMA_K, k0 + width) - 1
+            assert c // g == last // g  # one k32 step, one group
+        if g % autotune.GEMM_MMA_K:
+            assert k0 // g == (k0 + width - 1) // g  # a group alone
+    assert (cover == 1).all()
+    assert all(start % parallel == 0 for start in range(0, n, g))
+
+
+@pytest.mark.parametrize("inst,b,m,n", GEMM_PLAN_SHAPES)
+def test_coupling_sum_and_onn_step_plain_match_pallas_at_plan_shapes(inst, b, m, n):
+    """The wrappers' CPU route (the plain versions) against ``repro``'s
+    Pallas kernels in interpret mode at the planner's shapes: kernel 1 with
+    the instance axis where inst > 1, kernel 2 on the square (n, n) of the
+    same width; exact."""
+    rng = np.random.default_rng(inst * 1000 + b * 7 + m + n)
+    w = rng.integers(-15, 16, (inst, m, n)).astype(np.int8)
+    sig = _spins(rng, (inst, b, n))
+    got = ops.coupling_sum(torch.as_tensor(w if inst > 1 else w[0]),
+                           torch.as_tensor(sig if inst > 1 else sig[0]))
+    want = np.stack([np.asarray(ref_ops.coupling_sum(jnp.asarray(w[i]), jnp.asarray(sig[i]),
+                                                     use_pallas=True)) for i in range(inst)])
+    same(got, want if inst > 1 else want[0])
+    w2 = rng.integers(-15, 16, (n, n)).astype(np.int8)
+    w2[:, : n // 3] = 0  # exact ties keep σ
+    bias = rng.integers(-2, 3, n).astype(np.int32)
+    step = ops.onn_step(torch.as_tensor(w2), torch.as_tensor(sig[0]), torch.as_tensor(bias))
+    same(step, ref_ops.onn_step(jnp.asarray(w2), jnp.asarray(sig[0]), jnp.asarray(bias),
+                                use_pallas=True))
+    assert step.dtype == torch.int8
