@@ -10,7 +10,9 @@ and prints one JSON line per phase:
 
 1. ``environment``: Python, torch, CUDA and nvcc versions, the card's name
    and power limit (also printed as ``nvidia-smi`` gives them);
-2. ``build``: the kernels' build time (one nvcc per source, in parallel);
+2. ``build``: the kernels' build time (one nvcc per source, in parallel),
+   and ``ptxas``: the registers, stack and spill bytes of each instantiation
+   of kernel 5 (``csrc/phase_step_multi.cu``) from ``nvcc -Xptxas -v``;
 3. ``kernels``: each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024, N = 506, chunk = 8, some lanes frozen or
    near their budget), exact equality required, with CUDA-event times of the
@@ -27,7 +29,11 @@ and prints one JSON line per phase:
    Max-Cut shape (16 instances, 64 replicas, 32-row slabs, P = 32); the
    rows of the coupling GEMM's kernels 1, 2 and 6 (and their instance-axis
    rows) carry the launch plan of ``autotune.coupling_plan``: tile, grid,
-   stages, K walk, load path;
+   stages, K walk, load path; the rows of kernel 5 (packed and not) carry
+   ``autotune.multi_plan``'s (regime, cluster, lanes, rows, grid, shared
+   memory, and the clusters the card holds at once) and ``per_regime``:
+   the cluster regime at the main shape and the stream regime at
+   (B, N) = (256, 2048) on seeded Hebbian couplings, each exact;
 4. ``retrieve`` (twice, ``phase_pack`` off and on): ``RetrievalSolver`` at
    ``ONN_HYBRID_506`` on the kernel backend, 1024 corrupted requests on
    Hebbian 5-bit weights; the card's results must equal the CPU's lane for
@@ -77,8 +83,10 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,6 +139,8 @@ FIELDS = ("final_phase", "final_sigma", "settle_cycle", "settled", "cycled")
 #: The Max-Cut cell: instances, replicas, sweeps, stagnation, settle-chunk;
 #: the update groups resolve to 16 (``stagger_groups`` 0).
 MC_INSTANCES, MC_REPLICAS, MC_SWEEPS, MC_STAGNATION, MC_CHUNK = 16, 64, 64, 16, 8
+#: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
+MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
 QMV_GEMV = (8, 4096, 4096)
 #: Kernel 8's ragged shapes (B, M, K), held to the bound but not timed: one
@@ -173,8 +183,10 @@ SYMBOLS = {
     "onn_step": ("coupling_gemm_kernel<3,", "coupling_gemm_kernelILi3E"),
     "phase_step": ("coupling_gemm_kernel<1,", "coupling_gemm_kernelILi1E"),
     "phase_step_packed": ("coupling_gemm_kernel<2,", "coupling_gemm_kernelILi2E"),
-    "phase_step_multi": ("phase_step_multi_kernel<false", "phase_step_multi_kernelILb0E"),
-    "phase_step_multi_packed": ("phase_step_multi_kernel<true", "phase_step_multi_kernelILb1E"),
+    "phase_step_multi": ("phase_step_multi_cluster<false", "phase_step_multi_clusterILb0E",
+                         "phase_step_multi_stream<false", "phase_step_multi_streamILb0E"),
+    "phase_step_multi_packed": ("phase_step_multi_cluster<true", "phase_step_multi_clusterILb1E",
+                                "phase_step_multi_stream<true", "phase_step_multi_streamILb1E"),
     "hybrid_coupling_sum": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
     "hybrid_phase_step": ("coupling_gemm_kernel<1,", "coupling_gemm_kernelILi1E"),
     "quantized_matvec": ("qmv_gemv_kernel", "qmv_gemm_kernel"),
@@ -314,6 +326,14 @@ def coupling_plan_dict(plan) -> dict:
             "grid": list(plan.grid), "blocks": plan.blocks, "smem_bytes": plan.smem_bytes}
 
 
+def multi_plan_dict(plan, occupancy) -> dict:
+    """Kernel 5's launch plan as its rows report it, with the clusters of the
+    plan the card holds at once (``occupancy``; None in the stream regime)."""
+    return {"regime": plan.regime, "cluster": plan.cluster, "lanes": plan.lanes,
+            "rows": plan.rows, "grid": plan.grid, "smem_bytes": plan.smem_bytes,
+            "max_active_clusters": occupancy}
+
+
 def max_abs_err(got, want) -> int:
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -421,12 +441,29 @@ def main() -> None:
     })
     print(smi, flush=True)
 
-    # 2. build -----------------------------------------------------------------
+    # 2. build, and beside it kernel 5's registers and spills from ``ptxas -v`` --
+    from coupling_gemm_breakdown import ptxas_report
+
     t0 = time.perf_counter()
-    build.build_all()
-    for stem in build.SOURCES:
-        build.library(stem)
+    ptxas_dir = tempfile.mkdtemp()
+    multi_src = os.path.join(build.CSRC, "phase_step_multi.cu")
+    ptxas = subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(ptxas_dir, "k5.so"),
+         multi_src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        build.build_all()
+        for stem in build.SOURCES:
+            build.library(stem)
+        log, _ = ptxas.communicate(timeout=900)
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+            ptxas.wait()
+        shutil.rmtree(ptxas_dir, ignore_errors=True)
+    require(ptxas.returncode == 0, f"nvcc -Xptxas -v failed for phase_step_multi.cu:\n{log}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": list(build.SOURCES)})
+    emit({"phase": "ptxas", "source": ROWS["phase_step_multi"][0],
+          "kernels": ptxas_report(log)})
 
     # 3. kernels against their plain versions at the main path's shapes --------
     w_np, _, probes = make_problem(args.seed)
@@ -489,36 +526,84 @@ def main() -> None:
         lambda: plain.phase_step_packed_ref(w, bias, phase, HALF),
         B * ((N + 1) // 2) + N * N + 4 * N + 4 * B * N, 2 * B * N * N,
     )
-    # Kernel 5: a quarter of the lanes frozen, a quarter near their budget.
+    # Kernel 5: a quarter of the lanes frozen, a quarter near their budget;
+    # the row's times at the main path's shape (the cluster regime), the
+    # stream regime's at MULTI_STREAM in "per_regime".
     max_cycles = 100
-    t = torch.as_tensor(rng.integers(0, 60, size=B).astype(np.int32), device=dev)
-    t[B // 4: B // 2] = max_cycles - torch.as_tensor(rng.integers(1, 5, size=B // 4).astype(np.int32), device=dev)
-    frozen = torch.zeros(B, dtype=torch.bool, device=dev)
-    frozen[: B // 4] = True
-    full = torch.full((B,), max_cycles, dtype=torch.int32, device=dev)
-    false = torch.zeros(B, dtype=torch.bool, device=dev)
-    cols = (t, full, false, false, frozen, false, torch.where(frozen, t, full))
+
+    def multi_cols(b_):
+        t_ = torch.as_tensor(rng.integers(0, 60, size=b_).astype(np.int32), device=dev)
+        t_[b_ // 4: b_ // 2] = max_cycles - torch.as_tensor(
+            rng.integers(1, 5, size=b_ // 4).astype(np.int32), device=dev)
+        frozen_ = torch.zeros(b_, dtype=torch.bool, device=dev)
+        frozen_[: b_ // 4] = True
+        full_ = torch.full((b_,), max_cycles, dtype=torch.int32, device=dev)
+        false_ = torch.zeros(b_, dtype=torch.bool, device=dev)
+        return (t_, full_, false_, false_, frozen_, false_, torch.where(frozen_, t_, full_))
+
+    def multi_case(w_, bias_, ph_, pv_, cols_, packed):
+        """Kernel 5 against its plain version: (got, want, kernel call,
+        plain call, bytes, operations, lane-cycles) for one operand set."""
+        b_, n_ = ph_.shape
+
+        def kern():
+            return ops.phase_step_multi(w_, bias_, ph_, pv_, *cols_, half=HALF, chunk=CHUNK,
+                                        max_cycles=max_cycles, packed=packed)
+
+        def plain_fn():
+            return plain.phase_step_multi_ref(
+                w_, bias_, ph_, pv_, *(c.to(torch.int32)[:, None] for c in cols_),
+                half=HALF, chunk=CHUNK, max_cycles=max_cycles)
+
+        got, want = kern(), plain_fn()
+        lane_cycles = int((got[8] - cols_[0]).sum().item())
+        state_bytes = 2 * b_ * (((n_ + 1) // 2) if packed else 4 * n_) + 7 * 4 * b_
+        return (got, [want[0], want[1], *(x[:, 0] for x in want[2:])], kern, plain_fn,
+                n_ * n_ + 4 * n_ + 2 * state_bytes, 2 * n_ * n_ * lane_cycles, lane_cycles)
+
+    cols = multi_cols(B)
     prev = osc.phase_of_spin(sigma.roll(1, 0)).to(torch.int32)
+    # The stream regime's operands: Hebbian couplings of 40 seeded patterns at
+    # N = MULTI_STREAM[1], probes with 20 % of their pixels flipped.
+    sb, sn = MULTI_STREAM
+    rng_s = np.random.default_rng([args.seed, sn])
+    xi_s = np.where(rng_s.random((40, sn)) < 0.5, 1, -1).astype(np.int8)
+    w_s = api.quantize_weights(api.hebbian(torch.as_tensor(xi_s))).values.to(dev)
+    probes_s = xi_s[rng_s.integers(0, 40, size=sb)].copy()
+    probes_s[rng_s.random((sb, sn)) < 0.2] *= -1
+    sig_s = torch.as_tensor(probes_s, device=dev)
+    bias_s = torch.zeros(sn, dtype=torch.int32, device=dev)
+    ph_s = osc.phase_of_spin(sig_s).to(torch.int32)
+    pv_s = osc.phase_of_spin(sig_s.roll(1, 0)).to(torch.int32)
+    cols_s = multi_cols(sb)
     for packed in (False, True):
         name = "phase_step_multi_packed" if packed else "phase_step_multi"
-        got = ops.phase_step_multi(w, bias, phase, prev, *cols, half=HALF, chunk=CHUNK,
-                                   max_cycles=max_cycles, packed=packed)
-        want = plain.phase_step_multi_ref(
-            w, bias, phase, prev, *(c.to(torch.int32)[:, None] for c in cols),
-            half=HALF, chunk=CHUNK, max_cycles=max_cycles,
-        )
-        lane_cycles = int((got[8] - t).sum().item())
-        state_bytes = 2 * B * (((N + 1) // 2) if packed else 4 * N) + 7 * 4 * B
-        record(
-            name, got, [want[0], want[1], *(x[:, 0] for x in want[2:])],
-            lambda p=packed: ops.phase_step_multi(w, bias, phase, prev, *cols, half=HALF,
-                                                  chunk=CHUNK, max_cycles=max_cycles, packed=p),
-            lambda: plain.phase_step_multi_ref(
-                w, bias, phase, prev, *(c.to(torch.int32)[:, None] for c in cols),
-                half=HALF, chunk=CHUNK, max_cycles=max_cycles),
-            N * N + 4 * N + 2 * state_bytes, 2 * N * N * lane_cycles,
-        )
-        rows[name]["lane_cycles"] = lane_cycles
+        got, want, kern, plain_fn, n_bytes, n_ops, lane_cycles = multi_case(
+            w, bias, phase, prev, cols, packed)
+        record(name, got, want, kern, plain_fn, n_bytes, n_ops)
+        plan = autotune.multi_plan(B, N)
+        rows[name].update(lane_cycles=lane_cycles,
+                          plan=multi_plan_dict(plan, ops.multi_cluster_occupancy(plan, packed)))
+        per_regime = {plan.regime: {k: rows[name][k] for k in (
+            "max_abs_err", "kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "lane_cycles")}}
+        per_regime[plan.regime].update(shape=[B, N], exact=True, plan=rows[name]["plan"])
+        got, want, kern, plain_fn, n_bytes, n_ops, lane_cycles = multi_case(
+            w_s, bias_s, ph_s, pv_s, cols_s, packed)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"{name} at {MULTI_STREAM}: kernel disagrees with its plain version "
+                          f"(max_abs_err {err})")
+        plan_s = autotune.multi_plan(sb, sn)
+        require(plan_s.regime == "stream", f"{MULTI_STREAM} planned as {plan_s.regime}")
+        b_ms, b_by = bound(n_bytes, n_ops)
+        per_regime["stream"] = {
+            "max_abs_err": err, "kernel_ms": device_ms(kern, name), "wrapper_ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain_fn), "bound_ms": b_ms, "bound_by": b_by,
+            "lane_cycles": lane_cycles, "shape": [sb, sn], "exact": True,
+            "plan": multi_plan_dict(plan_s, None),
+        }
+        rows[name]["per_regime"] = per_regime
     # Kernels 6 and 7, held exactly at every MAC width of HYBRID_P; the row's
     # times are at the auto width, the others in "per_parallel".
     hybrid = {

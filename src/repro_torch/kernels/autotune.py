@@ -7,8 +7,8 @@ carries over.  On an H100 the limits that matter are:
 * shared memory a block can use: 232,448 bytes (227 KB), above 48 KB only as
   dynamic shared memory after an opt-in;
 * 132 streaming multiprocessors, which the grid should fill;
-* the int8 tensor cores take a k32 step per ``mma.sync`` (kernels 1-4, 6
-  and 7); kernel 5 loads the contraction in 16-byte vectors.
+* the int8 tensor cores take a k32 step per ``mma.sync`` (kernels 1-7;
+  kernel 5's stream regime loads the contraction in 16-byte vectors).
 
 **Kernels 1, 2, 3, 4, 6 and 7** (``csrc/coupling_gemm.cu``) run one body on
 ``mma.sync.m16n8k32`` s8 → s32, and :func:`coupling_plan` picks its launch
@@ -47,19 +47,36 @@ per shape: a tile of :data:`GEMM_TILES`, the grid, and the K walk's unit.
   tiles it instantiates (``Tile<>``).  Kernels 1-4 walk 64-byte groups, so
   128-byte steps.
 
-**Kernel 5** (``csrc/phase_step_multi.cu``) gives each block ``bb`` whole
-lanes.  Its shared memory is the per-lane state: three int32 phase buffers
-(θ, prev-θ, next θ) of N entries and one int8 spin row padded to a multiple
-of 16 bytes::
+**Kernel 5** (``csrc/phase_step_multi.cu``) runs a whole settle-chunk in
+one launch, in one of two regimes that :func:`multi_plan` picks by shape:
 
-    multi_smem_bytes(bb, N) = align16(12 · bb · N) + bb · align16(N)
+* **cluster** (N ≤ :data:`MULTI_CLUSTER_MAX_N`, 1,280: every configured N).
+  A thread-block cluster of C CTAs (2, 4 or 8) owns L lanes (8, 16 or 32);
+  CTA rank r holds the output rows [r·R, (r + 1)·R) of W in shared memory
+  for the whole launch, R = ⌈N / C⌉ rounded up to 16 (one warp per 16
+  rows, at most 16 warps), and the CTAs exchange σ through distributed
+  shared memory once per cycle.  Dynamic shared memory per CTA, with
+  rows of ``pitch = ⌈KP / 32⌉ · 32 + 16`` bytes::
 
-plus under 1 KB of static flags.  With one lane per block this fits the
-227 KB block limit up to N = :data:`MULTI_KERNEL_MAX_N` (17,801); past it the
-dynamics take the per-cycle route through kernel 3.  W itself is not in
-shared memory: it streams from L2 every cycle (50 MB of L2 holds W whole up
-to N ≈ 7,000; past that it streams from device memory and the kernel slows,
-but stays exact).
+      multi_cluster_smem_bytes(n, C, L) = 512 + (R + 2 L) · pitch
+
+  (the W slice, σ double-buffered, 512 bytes of lane masks).  The plan
+  takes the (C, L) with the least per-cycle work per wave, ``waves · R ·
+  L``, where a wave is ⌊:data:`NUM_SMS` / C⌋ clusters; ties go to fewer
+  CTAs, then to the smaller cluster: C = 2, L = 16, 128 CTAs at
+  (1024, 506); C = 8, L = 8, 64 CTAs for the serving slab (64, 506).
+* **stream** (:data:`MULTI_CLUSTER_MAX_N` < N ≤ :data:`MULTI_KERNEL_MAX_N`).
+  Each block owns ``lanes`` (1, 2, 4 or 8) whole lanes: three int32 phase
+  buffers of N entries and one spin row of KP bytes each, in shared
+  memory, and W streams from L2 every cycle::
+
+      multi_stream_smem_bytes(lanes, N) = align16(12 · lanes · N) + lanes · KP
+
+  plus under 1 KB of static flags.  The most lanes that fit, halved while
+  the grid would fill fewer than half the SMs.  With one lane per block
+  this fits the 227 KB block limit up to N = :data:`MULTI_KERNEL_MAX_N`
+  (17,801); past it the dynamics take the per-cycle route through
+  kernel 3.
 
 **Kernel 8** (``csrc/quantized_matvec.cu``) multiplies float32 activations
 by int8 weights on the CUDA cores (no tensor cores: float32 FMA keeps the
@@ -102,14 +119,21 @@ from typing import Tuple
 
 #: Dynamic shared memory one block may use on an H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
-#: Static shared memory of kernel 5 (bookkeeping flags), rounded up.
+#: Static shared memory of kernel 5's stream regime (bookkeeping flags), rounded up.
 MULTI_STATIC_SMEM = 1024
 #: Streaming multiprocessors of an H100 SXM.
 NUM_SMS = 132
-#: Lanes per block of kernel 5: the kernel is instantiated for 1, 2, 4 and 8.
+#: Lanes per block of kernel 5's stream regime: instantiated for 1, 2, 4 and 8.
 MULTI_MAX_LANES = 8
-#: Contraction alignment of kernel 5's 16-byte vector loads.
+#: Contraction alignment of W's rows as the wrapper pads them (16-byte loads).
 K_ALIGN = 16
+#: Kernel 5's cluster regime: the cluster sizes and lanes per cluster it
+#: instantiates, its most rows per CTA (16 warps of 16 rows), and the bytes
+#: of lane masks at the head of its shared memory.
+MULTI_CLUSTERS = (2, 4, 8)
+MULTI_CLUSTER_LANES = (8, 16, 32)
+MULTI_CLUSTER_MAX_ROWS = 256
+MULTI_CLUSTER_HEAD = 512
 
 
 def padded_k(n: int) -> int:
@@ -117,44 +141,118 @@ def padded_k(n: int) -> int:
     return -(-n // K_ALIGN) * K_ALIGN
 
 
-def multi_smem_bytes(bb: int, n: int) -> int:
-    """Dynamic shared memory of one kernel-5 block holding ``bb`` lanes."""
+def multi_stream_smem_bytes(bb: int, n: int) -> int:
+    """Dynamic shared memory of one stream-regime block holding ``bb`` lanes."""
     phases = -(-(12 * bb * n) // 16) * 16
     return phases + bb * padded_k(n)
+
+
+def multi_cluster_rows(n: int, cluster: int) -> int:
+    """Rows of W per CTA of a ``cluster``-CTA cluster: ⌈N / C⌉ rounded up to 16."""
+    return -(-(-(-n // cluster)) // 16) * 16
+
+
+def multi_cluster_pitch(n: int) -> int:
+    """Bytes per shared-memory row (W slice and σ): whole k32 steps plus 16."""
+    return -(-padded_k(n) // 32) * 32 + 16
+
+
+def multi_cluster_smem_bytes(n: int, cluster: int, lanes: int) -> int:
+    """Dynamic shared memory of one cluster-regime CTA: lane masks, the W
+    slice and σ double-buffered."""
+    rows = multi_cluster_rows(n, cluster)
+    return MULTI_CLUSTER_HEAD + (rows + 2 * lanes) * multi_cluster_pitch(n)
+
+
+def _multi_cluster_fits(n: int, cluster: int, lanes: int) -> bool:
+    return (multi_cluster_rows(n, cluster) <= MULTI_CLUSTER_MAX_ROWS
+            and multi_cluster_smem_bytes(n, cluster, lanes) <= SMEM_PER_BLOCK)
 
 
 def _max_multi_n() -> int:
     budget = SMEM_PER_BLOCK - MULTI_STATIC_SMEM
     n = budget // 13
-    while multi_smem_bytes(1, n + 1) <= budget:
+    while multi_stream_smem_bytes(1, n + 1) <= budget:
         n += 1
-    while multi_smem_bytes(1, n) > budget:
+    while multi_stream_smem_bytes(1, n) > budget:
         n -= 1
+    return n
+
+
+def _max_cluster_n() -> int:
+    n = 1
+    while _multi_cluster_fits(n + 1, max(MULTI_CLUSTERS), min(MULTI_CLUSTER_LANES)):
+        n += 1
     return n
 
 
 #: Largest N whose one-lane state fits a block's shared memory.
 MULTI_KERNEL_MAX_N = _max_multi_n()
+#: Largest N whose W slice, σ buffers and lane masks fit a CTA's shared
+#: memory in a cluster of 8 (with 8 lanes): the cluster regime's ceiling.
+MULTI_CLUSTER_MAX_N = _max_cluster_n()
 
 
-def multi_lanes_per_block(n: int, batch: int) -> int:
-    """Lanes per block of kernel 5 for an (N, batch) launch.
+@dataclasses.dataclass(frozen=True)
+class MultiPlan:
+    """One launch of kernel 5 for ``batch`` lanes of N = ``n``: the regime
+    (``"cluster"`` or ``"stream"``), CTAs per cluster (1 in the stream
+    regime), lanes per cluster (stream: per block), rows of W per CTA (stream:
+    all of a padded row), the grid in CTAs and the dynamic shared memory of
+    one CTA."""
 
-    The most lanes (up to 8) whose state fits shared memory, halved while
-    the grid would fill fewer than half the SMs: more lanes per block share
-    each W row load, more blocks fill the card.
+    batch: int
+    n: int
+    regime: str
+    cluster: int
+    lanes: int
+    rows: int
+    grid: int
+    smem_bytes: int
+
+    @property
+    def args(self) -> Tuple[int, int, int, int, int]:
+        """The kernel's last arguments: regime (0 cluster, 1 stream), cluster,
+        lanes, rows, shared memory."""
+        return (0 if self.regime == "cluster" else 1, self.cluster, self.lanes, self.rows,
+                self.smem_bytes)
+
+
+@functools.lru_cache(maxsize=1024)
+def multi_plan(b: int, n: int) -> MultiPlan:
+    """Kernel 5's launch for ``b`` lanes of N = ``n``, by shape alone.
+
+    Cached: the batched solve and the serving loop launch the same shapes
+    every chunk, and the wrapper calls it with positional arguments.
     """
+    if n < 1 or b < 0:
+        raise ValueError(f"multi-cycle kernel: bad shape (B={b}, N={n})")
     if n > MULTI_KERNEL_MAX_N:
         raise ValueError(
             f"multi-cycle kernel: N={n} exceeds MULTI_KERNEL_MAX_N={MULTI_KERNEL_MAX_N}"
         )
-    budget = SMEM_PER_BLOCK - MULTI_STATIC_SMEM
-    bb = MULTI_MAX_LANES
-    while bb > 1 and (
-        multi_smem_bytes(bb, n) > budget or 2 * -(-batch // bb) < NUM_SMS
-    ):
-        bb //= 2
-    return bb
+    if n > MULTI_CLUSTER_MAX_N:
+        budget = SMEM_PER_BLOCK - MULTI_STATIC_SMEM
+        bb = MULTI_MAX_LANES
+        while bb > 1 and (
+            multi_stream_smem_bytes(bb, n) > budget or 2 * _cdiv(b, bb) < NUM_SMS
+        ):
+            bb //= 2
+        return MultiPlan(b, n, "stream", 1, bb, padded_k(n), _cdiv(b, bb),
+                         multi_stream_smem_bytes(bb, n))
+    best = None
+    for c in MULTI_CLUSTERS:
+        rows = multi_cluster_rows(n, c)
+        for lanes in MULTI_CLUSTER_LANES:
+            if not _multi_cluster_fits(n, c, lanes):
+                continue
+            groups = _cdiv(b, lanes)
+            waves = max(1, _cdiv(groups, NUM_SMS // c))
+            key = (waves * rows * lanes, groups * c, c)
+            if best is None or key < best[0]:
+                best = (key, MultiPlan(b, n, "cluster", c, lanes, rows, groups * c,
+                                       multi_cluster_smem_bytes(n, c, lanes)))
+    return best[1]
 
 
 #: Kernel 8: the largest batch of the GEMV regime, and its template sizes.

@@ -38,9 +38,14 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "phase_step_multi": {
+        # ... (operands, extents, packed), then the launch plan's regime,
+        # cluster, lanes, rows, shared memory (autotune.MultiPlan.args), then
+        # the stream.
         "onn_phase_step_multi": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _I, _I, _I, _P,
         ],
+        "onn_phase_step_multi_occupancy": [_I, _I, _I, _I, _I, _P],
     },
     "quantized_matvec": {
         "onn_quantized_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -15,6 +15,7 @@ can show which kernels its path went through.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -268,6 +269,10 @@ def phase_step_multi(
     9-tuple (phase, prev_phase, settle_cycle, settled, cycled, frozen,
     frozen_p2, freeze_cycle, t) in the input dtypes.  ``packed`` moves the
     phase state through the kernel boundary two 4-bit counters per byte.
+    On the card the launch follows :func:`~repro_torch.kernels.autotune.multi_plan`
+    (W held in a thread-block cluster's shared memory up to
+    ``MULTI_CLUSTER_MAX_N``, streamed from L2 past it); a refused launch
+    raises.
     """
     require_int_dtype(w, "w")
     if chunk < 1:
@@ -285,6 +290,7 @@ def phase_step_multi(
         ph_o, prev_o = outs[0], outs[1]
         sc_o, sd_o, cy_o, fz_o, fp2_o, fc_o, t_o = (o[:, 0] for o in outs[2:])
     else:
+        plan = autotune.multi_plan(b, n)
         _check_extent(b * n, n * autotune.padded_k(n))
         kp = autotune.padded_k(n)
         w_p = F.pad(w.to(torch.int8), (0, kp - n)).contiguous()
@@ -302,7 +308,7 @@ def phase_step_multi(
             w_p.data_ptr(), h.data_ptr(), ph_in.data_ptr(),
             prev_in.data_ptr(), cols_in.data_ptr(), ph_out.data_ptr(),
             prev_out.data_ptr(), cols_out.data_ptr(), b, n, kp, half, chunk,
-            max_cycles, int(packed), autotune.multi_lanes_per_block(n, b),
+            max_cycles, int(packed), *plan.args,
         )
         LAUNCHES["phase_step_multi_packed" if packed else "phase_step_multi"] += 1
         if packed:
@@ -324,6 +330,21 @@ def phase_step_multi(
         like(fc_o, freeze_cycle),
         like(t_o, t),
     )
+
+
+def multi_cluster_occupancy(plan: autotune.MultiPlan, packed: bool = False) -> int:
+    """How many clusters of a cluster-regime plan of kernel 5 the current
+    card holds at once (``cudaOccupancyMaxActiveClusters``); 0: it cannot
+    launch there.  Counts no launch."""
+    if plan.regime != "cluster":
+        raise ValueError(f"multi_cluster_occupancy: {plan.regime} plan has no cluster")
+    out = ctypes.c_int(0)
+    fn = build.library("phase_step_multi").onn_phase_step_multi_occupancy
+    rc = fn(int(packed), plan.cluster, plan.lanes, plan.rows, plan.smem_bytes,
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"onn_phase_step_multi_occupancy: CUDA error {rc}")
+    return out.value
 
 
 # ---------------------------------------------------------------------------

@@ -65,22 +65,30 @@ def test_gemm_kernels_match_plain(cuda, n, b):
     assert ops.LAUNCHES["phase_step"] == ops.LAUNCHES["phase_step_packed"] == 1
 
 
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("n,b", [(1, 2), (47, 9), (506, 1024)])
-def test_multi_kernel_matches_plain(cuda, n, b, packed):
-    max_cycles, chunk = 20, 8
+#: Kernel 5 at one (N, B) per branch of ``autotune.multi_plan``: clusters of
+#: 2 (N = 1; the main path, 16 lanes), 4 (N = 47 off 16 · C, B = 9 off L;
+#: N = 800, 32 lanes) and 8 (N = 129 odd, B = 65; the serving slab), and the
+#: stream regime (N = 1281, odd).
+MULTI_SHAPES = [(1, 2), (47, 9), (129, 65), (506, 64), (506, 1024), (800, 1024), (1281, 37)]
+
+
+def _multi_operands(n, b, device, max_cycles, frozen_all=False):
     rng = np.random.default_rng(n * b)
-    w, bias, _, _ = _inputs(n, b, seed=n * b + 1, device=cuda)
-    phase = torch.as_tensor(np.where(rng.random((b, n)) < 0.5, 0, HALF), device=cuda)
-    prev = torch.as_tensor(np.where(rng.random((b, n)) < 0.5, 0, HALF), device=cuda)
+    w, bias, _, _ = _inputs(n, b, seed=n * b + 1, device=device)
+    phase = torch.as_tensor(np.where(rng.random((b, n)) < 0.5, 0, HALF), device=device)
+    prev = torch.as_tensor(np.where(rng.random((b, n)) < 0.5, 0, HALF), device=device)
     t = rng.integers(0, max_cycles + 1, size=b).astype(np.int32)
     t[: b // 2] = max_cycles - rng.integers(1, 4, size=b // 2)  # budget expiry mid-chunk
-    frozen = rng.random(b) < 0.25
+    frozen = np.ones(b, bool) if frozen_all else rng.random(b) < 0.25
     full = np.full((b,), max_cycles, np.int32)
     cols = dict(t=t, settle_cycle=full, settled=np.zeros(b, bool), cycled=np.zeros(b, bool),
                 frozen=frozen, frozen_p2=frozen & (rng.random(b) < 0.5),
                 freeze_cycle=np.where(frozen, t, full).astype(np.int32))
-    flags = [torch.as_tensor(cols[c], device=cuda) for c in COLS]
+    flags = [torch.as_tensor(cols[c], device=device) for c in COLS]
+    return w, bias, phase, prev, flags
+
+
+def _multi_check(w, bias, phase, prev, flags, packed, chunk, max_cycles):
     got = ops.phase_step_multi(w, bias, phase, prev, *flags, half=HALF, chunk=chunk,
                                max_cycles=max_cycles, packed=packed)
     want = plain.phase_step_multi_ref(
@@ -89,6 +97,66 @@ def test_multi_kernel_matches_plain(cuda, n, b, packed):
     )
     for g, r in zip(got, want):
         assert torch.equal(g.to(torch.int32).reshape(-1), r.reshape(-1))
+    return got
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,b", MULTI_SHAPES)
+def test_multi_kernel_matches_plain(cuda, n, b, packed):
+    max_cycles, chunk = 20, 8
+    ops.reset_launches()
+    _multi_check(*_multi_operands(n, b, cuda, max_cycles), packed, chunk, max_cycles)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["phase_step_multi_packed" if packed else "phase_step_multi"] == 1
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("case", ["all_frozen", "chunk_1"])
+@pytest.mark.parametrize("n,b", [(506, 64), (506, 1024), (1281, 37)])
+def test_multi_kernel_edge_cases(cuda, n, b, case, packed):
+    """Every lane frozen at entry (the kernel leaves at its first cycle and
+    must return the state as it came), and a chunk of one cycle."""
+    max_cycles = 20
+    ops_in = _multi_operands(n, b, cuda, max_cycles, frozen_all=case == "all_frozen")
+    got = _multi_check(*ops_in, packed, 1 if case == "chunk_1" else 8, max_cycles)
+    if case == "all_frozen":
+        assert torch.equal(got[0], ops_in[2]) and torch.equal(got[1], ops_in[3])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,b", [(506, 1024), (129, 65), (1281, 37)])
+def test_multi_kernel_two_calls_bit_identical(cuda, n, b, packed):
+    max_cycles = 20
+    w, bias, phase, prev, flags = _multi_operands(n, b, cuda, max_cycles)
+    first = ops.phase_step_multi(w, bias, phase, prev, *flags, half=HALF, chunk=8,
+                                 max_cycles=max_cycles, packed=packed)
+    again = ops.phase_step_multi(w, bias, phase, prev, *flags, half=HALF, chunk=8,
+                                 max_cycles=max_cycles, packed=packed)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,b", [(n, b) for n, b in MULTI_SHAPES if n <= 1280])
+def test_multi_cluster_plan_fits_the_card(cuda, n, b, packed):
+    """Each planned cluster (C CTAs of the plan's shared memory and 2 · rows
+    threads) can be resident on the card, and a plan the source does not
+    instantiate is refused, not run another way."""
+    plan = autotune.multi_plan(b, n)
+    assert plan.regime == "cluster"
+    assert ops.multi_cluster_occupancy(plan, packed) >= 1
+    bad = dataclasses.replace(plan, lanes=24, smem_bytes=autotune.multi_cluster_smem_bytes(
+        n, plan.cluster, 24))
+    w, bias, phase, prev, flags = _multi_operands(n, b, cuda, 20)
+    w8 = torch.nn.functional.pad(w, (0, autotune.padded_k(n) - n)).contiguous()
+    cols = torch.stack([f.to(torch.int32) for f in flags]).contiguous()
+    ph, pv = phase.to(torch.int32).contiguous(), prev.to(torch.int32).contiguous()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops._launch("phase_step_multi", "onn_phase_step_multi", cuda, w8.data_ptr(),
+                    bias.data_ptr(), ph.data_ptr(), pv.data_ptr(), cols.data_ptr(),
+                    torch.empty_like(ph).data_ptr(), torch.empty_like(pv).data_ptr(),
+                    torch.empty_like(cols).data_ptr(), b, n, autotune.padded_k(n), HALF, 8, 20,
+                    int(packed), *bad.args)
 
 
 @pytest.mark.parametrize("phase_pack", [False, True])

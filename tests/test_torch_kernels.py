@@ -140,8 +140,12 @@ _OUT = ("phase", "prev_phase", "settle_cycle", "settled", "cycled", "frozen",
         "frozen_p2", "freeze_cycle", "t")
 
 
+#: The serving slab at the configured width (64 lanes, and a part-filled one).
+SERVING_SIZES = [(506, 64), (506, 9)]
+
+
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("n,b", SIZES)
+@pytest.mark.parametrize("n,b", SIZES + SERVING_SIZES)
 def test_phase_step_multi_matches_pallas(n, b, packed):
     max_cycles, chunk = 20, 6
     w, bias, phase, prev, cols = _multi_state(n, b, seed=n * 3 + b, max_cycles=max_cycles)
@@ -187,17 +191,64 @@ def test_phase_step_multi_period2_orbits(packed):
     assert bool(got[4].any()), "expected at least one period-2 lane"
 
 
-def test_autotune_ceiling_and_lanes():
-    assert autotune.MULTI_KERNEL_MAX_N > 2048
+#: Kernel 5's launch plans: (B, N) and the expected (regime, cluster, lanes,
+#: grid).  The main path (1024, 506), the serving slab (64, 506), the
+#: smallest shape, N off 16 · C with B off L, the cluster regime's ceiling,
+#: one past it (the stream regime), the stream regime's ceiling, and two
+#: shapes that take 32 lanes.
+MULTI_PLANS = [
+    ((1024, 506), ("cluster", 2, 16, 128)),
+    ((64, 506), ("cluster", 8, 8, 64)),
+    ((1, 1), ("cluster", 2, 8, 2)),
+    ((9, 47), ("cluster", 4, 8, 8)),
+    ((65, 129), ("cluster", 8, 8, 72)),
+    ((1024, autotune.MULTI_CLUSTER_MAX_N), ("cluster", 8, 8, 1024)),
+    ((1024, autotune.MULTI_CLUSTER_MAX_N + 1), ("stream", 1, 8, 128)),
+    ((16, autotune.MULTI_KERNEL_MAX_N), ("stream", 1, 1, 16)),
+    ((1024, 800), ("cluster", 4, 32, 128)),
+    ((1024, 1000), ("cluster", 8, 32, 256)),
+]
+
+
+@pytest.mark.parametrize("shape,want", MULTI_PLANS)
+def test_multi_plan(shape, want):
+    b, n = shape
+    plan = autotune.multi_plan(b, n)
+    assert (plan.regime, plan.cluster, plan.lanes, plan.grid) == want
+    assert plan.smem_bytes <= autotune.SMEM_PER_BLOCK
+    assert plan.grid % plan.cluster == 0
+    assert plan.rows % 16 == 0 and plan.cluster * plan.rows >= n
+    assert plan.args == ({"cluster": 0, "stream": 1}[plan.regime], plan.cluster, plan.lanes,
+                         plan.rows, plan.smem_bytes)
+    if plan.regime == "cluster":
+        assert n <= autotune.MULTI_CLUSTER_MAX_N
+        assert plan.lanes % 8 == 0 and plan.lanes in autotune.MULTI_CLUSTER_LANES
+        assert plan.cluster in autotune.MULTI_CLUSTERS
+        assert plan.rows <= autotune.MULTI_CLUSTER_MAX_ROWS
+        assert plan.grid == plan.cluster * -(-b // plan.lanes)
+        assert plan.smem_bytes == autotune.multi_cluster_smem_bytes(n, plan.cluster, plan.lanes)
+    else:
+        # The stream body holds whole lanes per block; at its ceiling one fits.
+        assert n > autotune.MULTI_CLUSTER_MAX_N
+        assert plan.lanes in (1, 2, 4, 8) and plan.grid == -(-b // plan.lanes)
+        assert plan.smem_bytes + autotune.MULTI_STATIC_SMEM <= autotune.SMEM_PER_BLOCK
+    assert autotune.multi_plan(b, n) is plan  # looked up, not planned again
+
+
+def test_multi_ceilings():
+    cmax, kmax = autotune.MULTI_CLUSTER_MAX_N, autotune.MULTI_KERNEL_MAX_N
+    assert (cmax, kmax) == (1280, 17801)
+    assert autotune.multi_cluster_smem_bytes(cmax, 8, 8) <= autotune.SMEM_PER_BLOCK
+    assert autotune.multi_cluster_smem_bytes(cmax + 1, 8, 8) > autotune.SMEM_PER_BLOCK
     budget = autotune.SMEM_PER_BLOCK - autotune.MULTI_STATIC_SMEM
-    assert autotune.multi_smem_bytes(1, autotune.MULTI_KERNEL_MAX_N) <= budget
-    assert autotune.multi_smem_bytes(1, autotune.MULTI_KERNEL_MAX_N + 1) > budget
-    assert autotune.multi_lanes_per_block(506, 1024) == 8
-    assert autotune.multi_lanes_per_block(506, 16) == 1
-    assert autotune.multi_lanes_per_block(autotune.MULTI_KERNEL_MAX_N, 4096) == 1
+    assert autotune.multi_stream_smem_bytes(1, kmax) <= budget
+    assert autotune.multi_stream_smem_bytes(1, kmax + 1) > budget
     with pytest.raises(ValueError):
-        autotune.multi_lanes_per_block(autotune.MULTI_KERNEL_MAX_N + 1, 8)
+        autotune.multi_plan(8, kmax + 1)
+    with pytest.raises(ValueError):
+        autotune.multi_plan(8, 0)
     assert autotune.padded_k(506) == 512 and autotune.padded_k(16) == 16
+    assert autotune.multi_cluster_pitch(506) == 528 and autotune.multi_cluster_pitch(47) == 80
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
