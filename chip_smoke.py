@@ -69,9 +69,35 @@ and prints one JSON line per phase:
    and the two backends equal; instances/s of a warm solve, device busy time
    and idle share, the field kernel's share, launches per sweep, sweeps run
    and the mean cut ratio against a random assignment; and one
-   ``async_sweep`` at N = 506 equal to the CPU.
+   ``async_sweep`` at N = 506 equal to the CPU;
+11. ``engine`` (five lines): the serving engine (``repro_torch.engine``)
+   through ``Engine.install`` / ``submit`` / ``drain`` and
+   ``as_engine_solver``, every future read.  ``retrieval`` on the kernel
+   backend: 1024 lanes in seeded requests of 1-8 lanes at ``ONN_HYBRID_506``,
+   the default batch buckets, N padded to 512 (``"pow2"``) and then served
+   at 506 (``"exact"``); every request equal to ``RetrievalSolver.solve`` of
+   its rows on the card under both policies, and to those rows of phase 4's
+   solve (equal to the CPU's); requests/s and lanes/s of a warm drain
+   (median of five) against the direct solve's lanes/s, slabs, pad fraction,
+   device busy time and idle share, and kernel 5 alone at (128, 512), equal
+   to its plain version, with its device time and plan.
+   ``retrieval_hybrid``: the same on the hybrid backend's kernel route
+   (kernel 7, P = 32), 256 lanes.  ``rtl``: rtl with ``sync_jitter`` on both
+   architectures (kernel 6, kernel 1), 64 lanes, each request's generator
+   seeded, equal to ``RetrievalSolver.solve`` with a generator of the same
+   seed and to the CPU's solve on the offsets that generator gives.
+   ``maxcut``: the 16 graphs of phase 10 and two at n = 300, all in the 512
+   bucket, 64 replicas, 64 sweeps, stagnation 16, each request's CPU
+   generator seeded; on the kernel backend every field equal to
+   ``MaxCutSolver.solve`` of that instance with a generator of the same
+   seed, and two such solves (n = 506, n = 300) equal to the CPU's; on the
+   hybrid route equal to the kernel backend's; the field kernel alone at
+   the slab's shape (32 instances x 64 replicas x 32 rows x 512) equal to
+   its plain version; instances/s of a warm drain and launches per sweep.
+   ``hot_swap``: ``Engine.hot_swap`` to a second Hebbian matrix; the next
+   drain equals the direct solve on the new weights.
 
-Launch counts are set to 0 before each main-path phase (4-10) and read after
+Launch counts are set to 0 before each main-path phase (4-11) and read after
 it; every kernel must have launched on a main path.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -139,6 +165,13 @@ FIELDS = ("final_phase", "final_sigma", "settle_cycle", "settled", "cycled")
 #: The Max-Cut cell: instances, replicas, sweeps, stagnation, settle-chunk;
 #: the update groups resolve to 16 (``stagger_groups`` 0).
 MC_INSTANCES, MC_REPLICAS, MC_SWEEPS, MC_STAGNATION, MC_CHUNK = 16, 64, 64, 16, 8
+#: The engine phase: lanes of its retrieval requests on the kernel route, on
+#: the hybrid route and in rtl; the most lanes of one request; the true n of
+#: the two Max-Cut requests beside the 16 graphs at N; warm drains timed
+#: (retrieval, Max-Cut).
+ENGINE_LANES, ENGINE_HYBRID_LANES, ENGINE_RTL_LANES = 1024, 256, 64
+ENGINE_MAX_REQUEST_LANES, ENGINE_SMALL_N = 8, 300
+ENGINE_REPEATS, ENGINE_MC_REPEATS = 5, 3
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -408,6 +441,67 @@ def make_wandering_problem():
     probes = xi[rng.integers(0, 3, size=B)].astype(np.int8)
     probes[rng.random((B, N)) < 0.3] *= -1
     return w, probes
+
+
+def request_spans(seed: int, lanes: int) -> list:
+    """Seeded request sizes of 1-:data:`ENGINE_MAX_REQUEST_LANES` lanes that
+    cover ``lanes`` lanes in order, as (start, count) spans."""
+    rng = np.random.default_rng([seed, 19, lanes])
+    spans, start = [], 0
+    while start < lanes:
+        count = min(int(rng.integers(1, ENGINE_MAX_REQUEST_LANES + 1)), lanes - start)
+        spans.append((start, count))
+        start += count
+    return spans
+
+
+def serve_requests(eng, name: str, payloads, keys=None):
+    """Submit one request per payload (with its generator, if ``keys``), drain
+    the engine, and read every future: a failed request fails the run.
+    Returns (results, drain stats)."""
+    from repro_torch.engine import Request
+
+    keys = keys if keys is not None else [None] * len(payloads)
+    futures = [eng.submit(Request(name, p, key=k)) for p, k in zip(payloads, keys)]
+    stats = eng.drain()
+    results = []
+    for i, f in enumerate(futures):
+        exc = f.exception()
+        require(exc is None, f"engine {name}: request {i} failed: {exc!r}")
+        results.append(f.result())
+    return results, stats
+
+
+def submit_then_drain(eng, name: str, payloads) -> tuple:
+    """Host seconds of submitting one request per payload, and of draining
+    them to the end of the card's work; every future read."""
+    from repro_torch.engine import Request
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = [eng.submit(Request(name, p)) for p in payloads]
+    t1 = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i, f in enumerate(futures):
+        require(f.exception() is None, f"engine {name}: request {i} failed: {f.exception()!r}")
+    return t1 - t0, t2 - t1
+
+
+def require_same(got, want, fields, what: str) -> None:
+    """Every named field of ``got`` equals ``want``'s: shape, dtype, values."""
+    for f in fields:
+        g, c = getattr(got, f), getattr(want, f)
+        require(g.shape == c.shape and g.dtype == c.dtype, f"{what} {f}: shape/dtype")
+        require(torch.equal(g, c.to(g.device)), f"{what} {f}: values differ")
+
+
+def require_rows(got, ref, start: int, what: str) -> None:
+    """One request's batched result ``got`` equals rows ``start`` onward of
+    the lane-wise result ``ref`` (lanes never read each other's rows)."""
+    count = got.settled.shape[0]
+    require_same(got, type(ref)(*(x[start:start + count] for x in ref)), FIELDS, what)
 
 
 def main() -> None:
@@ -1033,6 +1127,264 @@ def main() -> None:
             "async_sweep: card != CPU")
     emit({"phase": "async_sweep", "n": N, "equal_to_cpu": True,
           "flipped": int((swept != sig0).sum())})
+
+    # 11. the serving engine: retrieval, rtl, Max-Cut and a hot swap -------------
+    from repro_torch import engine as engine_lib
+
+    nb = engine_lib.bucket_n(N)  # the "pow2" bucket: 512
+
+    def new_engine(policy):
+        return engine_lib.Engine(torch.Generator().manual_seed(args.seed),
+                                 n_policy=policy)  # serves on the GPU
+
+    def retrieval_part(part, cfg_e, lanes, kernel):
+        """One retrieval line: every request of ``lanes`` seeded lanes served
+        under "pow2" and "exact", each equal to the direct solve of its rows
+        and to those rows of phase 4's solve (itself equal to the CPU's)."""
+        solver_e = api.RetrievalSolver(cfg_e, api.make_params(cfg_e, w_np))
+        spans = request_spans(args.seed, lanes)
+        reqs = [probes[a:a + c] for a, c in spans]
+        direct = [solver_e.solve(r) for r in reqs]
+        served, engines = {}, {}
+        for policy in ("pow2", "exact"):
+            eng = new_engine(policy)
+            eng.install("mem", solver_e.as_engine_solver())
+            (res, stats), seconds, path = drive(lambda: serve_requests(eng, "mem", reqs))
+            require(path.get(kernel, 0) > 0, f"engine {part} {policy}: {kernel} never launched")
+            for i, (got, want, (a, _)) in enumerate(zip(res, direct, spans)):
+                require_same(got, want, FIELDS, f"engine {part} {policy} request {i} != solve")
+                require_rows(got, results[False], a,
+                             f"engine {part} {policy} request {i} != the CPU-checked solve")
+            served[policy] = {"first_drain_s": seconds, "slabs": stats["slabs"],
+                              "pad_fraction": stats["pad_fraction"],
+                              "n_bucket": eng.solver("mem").bucket(N, policy),
+                              "launches": path}
+            engines[policy] = eng
+        eng = engines["pow2"]
+
+        def drain():
+            serve_requests(eng, "mem", reqs)
+
+        metrics = warm_metrics(drain, repeats=ENGINE_REPEATS, per_solve=len(reqs))
+        lanes_per_s = lanes / metrics["warm_solve_s"]
+        # The host's share: the submit loop alone, then the drain, of warm
+        # drains (medians), and one latency quote (Engine.estimate) alone.
+        splits = sorted(submit_then_drain(eng, "mem", reqs) for _ in range(ENGINE_REPEATS))
+        t_quote = time.perf_counter()
+        for r in reqs:
+            eng.estimate("mem", r)
+        quote_s = (time.perf_counter() - t_quote) / len(reqs)
+        direct_s = sorted(solve_seconds(lambda: solver_e.solve(probes[:lanes]))
+                          for _ in range(ENGINE_REPEATS))[ENGINE_REPEATS // 2]
+        line = {
+            "phase": "engine", "part": part, "config": "ONN_HYBRID_506",
+            "backend": cfg_e.backend, "hybrid_impl": cfg_e.hybrid_impl, "lanes": lanes,
+            "requests": len(reqs), "lanes_per_request": [1, ENGINE_MAX_REQUEST_LANES],
+            "batch_buckets": list(eng.batch_buckets), "policies": served,
+            **metrics, "lanes_per_s": lanes_per_s,
+            "direct_warm_solve_s": direct_s, "direct_lanes_per_s": lanes / direct_s,
+            "engine_over_direct_lanes_per_s": lanes_per_s * direct_s / lanes,
+            "submit_s": sorted(x[0] for x in splits)[ENGINE_REPEATS // 2],
+            "drain_s": sorted(x[1] for x in splits)[ENGINE_REPEATS // 2],
+            "submit_us_per_request": 1e6 * sorted(x[0] for x in splits)[ENGINE_REPEATS // 2]
+            / len(reqs), "estimate_us_per_request": 1e6 * quote_s,
+            "stats": {k: eng.stats()["solvers"]["mem"][k] for k in (
+                "settle_ema_cycles", "expected_cycles", "n_buckets", "autotune")},
+            "equal_to_solve": True, "equal_to_cpu_checked_solve": True, "policies_agree": True,
+        }
+        return line, eng, solver_e, reqs, spans
+
+    # 11.1 retrieval, kernel backend: kernel 5 at (<= 128, nb) and (<= 128, N)
+    cfg_k = dataclasses.replace(configs.ONN_HYBRID_506, backend="kernel")
+    line, eng_k, solver_k, reqs_k, spans_k = retrieval_part(
+        "retrieval", cfg_k, ENGINE_LANES, "phase_step_multi")
+    k5_names = [k for k in line["device_ms_by_name"] if any(
+        s in k for s in SYMBOLS["phase_step_multi"])]
+    k5_launches = line["policies"]["pow2"]["launches"]["phase_step_multi"]
+    # Kernel 5 alone at the slab shape (128, nb): the padded couplings and
+    # the first 128 lanes, timing launches that count for no path.
+    slab = max(engine_lib.DEFAULT_BATCH_BUCKETS)
+    w_nb = torch.nn.functional.pad(w, (0, nb - N, 0, nb - N))
+    b_nb = torch.nn.functional.pad(bias, (0, nb - N))
+    ph_nb = torch.nn.functional.pad(phase[:slab], (0, nb - N))
+    pv_nb = torch.nn.functional.pad(prev[:slab], (0, nb - N))
+    got, want, k5_at_slab, k5_plain, k5_bytes, k5_ops, _ = multi_case(
+        w_nb, b_nb, ph_nb, pv_nb, multi_cols(slab), False)
+    torch.cuda.synchronize()
+    k5_err = max_abs_err(got, want)
+    require(k5_err == 0, f"phase_step_multi at {[slab, nb]}: kernel disagrees with its plain "
+                         f"version (max_abs_err {k5_err})")
+    plan_slab = autotune.multi_plan(slab, nb)
+    line.update(
+        kernel5_in_drain_ms=sum(line["device_ms_by_name"][k] for k in k5_names),
+        kernel5_launches_in_drain=k5_launches,
+        kernel5_slab_shape=[slab, nb], kernel5_at_slab_max_abs_err=k5_err,
+        kernel5_at_slab_ms=device_ms(k5_at_slab, "phase_step_multi"),
+        kernel5_at_slab_plain_ms=cuda_ms(k5_plain), kernel5_at_slab_bound_ms=bound(
+            k5_bytes, k5_ops)[0],
+        kernel5_at_main_shape_ms=rows["phase_step_multi"]["kernel_ms"],
+        kernel5_slab_plan=multi_plan_dict(plan_slab, ops.multi_cluster_occupancy(plan_slab)),
+    )
+    emit(line)
+
+    # 11.2 retrieval, hybrid kernel route: kernel 7 at P = 32 on nb
+    cfg_hk = dataclasses.replace(configs.ONN_HYBRID_506, backend="hybrid", hybrid_impl="kernel")
+    line, *_ = retrieval_part("retrieval_hybrid", cfg_hk, ENGINE_HYBRID_LANES,
+                              "hybrid_phase_step")
+    line["parallel"] = cfg_hk.hybrid_parallel
+    emit(line)
+
+    # 11.3 rtl with sync_jitter, each request's generator seeded
+    for arch, route, kernel in (
+        ("hybrid", dict(backend="hybrid", hybrid_impl="kernel"), "hybrid_coupling_sum"),
+        ("recurrent", dict(backend="kernel"), "coupling_sum"),
+    ):
+        cfg_r = dataclasses.replace(configs.ONN_HYBRID_506, mode="rtl", sync_jitter=True,
+                                    architecture=arch, **route)
+        solver_r = api.RetrievalSolver(cfg_r, api.make_params(cfg_r, w_np))
+        spans = request_spans(args.seed, ENGINE_RTL_LANES)
+        reqs = [probes[a:a + c] for a, c in spans]
+
+        def keys():
+            return [torch.Generator(device=dev).manual_seed(1000 + i) for i in range(len(reqs))]
+
+        direct = [solver_r.solve(r, key=k) for r, k in zip(reqs, keys())]
+        # The CPU's solve of the same lanes, on each request's offsets drawn
+        # as the adapter draws them from its generator.
+        t0_e = torch.cat([
+            torch.randint(0, cfg_r.clocks_per_cycle, (c,), generator=k, device=k.device,
+                          dtype=torch.int32) for (_, c), k in zip(spans, keys())])
+        cpu_e = dyn.retrieve(cfg_r, api.make_params(cfg_r, w_np, device="cpu"),
+                             torch.as_tensor(probes[:ENGINE_RTL_LANES]), t0=t0_e.cpu())
+        per_policy = {}
+        for policy in ("pow2", "exact"):
+            eng = new_engine(policy)
+            eng.install("mem", solver_r.as_engine_solver())
+            (res, stats), seconds, path = drive(lambda: serve_requests(eng, "mem", reqs, keys()))
+            require(path.get(kernel, 0) > 0, f"engine rtl {arch} {policy}: {kernel} never launched")
+            for i, (got, want, (a, _)) in enumerate(zip(res, direct, spans)):
+                require_same(got, want, FIELDS, f"engine rtl {arch} {policy} request {i} != solve")
+                require_rows(got, cpu_e, a, f"engine rtl {arch} {policy} request {i} != CPU")
+            per_policy[policy] = {"drain_s": seconds, "slabs": stats["slabs"],
+                                  "pad_fraction": stats["pad_fraction"], "launches": path}
+        emit({"phase": "engine", "part": "rtl", "architecture": arch, **route,
+              "sync_jitter": True, "lanes": ENGINE_RTL_LANES, "requests": len(reqs),
+              "policies": per_policy, "equal_to_solve_with_same_seed": True,
+              "equal_to_cpu": True})
+
+    # 11.4 Max-Cut: the 16 graphs at N and two at n = 300, all in the bucket nb
+    rng_mc = np.random.default_rng([args.seed, 29])
+    small = []
+    for _ in range(2):
+        upper = np.triu(rng_mc.random((ENGINE_SMALL_N, ENGINE_SMALL_N)) < 0.5, k=1)
+        small.append(torch.as_tensor((upper + upper.T).astype(np.int8)))
+    adjs = list(graphs) + small
+    bb = engine_lib.bucket_batch(len(adjs))
+    groups = ising.resolve_stagger_groups(0, nb)
+    window = -(-nb // groups)  # the member rows of one update group
+    # The field kernels' operands at the slab's shape: a window of each padded
+    # instance's couplings (bb instances, the 16 graphs repeated) against its
+    # replicas' spins.
+    w_mc_nb = torch.nn.functional.pad(w_mc, (0, nb - N, 0, nb - N))
+    w_mc_nb = w_mc_nb[torch.arange(bb, device=dev) % MC_INSTANCES]
+    members_nb = torch.stack([torch.randperm(nb, generator=torch.Generator().manual_seed(i))
+                              [:window] for i in range(bb)]).to(dev)
+    slabs_nb = w_mc_nb[torch.arange(bb, device=dev)[:, None], members_nb]
+    reps_nb = torch.randint(0, 2, (bb, MC_REPLICAS, nb), generator=g, device=dev,
+                            dtype=torch.int8) * 2 - 1
+    mc_served = {}
+    for route, kernel in (
+        (dict(backend="kernel"), "coupling_sum_batched"),
+        (dict(backend="hybrid", hybrid_impl="kernel"), "hybrid_coupling_sum_batched"),
+    ):
+        kw = dict(sweeps=MC_SWEEPS, replicas=MC_REPLICAS, stagnation=MC_STAGNATION,
+                  settle_chunk=MC_CHUNK, **route)
+        solver_mc = api.MaxCutSolver(**kw)  # on the GPU
+        eng = new_engine("pow2")
+        eng.install("cuts", solver_mc.as_engine_solver())
+
+        def keys():  # drawn on the CPU: the same uniforms for the card's and the CPU's solve
+            return [torch.Generator().manual_seed(2000 + i) for i in range(len(adjs))]
+
+        (res, stats), seconds, path = drive(lambda: serve_requests(eng, "cuts", adjs, keys()))
+        require(list(stats["slabs_per_bucket"]) == [f"cuts:{nb}:batch{bb}"],
+                f"engine maxcut: slabs {stats['slabs_per_bucket']}")
+        if not mc_served:  # the kernel backend against each isolated solve
+            for i, (got, a, k) in enumerate(zip(res, adjs, keys())):
+                require_same(got, solver_mc.solve(a, key=k), ising.MaxCutResult._fields,
+                             f"engine maxcut {route} instance {i} != solve")
+            cpu_solver = api.MaxCutSolver(**kw, device="cpu")
+            for i in (0, len(graphs)):  # one instance at N, one at ENGINE_SMALL_N
+                require_same(res[i], cpu_solver.solve(adjs[i], key=keys()[i]),
+                             ising.MaxCutResult._fields, f"engine maxcut instance {i} != CPU")
+        else:
+            for i, (got, want) in enumerate(zip(res, mc_served["kernel"])):
+                require_same(got, want, ising.MaxCutResult._fields,
+                             f"engine maxcut {route} instance {i} != kernel backend")
+        ran = max(int(r.sweeps_run) for r in res)
+        stepped = -(-ran // MC_CHUNK) * MC_CHUNK
+        n_launch = path.get(kernel, 0)
+        require(n_launch == groups * stepped,
+                f"engine maxcut {route}: {n_launch} launches of {kernel}, not {groups} per sweep")
+
+        def drain():
+            serve_requests(eng, "cuts", adjs, keys())
+
+        metrics = warm_metrics(drain, repeats=ENGINE_MC_REPEATS, per_solve=len(adjs),
+                               unit="instances")
+        # The field kernel alone at the slab's shape, against its plain version.
+        p_nb = solver_mc.config(nb).hybrid_parallel
+        if kernel == "coupling_sum_batched":
+            def field():
+                return ops.coupling_sum(slabs_nb, reps_nb)
+
+            def field_plain():
+                return plain.coupling_sum_ref(slabs_nb, reps_nb)
+        else:
+            def field():
+                return ops.hybrid_coupling_sum(slabs_nb, reps_nb, parallel=p_nb)
+
+            def field_plain():
+                return plain.hybrid_coupling_sum_ref(slabs_nb, reps_nb, p_nb)
+        field_err = max_abs_err(field(), field_plain())
+        require(field_err == 0, f"{kernel} at the engine's shape: kernel disagrees with its "
+                                f"plain version (max_abs_err {field_err})")
+        field_at_bucket = {
+            "shape": {"I": bb, "B": MC_REPLICAS, "M": window, "N": nb},
+            "parallel": p_nb if route["backend"] == "hybrid" else None,
+            "max_abs_err": field_err, "kernel_ms": device_ms(field, kernel),
+            # per launch in the traced drain: the same kernel at the same shape
+            "kernel_ms_in_drain": sum(v for k, v in metrics["device_ms_by_name"].items()
+                                      if "coupling_gemm_kernel" in k) / n_launch,
+            "wrapper_ms": cuda_ms(field), "plain_ms": cuda_ms(field_plain, iters=5, warmup=1),
+        }
+        emit({
+            "phase": "engine", "part": "maxcut", **route, "n": [N] * len(graphs) + [
+                ENGINE_SMALL_N] * len(small), "n_bucket": nb, "replicas": MC_REPLICAS,
+            "sweeps": MC_SWEEPS, "stagnation": MC_STAGNATION, "groups": groups,
+            "slabs_per_bucket": stats["slabs_per_bucket"], "pad_fraction": stats["pad_fraction"],
+            "sweeps_stepped": stepped, "launches_per_sweep": n_launch / stepped,
+            "first_drain_s": seconds, **metrics, "launches": path,
+            "field_kernel_at_bucket": field_at_bucket,
+            "equal_to_solve_with_same_seed": not mc_served or None,
+            "instances_equal_to_cpu": None if mc_served else [0, len(graphs)],
+            "equal_to_kernel_backend": True if mc_served else None,
+        })
+        mc_served[route["backend"]] = res
+
+    # 11.5 hot swap to a second Hebbian matrix on the kernel backend's engine
+    w2_np, _, _ = make_problem(args.seed + 1)
+    params2 = api.make_params(cfg_k, w2_np)
+    eng_k.hot_swap("mem", params2)
+    swap_reqs = reqs_k[:64]
+    direct2 = [api.RetrievalSolver(cfg_k, params2).solve(r) for r in swap_reqs]
+    (res, stats), seconds, path = drive(lambda: serve_requests(eng_k, "mem", swap_reqs))
+    for i, (got, want) in enumerate(zip(res, direct2)):
+        require_same(got, want, FIELDS, f"engine hot_swap request {i} != solve on new weights")
+    require(stats["solvers"]["mem"]["hot_swaps"] == 1, "engine hot_swap: not counted")
+    emit({"phase": "engine", "part": "hot_swap", "requests": len(swap_reqs),
+          "lanes": sum(c for _, c in spans_k[:64]), "drain_s": seconds, "launches": path,
+          "hot_swaps": 1, "equal_to_solve_on_new_weights": True})
 
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -17,7 +17,9 @@ the CPU through the plain versions of the kernels.  A config with
 ``mode="rtl"`` and ``sync_jitter`` draws each request's enable-signal offset
 from the ``torch.Generator`` passed as ``solve(..., key=generator)``;
 ``MaxCutSolver`` draws its initial spins and sweep orders the same way.
-Training (DO-I) and engine registration wait for later slices of the port.
+Both solvers serve through ``repro_torch.engine`` (``as_engine_solver``, and
+the registry's "retrieval" and "maxcut" workloads, registered here).
+Training (DO-I) waits for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from repro_torch.core.ising import (  # noqa: F401 — re-exported API
 )
 from repro_torch.core.learning import hebbian  # noqa: F401
 from repro_torch.core.quantization import quantize_weights  # noqa: F401
+from repro_torch.engine.registry import register_solver
 
 
 @runtime_checkable
@@ -122,6 +125,12 @@ class RetrievalSolver:
             device=key.device, dtype=torch.int32,
         )
         return retrieve(cfg, self.params, batch, t0=t0.to(device))
+
+    def as_engine_solver(self):
+        """This solver as an installable ``repro_torch.engine`` workload adapter."""
+        from repro_torch.engine.adapters import RetrievalEngineSolver
+
+        return RetrievalEngineSolver(solver=self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,8 +201,37 @@ class MaxCutSolver:
         )
 
     def as_engine_solver(self):
-        """Waits for the engine (ROADMAP.md, section 1, item 1)."""
-        raise NotImplementedError(
-            "MaxCutSolver.as_engine_solver needs the engine, which is not ported yet "
-            "(ROADMAP.md, section 1, item 1: the engine)"
-        )
+        """This solver as an installable ``repro_torch.engine`` workload adapter."""
+        from repro_torch.engine.adapters import MaxCutEngineSolver
+
+        return MaxCutEngineSolver(solver=self)
+
+
+# ---------------------------------------------------------------------------
+# Engine registration: both Solver implementations serve through the engine
+# ---------------------------------------------------------------------------
+
+
+def _retrieval_engine_factory(**kwargs: Any):
+    from repro_torch.engine.adapters import RetrievalEngineSolver
+
+    return RetrievalEngineSolver(**kwargs)
+
+
+def _maxcut_engine_factory(**kwargs: Any):
+    from repro_torch.engine.adapters import MaxCutEngineSolver
+
+    return MaxCutEngineSolver(**kwargs)
+
+
+register_solver(
+    "retrieval",
+    _retrieval_engine_factory,
+    "batched pattern retrieval on a trained ONN (solver=; xi= waits for DO-I)",
+)
+register_solver(
+    "maxcut",
+    _maxcut_engine_factory,
+    "batched multi-replica Ising-machine max-cut (sweeps=, replicas=, "
+    "stagger_groups=, backend=, parallel_factor=, device=)",
+)

@@ -3,11 +3,16 @@
 Each oscillator is a ``uint8`` phase counter in the rotating frame of the
 global reference oscillator; amplitude ``a = 1`` iff the counter is in the
 first half-period, spin ``sigma = +1`` iff ``a == 1``.  Same conventions as
-the JAX reference (``repro.core.oscillator``).
+the JAX reference (``repro.core.oscillator``).  The explicit shift-register
+model (:class:`ShiftRegisterOscillator`, numpy, one oscillator clock by
+clock) is kept only as the oracle the tests hold the counter model to.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 DEFAULT_PHASE_BITS = 4
@@ -16,6 +21,16 @@ DEFAULT_PHASE_BITS = 4
 def n_positions(phase_bits: int = DEFAULT_PHASE_BITS) -> int:
     """Number of shift-register positions == phases per period (paper eq. 4)."""
     return 1 << phase_bits
+
+
+def phase_step_degrees(phase_bits: int = DEFAULT_PHASE_BITS) -> float:
+    """Size of one phase step in degrees (paper eq. 5)."""
+    return 360.0 / n_positions(phase_bits)
+
+
+def oscillator_period(t_clock: float, phase_bits: int = DEFAULT_PHASE_BITS) -> float:
+    """Oscillator period in seconds for a given clock period (paper eq. 3)."""
+    return n_positions(phase_bits) * t_clock
 
 
 def amplitude(theta: torch.Tensor, phase_bits: int = DEFAULT_PHASE_BITS) -> torch.Tensor:
@@ -66,3 +81,34 @@ def phase_align(
         0,
         torch.where(weighted_sum < 0, half, theta.to(torch.int32)),
     ).to(torch.uint8)
+
+
+@dataclasses.dataclass
+class ShiftRegisterOscillator:
+    """Explicit circular-shift-register oscillator (paper Fig. 3 + Table 3).
+
+    Test oracle only: numpy, one oscillator, clock by clock.  The first half
+    of the registers holds 1s, the second half 0s; each clock shifts left
+    (register ``k`` receives the value of register ``k+1``, the last receives
+    the first); the output taps register ``tap``.
+    """
+
+    phase_bits: int = DEFAULT_PHASE_BITS
+    tap: int = 0
+
+    def __post_init__(self) -> None:
+        n = n_positions(self.phase_bits)
+        self.registers = np.array([1] * (n // 2) + [0] * (n // 2), dtype=np.int8)
+
+    def clock(self) -> None:
+        self.registers = np.roll(self.registers, -1)
+
+    def output(self) -> int:
+        return int(self.registers[self.tap])
+
+    def set_phase(self, theta: int) -> None:
+        """Load the register state corresponding to phase counter ``theta``
+        (the base pattern advanced by ``theta`` clocks)."""
+        n = n_positions(self.phase_bits)
+        base = np.array([1] * (n // 2) + [0] * (n // 2), dtype=np.int8)
+        self.registers = np.roll(base, -int(theta) % n)

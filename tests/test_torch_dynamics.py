@@ -190,16 +190,20 @@ def test_padding_is_exact_and_matches_reference():
 
 
 def test_unported_routes_raise_not_implemented():
-    """Only the engine adapter of the Max-Cut solver is still unported
-    (``MaxCutSolver.as_engine_solver`` names its ROADMAP item); ``step`` on
+    """``MaxCutSolver.as_engine_solver`` returns the engine's adapter with the
+    solver's settings (it raised before the engine was ported); ``step`` on
     an rtl config is refused as in the reference; the rtl, hybrid and
     ``async_sweep`` routes that used to raise now run, and ``run`` equals the
     batched lane."""
     from repro_torch import api as port_api
+    from repro_torch.engine.adapters import MaxCutEngineSolver
 
     w, bias, sigma = problem(16, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_api.MaxCutSolver(device="cpu").as_engine_solver()
+    solver = port_api.MaxCutSolver(sweeps=9, replicas=3, stagnation=2, device="cpu")
+    adapter = solver.as_engine_solver()
+    assert isinstance(adapter, MaxCutEngineSolver)
+    assert (adapter.sweeps, adapter.replicas, adapter.stagnation, adapter.backend,
+            adapter.device) == (9, 3, 2, "parallel", "cpu")
     swept = port_dyn.async_sweep(torch.as_tensor(w), torch.as_tensor(sigma[0]), torch.arange(16))
     assert swept.shape == (16,) and swept.dtype == torch.int8
     with pytest.raises(ValueError, match="functional"):

@@ -35,6 +35,7 @@ from repro.core.quantization import quantize_weights as ref_quantize
 from repro_torch import api, convert
 from repro_torch.core import dynamics as port_dyn
 from repro_torch.core import ising
+from repro_torch.engine.adapters import MaxCutEngineSolver
 
 #: Every weighted-sum route of the port's ONNConfig: the name and its fields
 #: (a hybrid P of 0 stands for P = N).
@@ -401,8 +402,11 @@ def test_maxcut_solver_surface_and_converter():
     adj = torch.as_tensor(graphs(1, 2, 10))
     with pytest.raises(ValueError, match="Generator"):
         solver.solve(adj)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.as_engine_solver()
+    adapter = solver.as_engine_solver()  # the engine's adapter, with the solver's settings
+    assert isinstance(adapter, MaxCutEngineSolver)
+    for f in ("sweeps", "weight_bits", "replicas", "stagger_groups", "stagnation", "backend",
+              "parallel_factor", "hybrid_impl", "settle_chunk", "device"):
+        assert getattr(adapter, f) == getattr(solver, f), f
     one = solver.solve(adj[0], key=torch.Generator().manual_seed(0))
     both = solver.solve(adj, key=torch.Generator().manual_seed(0))
     assert one.sigma.shape == (10,) and both.sigma.shape == (2, 10)
