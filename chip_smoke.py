@@ -96,9 +96,32 @@ and prints one JSON line per phase:
    its plain version; instances/s of a warm drain and launches per sweep.
    ``hot_swap``: ``Engine.hot_swap`` to a second Hebbian matrix; the next
    drain equals the direct solve on the new weights.
+12. ``daemon`` (five lines) and ``train``: the serve daemon
+   (``repro_torch.serving``) on a ``ContinuousEngine`` (root generator seed
+   0, 128-lane slabs, tenants alpha 2 and beta 1) with phase 4's weights on
+   the kernel backend (``mem``) and Max-Cut as in phase 11 (``cuts``).
+   ``closed``: phase 11's 228 retrieval requests with Max-Cut instances 0
+   (n = 506) and 16 (n = 300) at positions 76 and 152, tenants seeded,
+   eight requests a tick; every request equal to its rows of phase 4's
+   result or to phase 11's CPU solve, requests joining live slabs; one cold
+   run, three warm (requests/s, lanes/s, latency mean/p50/p99, host ms per
+   tick, mean slab occupancy), one traced (idle share).  ``open``: the same
+   stream on Poisson arrivals at half the closed rate.  ``drain``: the
+   retrieval stream, ticked until a request joins a live slab, then
+   ``finish_in_flight``: queued requests rejected, in-flight ones equal.
+   ``hot_swap``: ``HotSwap.install`` of phase 11's second Hebbian matrix
+   while a slab is live; requests before it equal phase 4's rows, after it
+   the solve on the new weights.  ``train``: ``train_doi`` at N = 506 on
+   phase 4's 40 patterns, on the card and the CPU, held to each other by
+   the DO-I rule (``tests/doi_rule.py``); then ``install(..., xi=...)``
+   trains on the card and 128 probes through the daemon equal the isolated
+   solve.  ``mixed_stream``: ``install_mixed_workloads`` (DO-I on 7x6 and
+   10x10 on the card, held to the CPU by the rule) and 64 requests of
+   ``mixed_requests``, each equal to its isolated solve.
 
-Launch counts are set to 0 before each main-path phase (4-11) and read after
-it; every kernel must have launched on a main path.  The line before the last
+Launch counts are set to 0 before each main-path phase (4-12) and read after
+it; every kernel must have launched on a main path, and each row of the
+``kernels`` line carries the launches of phase 12 as ``launches_daemon``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
 """
@@ -172,6 +195,14 @@ MC_INSTANCES, MC_REPLICAS, MC_SWEEPS, MC_STAGNATION, MC_CHUNK = 16, 64, 64, 16, 
 ENGINE_LANES, ENGINE_HYBRID_LANES, ENGINE_RTL_LANES = 1024, 256, 64
 ENGINE_MAX_REQUEST_LANES, ENGINE_SMALL_N = 8, 300
 ENGINE_REPEATS, ENGINE_MC_REPEATS = 5, 3
+#: The daemon lines: a streaming slab's lanes, the tenants and their weights,
+#: requests per tick of the closed run, the stream positions of the two
+#: Max-Cut requests, warm closed runs timed, the open run's sleep between
+#: idle ticks, the requests after the hot swap, of the trained workload and
+#: of the mixed stream.
+DAEMON_SLAB, DAEMON_TENANTS, DAEMON_PER_TICK = 128, (("alpha", 2.0), ("beta", 1.0)), 8
+DAEMON_MC_AT, DAEMON_REPEATS, DAEMON_IDLE_SLEEP_S = (76, 152), 3, 0.0005
+DAEMON_SWAP_REQUESTS, DAEMON_TRAINED_REQUESTS, MIXED_REQUESTS = 64, 128, 64
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -181,8 +212,12 @@ QMV_GEMV = (8, 4096, 4096)
 QMV_RAGGED = ((65, 100, 333), (1, 3, 40))
 
 
+#: The script's start on the host clock: each line says when it was written.
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -502,6 +537,374 @@ def require_rows(got, ref, start: int, what: str) -> None:
     the lane-wise result ``ref`` (lanes never read each other's rows)."""
     count = got.settled.shape[0]
     require_same(got, type(ref)(*(x[start:start + count] for x in ref)), FIELDS, what)
+
+
+def serve_stream(eng, reqs, source, **daemon_kw):
+    """Run a ``ServeDaemon`` on ``eng`` over ``source``, which yields the
+    requests ``reqs``.  Returns (the daemon's report, each request's future
+    in the order of ``reqs``, wall seconds ending in a synchronise, the
+    seconds of each tick, the host clock at which each future resolved)."""
+    from repro_torch import serving
+
+    futures, ticks, done_at = {}, [], {}
+    submit, step = eng.submit, eng.step
+
+    def recording_submit(request):
+        fut = futures[id(request)] = submit(request)
+        fut.add_done_callback(lambda _, k=id(request): done_at.setdefault(k, time.perf_counter()))
+        return fut
+
+    def timed_step(admit=True):
+        t0 = time.perf_counter()
+        out = step(admit)
+        ticks.append(time.perf_counter() - t0)
+        return out
+
+    eng.submit, eng.step = recording_submit, timed_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = serving.ServeDaemon(eng, signals=(), **daemon_kw).run(source)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del eng.submit, eng.step
+    return (report, [futures[id(r)] for r in reqs], seconds, ticks,
+            [done_at.get(id(r)) for r in reqs])
+
+
+def latency_ms(report) -> dict:
+    lat = report["latency"]
+    return {"count": lat["count"], "mean_ms": 1e3 * lat["mean_s"], "p50_ms": 1e3 * lat["p50_s"],
+            "p99_ms": 1e3 * lat["p99_s"]}
+
+
+def daemon_lines(dev, seed, cfg_mem, w_np, w2, xi, probes, checked, spans, mc, mc_kw,
+                 drive) -> dict:
+    """Phase 12: the serve daemon (``repro_torch.serving``) and DO-I training
+    (``repro_torch.train``) on ``dev``, one JSON line per part; returns the
+    launches of these lines by kernel.
+
+    ``cfg_mem``, ``w_np``: the retrieval workload's config and int8 couplings;
+    ``w2``: the float couplings of the hot swap; ``xi``: the (P, N) patterns
+    behind both trainings; ``probes``: corrupted patterns, whose rows
+    ``checked`` (a result on them, already held to the CPU) every retrieval
+    request must equal; ``spans``: (start, count) of each retrieval request;
+    ``mc``: (stream position, adjacency, generator seed, CPU result) of each
+    Max-Cut request, served with ``mc_kw``; ``drive``: main's launch-counting
+    runner."""
+    from repro_torch import api, serving, train
+    from repro_torch.core import ising
+    from repro_torch.data import patterns as pat
+    from repro_torch.engine import Request
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from doi_rule import hold, replay
+
+    own = {}
+
+    def driven(fn):
+        res, seconds, path = drive(fn)
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        return res, seconds, path
+
+    def rule(got, want, rp, what):
+        try:
+            return hold(got, want, rp, quantize=lambda w: api.quantize_weights(w.cpu()).values,
+                        what=what, ports=("got", "want"))
+        except AssertionError as exc:
+            fail(str(exc))
+
+    eng = serving.ContinuousEngine(torch.Generator().manual_seed(0), device=dev,
+                                   slab_lanes=DAEMON_SLAB, tenant_weights=dict(DAEMON_TENANTS))
+    eng.install("mem", "retrieval",
+                solver=api.RetrievalSolver(cfg_mem, api.make_params(cfg_mem, w_np, device=dev)))
+    eng.install("cuts", "maxcut", device=dev, **mc_kw)
+
+    def counts():
+        stats = eng.stats()
+        return {**{k: stats["serving"][k] for k in (
+            "ticks", "chunks", "mid_flight_joins", "slabs_opened", "slabs_retired",
+            "drain_rejected", "hot_swaps", "lanes_in_flight")}, "completed": stats["completed"]}
+
+    def delta(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in now}
+
+    order = [("mem", a, c) for a, c in spans]
+    for i, (pos, *_rest) in enumerate(mc):
+        order.insert(pos, ("cuts", i, 1))
+    weights = np.asarray([w for _, w in DAEMON_TENANTS])
+    tenants = np.random.default_rng(seed).choice(len(DAEMON_TENANTS), size=len(order),
+                                                 p=weights / weights.sum())
+
+    def stream():
+        """Fresh requests (a Max-Cut request's generator is drawn from by its
+        solve)."""
+        out = []
+        for (kind, ref, count), t in zip(order, tenants):
+            tenant = DAEMON_TENANTS[t][0]
+            if kind == "mem":
+                out.append(Request("mem", probes[ref:ref + count], tenant=tenant))
+            else:
+                _, adj, key_seed, _ = mc[ref]
+                out.append(Request("cuts", adj, key=torch.Generator().manual_seed(key_seed),
+                                   tenant=tenant))
+        return out
+
+    def check(futs, what, items=order):
+        for i, ((kind, ref, _), f) in enumerate(zip(items, futs)):
+            require(f.done(), f"{what} request {i} not served")
+            require(f.exception() is None, f"{what} request {i} failed: {f.exception()!r}")
+            if kind == "mem":
+                require_rows(f.result(), checked, ref,
+                             f"{what} request {i} != the CPU-checked solve")
+            else:
+                require_same(f.result(), mc[ref][3], ising.MaxCutResult._fields,
+                             f"{what} Max-Cut request {i} != the CPU's solve")
+
+    def closed():
+        reqs = stream()
+        return serve_stream(eng, reqs, serving.ticked_source(reqs, per_tick=DAEMON_PER_TICK))
+
+    lanes = sum(c for _, c in spans)
+
+    # closed: one cold run (equalities, launches), warm runs (times), one traced
+    before = counts()
+    t_part = time.perf_counter()
+    (report, futs, cold_s, *_), _, path = driven(closed)
+    check(futs, "daemon closed")
+    moved = delta(before)
+    require(moved["completed"] == len(order),
+            f"daemon closed: {moved['completed']} of {len(order)} completed")
+    require(moved["mid_flight_joins"] > 0, "daemon closed: no request joined a live slab")
+    for k in ("phase_step_multi", "coupling_sum_batched"):
+        require(path.get(k, 0) > 0, f"daemon closed: {k} never launched")
+    ad, occupancy = eng.solver("mem"), []
+    advance = ad.advance
+
+    def measured_advance(slab):
+        rec = next(r for r in eng._slabs.values() if r.slab is slab)
+        occupancy.append(sum(len(e.slots) for e in rec.entries) / rec.width)
+        advance(slab)
+
+    ad.advance = measured_advance
+    warm = []
+    for _ in range(DAEMON_REPEATS):
+        occupancy.clear()
+        report_w, futs, seconds, ticks, _ = closed()
+        check(futs, "daemon closed (warm)")
+        warm.append((seconds, report_w, sorted(ticks), list(occupancy)))
+    del ad.advance
+    warm.sort(key=lambda x: x[0])
+    seconds, report_w, ticks, occ = warm[len(warm) // 2]
+    traced = []
+    busy_ms, per_name = device_busy(lambda: traced.append(closed()))
+    check(traced[0][1], "daemon closed (traced)")
+    closed_rps = len(order) / seconds
+    emit({
+        "phase": "daemon", "part": "closed", "config": "ONN_HYBRID_506",
+        "backend": cfg_mem.backend, "slab_lanes": DAEMON_SLAB, "tenants": dict(DAEMON_TENANTS),
+        "requests": len(order), "retrieval_requests": len(spans), "lanes": lanes,
+        "maxcut_requests": len(mc), "maxcut_at": [m[0] for m in mc], "per_tick": DAEMON_PER_TICK,
+        "cold_s": cold_s, "cold_counters": moved, "ticks": report["ticks"],
+        "chunks": moved["chunks"], "slabs_opened": moved["slabs_opened"],
+        "slabs_retired": moved["slabs_retired"], "mid_flight_joins": moved["mid_flight_joins"],
+        "warm_s": [w[0] for w in warm], "requests_per_s": closed_rps,
+        "lanes_per_s": lanes / seconds, "latency": latency_ms(report_w),
+        "mean_slab_occupancy": float(np.mean(occ)) if occ else None,
+        "chunks_per_run": len(occ), "host_ms_per_tick": {
+            "median": 1e3 * ticks[len(ticks) // 2], "max": 1e3 * ticks[-1], "ticks": len(ticks)},
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (seconds * 1e3),
+        "traced_s": traced[0][2],
+        "top_device_ms": dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:5]),
+        "launches": path, "kernel5_launches": path.get("phase_step_multi", 0),
+        "kernel1i_launches": path.get("coupling_sum_batched", 0),
+        "equal_to_cpu_checked": True, "completed": moved["completed"],
+        "part_s": time.perf_counter() - t_part,
+    })
+
+    # open: Poisson arrivals at half the closed rate, on the same warm engine
+    # The daemon times a request from its submission; the arrivals it pulls
+    # after a long tick waited for that tick, so the latency from each
+    # scheduled arrival (the source's first clock reading plus its offset)
+    # is reported beside it.
+    t_part = time.perf_counter()
+    rate = 0.5 * closed_rps
+    reqs = stream()
+    offsets = serving.poisson_offsets(len(reqs), rate, seed=0)
+    anchor = []
+
+    def clock():
+        now = time.perf_counter()
+        anchor.append(now)
+        return now
+
+    (report, futs, seconds, ticks, done_at), _, path = driven(lambda: serve_stream(
+        eng, reqs, serving.timed_source(reqs, offsets, clock=clock),
+        idle_sleep_s=DAEMON_IDLE_SLEEP_S))
+    check(futs, "daemon open")
+    from_arrival = sorted(d - (anchor[0] + o) for d, o in zip(done_at, offsets))
+    emit({
+        "phase": "daemon", "part": "open", "rate_rps": rate, "requests": len(reqs),
+        "completed": len(futs), "latency": latency_ms(report), "latency_from_arrival": {
+            "mean_ms": 1e3 * float(np.mean(from_arrival)),
+            "p50_ms": 1e3 * serving.daemon.percentile(from_arrival, 50.0),
+            "p99_ms": 1e3 * serving.daemon.percentile(from_arrival, 99.0)},
+        "seconds": seconds,
+        "last_arrival_s": float(offsets[-1]), "after_last_arrival_s": seconds - float(offsets[-1]),
+        "ticks": report["ticks"], "straggler_ticks": report["stragglers"]["ticks"],
+        "straggler_slabs": report["stragglers"]["per_slab"], "launches": path,
+        "equal_to_cpu_checked": True, "part_s": time.perf_counter() - t_part,
+    })
+
+    # drain: the retrieval stream, ticked until a request joins a live slab
+    items = [("mem", a, c) for a, c in spans]
+    before = counts()
+
+    def drain():
+        futs = [eng.submit(Request("mem", probes[a:a + c])) for a, c in spans]
+        ticks = 0
+        while counts()["mid_flight_joins"] == before["mid_flight_joins"]:
+            eng.step()
+            ticks += 1
+            require(ticks < 1000, "daemon drain: no request joined a live slab")
+        return futs, ticks, eng.finish_in_flight(reject_queued=True)
+
+    (futs, ticks, drained), seconds, path = driven(drain)
+    moved = delta(before)
+    rejected = [i for i, f in enumerate(futs) if f.done() and isinstance(
+        f.exception(), serving.DrainRejectedError)]
+    require(all(f.done() for f in futs), "daemon drain: a request was left unresolved")
+    check([f for i, f in enumerate(futs) if i not in set(rejected)], "daemon drain",
+          [x for i, x in enumerate(items) if i not in set(rejected)])
+    require(len(rejected) == drained["rejected"] == moved["drain_rejected"] > 0,
+            f"daemon drain: {len(rejected)} rejected futures, report {drained}, "
+            f"counter {moved['drain_rejected']}")
+    require(moved["completed"] + moved["drain_rejected"] == len(spans),
+            "daemon drain: completed + rejected != submitted")
+    require(eng.idle and counts()["lanes_in_flight"] == 0, "daemon drain: live lanes remain")
+    emit({"phase": "daemon", "part": "drain", "submitted": len(spans), "ticks_before": ticks,
+          "mid_flight_joins": moved["mid_flight_joins"], "drain": drained,
+          "completed": moved["completed"], "drain_rejected": moved["drain_rejected"],
+          "seconds": seconds, "launches": path, "rejected_are_drain_rejected": True,
+          "in_flight_equal_to_cpu_checked": True, "idle_after": True})
+
+    # hot_swap: requests admitted before the swap run the old weights
+    n_pre, total = 0, 0
+    while n_pre < len(spans) and total + spans[n_pre][1] <= DAEMON_SLAB:
+        total += spans[n_pre][1]
+        n_pre += 1
+    pre_spans, post_spans = spans[:n_pre], spans[n_pre:n_pre + DAEMON_SWAP_REQUESTS]
+    hs = train.HotSwap(eng, "mem")
+
+    def swap():
+        pre = [eng.submit(Request("mem", probes[a:a + c])) for a, c in pre_spans]
+        eng.step()  # every pre-swap request admitted and advanced one chunk
+        queued = eng.stats()["queue_depth"]["requests"]
+        at_swap = counts()
+        params, _ = hs.install(w2)
+        post = [eng.submit(Request("mem", probes[a:a + c])) for a, c in post_spans]
+        eng.flush()
+        return pre, post, queued, at_swap, params
+
+    before = counts()
+    (pre, post, queued, at_swap, params2), seconds, path = driven(swap)
+    require(queued == 0, "daemon hot_swap: a pre-swap request was still queued at the swap")
+    check(pre, "daemon hot_swap (before)", [("mem", a, c) for a, c in pre_spans])
+    solver2 = api.RetrievalSolver(cfg_mem, params2)
+    for i, ((a, c), f) in enumerate(zip(post_spans, post)):
+        require(f.exception() is None, f"daemon hot_swap request {i} failed")
+        require_same(f.result(), solver2.solve(probes[a:a + c]), FIELDS,
+                     f"daemon hot_swap request {i} != the solve on the new weights")
+    since = delta(at_swap)
+    require(delta(before)["hot_swaps"] == 1, "daemon hot_swap: not counted once")
+    require(since["slabs_retired"] >= 1 and since["slabs_opened"] >= 1,
+            "daemon hot_swap: the live slab was not retired and reopened")
+    emit({"phase": "daemon", "part": "hot_swap", "before_requests": len(pre),
+          "before_lanes": total, "after_requests": len(post), "hot_swaps": 1,
+          "slabs_retired_since_swap": since["slabs_retired"],
+          "slabs_opened_since_swap": since["slabs_opened"], "seconds": seconds,
+          "launches": path, "before_equal_to_cpu_checked": True,
+          "after_equal_to_solve_on_new_weights": True})
+
+    # train: DO-I at full width, card against CPU, then serve the trained ONN
+    t_part = time.perf_counter()
+    tcfg = train.TrainConfig()
+    card, card_s, _ = driven(lambda: train.train_doi(xi, tcfg, device=dev))
+    t0 = time.perf_counter()
+    cpu = train.train_doi(xi, tcfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rp = replay(xi.numpy(), **dataclasses.asdict(tcfg))
+    kind = rule(card, cpu, rp, "train (card against CPU)")
+    dw = (card.weights.cpu() - cpu.weights).abs().max()
+    t0 = time.perf_counter()
+    eng.install("trained", "retrieval", xi=xi, backend="kernel", device=dev)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    trained = eng.solver("trained").solver
+    reqs = [Request("trained", probes[i:i + 1]) for i in range(DAEMON_TRAINED_REQUESTS)]
+    (report, futs, seconds, *_), _, path = driven(lambda: serve_stream(
+        eng, reqs, serving.ticked_source(reqs, per_tick=DAEMON_PER_TICK)))
+    for i, f in enumerate(futs):
+        require(f.exception() is None, f"train: trained request {i} failed")
+        require_same(f.result(), trained.solve(probes[i:i + 1]), FIELDS,
+                     f"train: trained request {i} != its isolated solve")
+    emit({"phase": "train", "n": xi.shape[1], "patterns": xi.shape[0],
+          "config": dataclasses.asdict(tcfg), "sweeps": int(card.sweeps),
+          "converged": bool(card.converged), "kappa_min": float(card.kappa_min),
+          "card_s": card_s, "cpu_s": cpu_s, "tie_free": rp.tie_free, "rule": kind,
+          "ties": len(rp.ties), "first_ties": rp.ties[:3], "cpu_sweeps": int(cpu.sweeps),
+          "weights_equal_to_cpu": bool(dw == 0), "max_abs_weight_diff": float(dw),
+          "install_s": install_s, "install_config": {
+              "self_coupling": True, "backend": trained.config.backend},
+          "requests": len(reqs), "requests_per_s": len(reqs) / seconds,
+          "latency": latency_ms(report), "launches": path,
+          "trained_requests_equal_to_isolated_solve": True,
+          "part_s": time.perf_counter() - t_part})
+
+    # mixed_stream: the reference's own stream and workloads on the card
+    t_part = time.perf_counter()
+    meng = serving.ContinuousEngine(torch.Generator().manual_seed(seed), device=dev)
+    t0 = time.perf_counter()
+    serving.install_mixed_workloads(meng)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    reqs = serving.mixed_requests(MIXED_REQUESTS, seed=0)
+    (report, futs, seconds, *_), _, path = driven(lambda: serve_stream(
+        meng, reqs, serving.ticked_source(reqs, per_tick=4)))
+    cuts = api.MaxCutSolver(sweeps=8, replicas=1, device=dev)
+    for i, (r, f) in enumerate(zip(reqs, futs)):
+        require(f.exception() is None, f"mixed_stream request {i} failed: {f.exception()!r}")
+        if r.workload == "cuts":
+            want = cuts.solve(r.payload, key=torch.Generator().manual_seed(r.key.initial_seed()))
+            require_same(f.result(), want, ising.MaxCutResult._fields,
+                         f"mixed_stream request {i} != its isolated solve")
+            continue
+        x = r.payload
+        want = meng.solver(r.workload).solver.solve(x if x.dim() == 2 else x[None])
+        if x.dim() == 1:
+            want = type(want)(*(v[0] for v in want))
+        require_same(f.result(), want, FIELDS, f"mixed_stream request {i} != its isolated solve")
+    rules = {}
+    for name, workload in (("7x6", "small"), ("10x10", "large")):
+        lib = pat.load_dataset(name, device="cpu")
+        cfg_l = train.TrainConfig(self_coupling=True)  # diederich_opper_i's
+        card = train.train_doi(lib, cfg_l, device=dev)
+        cpu = train.train_doi(lib, cfg_l, device="cpu")
+        rules[name] = rule(card, cpu, replay(lib.numpy(), self_coupling=True),
+                           f"mixed_stream {name} (card against CPU)")
+        require(torch.equal(meng.solver(workload).solver.params.weights.cpu(),
+                            api.quantize_weights(card.weights.cpu()).values),
+                f"mixed_stream: {workload}'s weights are not the card's DO-I training")
+    emit({"phase": "daemon", "part": "mixed_stream", "requests": len(reqs),
+          "workloads": {w: sum(r.workload == w for r in reqs) for w in ("small", "large", "cuts")},
+          "completed": len(futs), "install_s": install_s, "seconds": seconds,
+          "requests_per_s": len(reqs) / seconds, "latency": latency_ms(report),
+          "doi_rule": rules, "launches": path, "equal_to_isolated_solve": True,
+          "part_s": time.perf_counter() - t_part})
+    return own
 
 
 def main() -> None:
@@ -1292,7 +1695,7 @@ def main() -> None:
     slabs_nb = w_mc_nb[torch.arange(bb, device=dev)[:, None], members_nb]
     reps_nb = torch.randint(0, 2, (bb, MC_REPLICAS, nb), generator=g, device=dev,
                             dtype=torch.int8) * 2 - 1
-    mc_served = {}
+    mc_served, mc_cpu = {}, {}
     for route, kernel in (
         (dict(backend="kernel"), "coupling_sum_batched"),
         (dict(backend="hybrid", hybrid_impl="kernel"), "hybrid_coupling_sum_batched"),
@@ -1315,8 +1718,9 @@ def main() -> None:
                              f"engine maxcut {route} instance {i} != solve")
             cpu_solver = api.MaxCutSolver(**kw, device="cpu")
             for i in (0, len(graphs)):  # one instance at N, one at ENGINE_SMALL_N
-                require_same(res[i], cpu_solver.solve(adjs[i], key=keys()[i]),
-                             ising.MaxCutResult._fields, f"engine maxcut instance {i} != CPU")
+                mc_cpu[i] = cpu_solver.solve(adjs[i], key=keys()[i])
+                require_same(res[i], mc_cpu[i], ising.MaxCutResult._fields,
+                             f"engine maxcut instance {i} != CPU")
         else:
             for i, (got, want) in enumerate(zip(res, mc_served["kernel"])):
                 require_same(got, want, ising.MaxCutResult._fields,
@@ -1386,8 +1790,17 @@ def main() -> None:
           "lanes": sum(c for _, c in spans_k[:64]), "drain_s": seconds, "launches": path,
           "hot_swaps": 1, "equal_to_solve_on_new_weights": True})
 
+    # 12. the serve daemon and DO-I training ---------------------------------------
+    xi = torch.as_tensor(_patterns(np.random.default_rng(args.seed)))  # make_problem's
+    mc_in = [(pos, adjs[i], 2000 + i, mc_cpu[i]) for pos, i in zip(DAEMON_MC_AT, sorted(mc_cpu))]
+    mc_kw = dict(sweeps=MC_SWEEPS, replicas=MC_REPLICAS, stagnation=MC_STAGNATION,
+                 settle_chunk=MC_CHUNK, backend="kernel")
+    daemon_launches = daemon_lines(dev, args.seed, cfg_k, w_np, make_hebbian(args.seed + 1), xi,
+                                   probes, results[False], spans_k, mc_in, mc_kw, drive)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["launches_daemon"] = daemon_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

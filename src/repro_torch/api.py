@@ -19,7 +19,8 @@ from the ``torch.Generator`` passed as ``solve(..., key=generator)``;
 ``MaxCutSolver`` draws its initial spins and sweep orders the same way.
 Both solvers serve through ``repro_torch.engine`` (``as_engine_solver``, and
 the registry's "retrieval" and "maxcut" workloads, registered here).
-Training (DO-I) waits for a later slice of the port.
+``RetrievalSolver.from_patterns`` trains DO-I couplings on a pattern library
+(:mod:`repro_torch.train`).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ from repro_torch.core.ising import (  # noqa: F401 — re-exported API
     solve_maxcut,
     solve_maxcut_batch,
 )
-from repro_torch.core.learning import hebbian  # noqa: F401
+from repro_torch.core.learning import diederich_opper_i, hebbian  # noqa: F401
 from repro_torch.core.quantization import quantize_weights  # noqa: F401
 from repro_torch.engine.registry import register_solver
 
@@ -103,6 +104,24 @@ class RetrievalSolver:
 
     config: ONNConfig
     params: OnnParams
+
+    @classmethod
+    def from_patterns(
+        cls,
+        xi: Any,
+        *,
+        weight_bits: int = 5,
+        device=None,
+        **cfg_kwargs: Any,
+    ) -> "RetrievalSolver":
+        """Train DO-I couplings on patterns ``xi`` (P, N) on ``device`` (the
+        GPU unless ``"cpu"``), quantize them to ``weight_bits`` and build the
+        solver there (``diederich_opper_i`` with its defaults)."""
+        do = diederich_opper_i(xi, device=device)
+        qw = quantize_weights(do.weights, bits=weight_bits)
+        cfg = ONNConfig(n=int(torch.as_tensor(xi).shape[1]), weight_bits=weight_bits,
+                        **cfg_kwargs)
+        return cls(config=cfg, params=make_params(cfg, qw.values, device=device))
 
     def solve(self, instance: torch.Tensor, key: Optional[Any] = None) -> ONNResult:
         cfg = self.config
@@ -227,7 +246,7 @@ def _maxcut_engine_factory(**kwargs: Any):
 register_solver(
     "retrieval",
     _retrieval_engine_factory,
-    "batched pattern retrieval on a trained ONN (solver=; xi= waits for DO-I)",
+    "batched pattern retrieval on a trained ONN (solver=, or xi= + config kwargs: DO-I)",
 )
 register_solver(
     "maxcut",

@@ -17,7 +17,7 @@ policy, occupancy and packing.
 Nothing here waits on the card per request: payloads are gathered into one
 host-to-device copy per slab where they lie on the host, results are split
 per request as views of the slab's tensors, and the retrieval settle-cycle
-statistics stay on the device until a quote or ``stats()`` folds them.
+EMA reads one number per slab (or per harvest of a streaming slab).
 """
 
 from __future__ import annotations
@@ -132,6 +132,10 @@ class RetrievalEngineSolver:
     an EMA of the *measured* settle cycles back into :meth:`cost_units`, so
     latency quotes start at the worst-case ``max_cycles`` and tighten
     toward observed behaviour as traffic flows.
+
+    ``xi=`` (P, N) ±1 patterns in place of ``solver=`` trains DO-I couplings
+    on them (:meth:`repro_torch.api.RetrievalSolver.from_patterns`, which
+    takes the remaining keyword arguments: ``device`` and config fields).
     """
 
     #: EMA smoothing for observed per-slab mean settle cycles.
@@ -141,23 +145,18 @@ class RetrievalEngineSolver:
     SETTLE_WARMUP = 8.0
 
     def __init__(self, solver: Optional[Any] = None, xi: Any = None, **cfg_kwargs: Any):
+        from repro_torch.api import RetrievalSolver  # local: api imports this module
+
         if solver is None:
             if xi is None:
                 raise ValueError("RetrievalEngineSolver needs solver= or xi=")
-            raise NotImplementedError(
-                "RetrievalEngineSolver(xi=...) trains DO-I couplings, which are not "
-                "ported yet (ROADMAP.md, section 1, item 3: training); pass "
-                "solver=RetrievalSolver(cfg, params)"
-            )
-        if cfg_kwargs or xi is not None:
+            solver = RetrievalSolver.from_patterns(xi, **cfg_kwargs)
+        elif cfg_kwargs or xi is not None:
             raise TypeError("pass either a built solver or xi= + config kwargs")
         self.solver = solver
         self._padded: Dict[int, Tuple[dynamics.ONNConfig, dynamics.OnnParams]] = {}
         self._settle_ema: Optional[float] = None
         self._settle_obs: int = 0
-        #: Per-slab mean settle cycles not yet folded: (value, CUDA event or
-        #: None); on the card the value is a pinned host copy the event guards.
-        self._settle_pending: List[Tuple[torch.Tensor, Any]] = []
         self._swaps: int = 0
 
     @property
@@ -347,55 +346,27 @@ class RetrievalEngineSolver:
     # -- measured settle-cycle cost model ----------------------------------
 
     def _observe_settle(self, res: Any, lanes: int) -> None:
-        """Queue one slab's measured settle cycles for the EMA (real lanes
-        only; unsettled/cycled lanes are charged the worst case).
-
-        Only the slab's mean is queued, with no wait on the card: on a CUDA
-        device it is copied into pinned host memory behind a CUDA event, and
-        the fold to the EMA happens at quote or stats time
-        (:meth:`_fold_pending`)."""
+        """Fold one slab's (or one harvest's) measured settle cycles into the
+        EMA (real lanes only; unsettled/cycled lanes are charged the worst
+        case).  One host read of the mean: on the one-shot path after the
+        slab's solve, which has synced on every chunk; on the streaming path
+        the rows are already on the host."""
         if lanes <= 0:
             return
         mc = self.config.max_cycles
         eff = torch.where(res.settled[:lanes], res.settle_cycle[:lanes] + 1, mc)
-        mean = eff.to(torch.float32).mean()
-        if mean.device.type != "cuda":
-            self._settle_pending.append((mean, None))
-            return
-        host = torch.empty((), dtype=torch.float32, pin_memory=True)
-        host.copy_(mean, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        self._settle_pending.append((host, ready))
+        mean_eff = float(eff.to(torch.float32).mean())
+        a = self.SETTLE_EMA_ALPHA
+        self._settle_ema = (
+            mean_eff if self._settle_ema is None else (1 - a) * self._settle_ema + a * mean_eff
+        )
+        self._settle_obs += 1
 
-    def _fold_pending(self, block: bool = True) -> None:
-        """Fold queued slab means into the EMA.  ``block=False`` folds only
-        means whose copy has already landed (the quote path uses it to stay
-        off the device's critical path)."""
-        remaining: List[Tuple[torch.Tensor, Any]] = []
-        for value, ready in self._settle_pending:
-            if ready is not None:
-                if block:
-                    ready.synchronize()
-                elif not ready.query():
-                    remaining.append((value, ready))
-                    continue
-            mean_eff = float(value)
-            a = self.SETTLE_EMA_ALPHA
-            self._settle_ema = (
-                mean_eff
-                if self._settle_ema is None
-                else (1 - a) * self._settle_ema + a * mean_eff
-            )
-            self._settle_obs += 1
-        self._settle_pending = remaining
-
-    def expected_cycles(self, block: bool = False) -> float:
+    def expected_cycles(self) -> float:
         """Quoted oscillation cycles per solve: worst-case ``max_cycles``
         blended toward the measured settle-cycle EMA as slabs are observed
         (the early-exit batched solve really does stop at the EMA, so the
         quote converges on executed work instead of the cycle bound)."""
-        self._fold_pending(block=block)
         mc = float(self.config.max_cycles)
         if self._settle_ema is None:
             return mc
@@ -404,12 +375,11 @@ class RetrievalEngineSolver:
 
     def stats(self) -> Dict[str, Any]:
         """Measured settle-cycle state (surfaced by ``Engine.stats()``)."""
-        self._fold_pending(block=True)
         return {
             "max_cycles": self.config.max_cycles,
             "settle_ema_cycles": self._settle_ema,
             "settle_slabs_observed": self._settle_obs,
-            "expected_cycles": round(self.expected_cycles(block=True), 3),
+            "expected_cycles": round(self.expected_cycles(), 3),
             "hot_swaps": self._swaps,
             "n_buckets": sorted(self._padded),
             # Hit/miss counts of the kernels' launch planners (one plan a shape).

@@ -115,7 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 #: Dynamic shared memory one block may use on an H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
@@ -500,3 +500,15 @@ def coupling_plan(inst: int, b: int, m: int, n: int, parallel: int | None = None
             tile = t
             break
     return CouplingPlan(inst, b, m, n, p, tile, gemm_walk_span(p, n))
+
+
+def cache_info() -> Dict[str, int]:
+    """The launch planners' cache summary for ``stats()`` surfaces, under the
+    keys of ``repro.kernels.autotune.cache_info``: the plans held and the
+    hits and misses, summed over :func:`multi_plan` and :func:`coupling_plan`."""
+    infos = (multi_plan.cache_info(), coupling_plan.cache_info())
+    return {
+        "entries": sum(i.currsize for i in infos),
+        "hits": sum(i.hits for i in infos),
+        "misses": sum(i.misses for i in infos),
+    }

@@ -7,7 +7,11 @@ so it runs on the GPU machine as it is::
 
 Every integer output must be exactly equal (tolerance 0); kernel 8's float32
 output must lie within K · 2⁻²⁴ · |scale_m| · Σ_k |x_bk w_mk| of the exact
-value, element by element (the bound of K float32 roundings).
+value, element by element (the bound of K float32 roundings).  DO-I training
+on the card is held to the CPU by the DO-I rule of ``tests/doi_rule.py``
+(exact where no stability check ties the threshold within the float32
+summation bound), and the serve daemon's scheduler on the card serves every
+request and counts every tick as on the CPU.
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
+from doi_rule import hold, replay
+from repro_torch import api, serving, train
 from repro_torch.core import dynamics as dyn
+from repro_torch.core import quantization
+from repro_torch.engine import Request
 from repro_torch.core import ising
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import ref as plain
@@ -470,3 +477,59 @@ def test_gemm_refuses_a_plan_it_cannot_run(cuda):
     assert lib.onn_coupling_sum(*ptrs, *plan.args, stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(out, plain.coupling_sum_ref(w, sigma))
+
+
+@pytest.mark.parametrize("n,p,qat", [(33, 6, 0), (33, 6, 5), (505, 40, 0)])
+def test_train_doi_on_card_follows_the_rule(cuda, n, p, qat):
+    """With self-coupling off and N odd no check ties, so the card's run must
+    equal the CPU's exactly, weights and quantized weights included."""
+    rng = np.random.default_rng(n + qat)
+    xi = np.where(rng.random((p, n)) < 0.5, 1, -1).astype(np.int8)
+    cfg = train.TrainConfig(qat_bits=qat)
+    card = train.train_doi(xi, cfg, device=cuda)
+    cpu = train.train_doi(xi, cfg, device="cpu")
+    rp = replay(xi, **dataclasses.asdict(cfg), fake_quantize=quantization.fake_quantize)
+    kind = hold(card, cpu, rp, quantize=lambda w: api.quantize_weights(w.cpu()).values,
+                ports=("got", "want"))
+    if not qat:
+        assert kind == "tie_free"
+
+
+def test_continuous_engine_on_card_equals_cpu(cuda):
+    """A ticked stream of retrieval (kernel backend) and Max-Cut requests
+    through the daemon on the card and on the CPU: every result and every
+    scheduler counter equal."""
+    n = 64
+    rng = np.random.default_rng(3)
+    xi = np.where(rng.random((4, n)) < 0.5, 1, -1).astype(np.int8)
+    probes = xi[rng.integers(0, 4, 96)].copy()
+    probes[rng.random((96, n)) < 0.2] *= -1
+    graphs = []
+    for m in (40, 64):
+        u = np.triu(rng.random((m, m)) < 0.5, 1)
+        graphs.append(torch.as_tensor((u + u.T).astype(np.int8)))
+    trained = api.RetrievalSolver.from_patterns(xi, device="cpu", backend="kernel",
+                                                settle_chunk=2)
+    reports, results = [], []
+    for dev in (cuda, torch.device("cpu")):
+        eng = serving.ContinuousEngine(torch.Generator().manual_seed(0), device=dev,
+                                       slab_lanes=32)
+        eng.install("mem", "retrieval", solver=api.RetrievalSolver(
+            trained.config, api.make_params(trained.config, trained.params.weights, device=dev)))
+        eng.install("cuts", "maxcut", sweeps=12, replicas=8, stagnation=4, backend="kernel",
+                    device=dev)
+        reqs = [Request("mem", probes[i:i + 1 + i % 3]) for i in range(0, 90, 3)]
+        reqs[7:7] = [Request("cuts", g, key=torch.Generator().manual_seed(9 + i))
+                     for i, g in enumerate(graphs)]
+        futs, submit = [], eng.submit
+        eng.submit = lambda r: futs.append(submit(r)) or futs[-1]
+        report = serving.ServeDaemon(eng, signals=()).run(serving.ticked_source(reqs, per_tick=3))
+        reports.append({k: report[k] for k in ("ticks", "completed", "failed")} | {
+            k: report["stats"]["serving"][k] for k in ("chunks", "mid_flight_joins",
+                                                       "slabs_opened", "slabs_retired")})
+        results.append([f.result() for f in futs])
+    assert reports[0] == reports[1] and reports[0]["completed"] == 32
+    assert reports[0]["mid_flight_joins"] > 0
+    for got, want in zip(*results):
+        for f in got._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), f

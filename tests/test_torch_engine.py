@@ -319,8 +319,10 @@ def test_install_and_submit_errors():
         eng.submit(engine_lib.Request("letters", np.ones((8,), np.int8), key=7))
     with pytest.raises(TypeError, match="kwargs"):
         eng.install("other", s.as_engine_solver(), sweeps=3)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        eng.install("trained", "retrieval", xi=np.ones((2, 8), np.int8))
+    trained = eng.install("trained", "retrieval", xi=np.ones((2, 8), np.int8), device="cpu")
+    assert isinstance(trained, adapters.RetrievalEngineSolver) and trained.config.n == 8
+    with pytest.raises(TypeError, match="either a built solver"):
+        adapters.RetrievalEngineSolver(solver=s, xi=np.ones((2, 8), np.int8))
     with pytest.raises(ValueError, match="solver= or xi="):
         adapters.RetrievalEngineSolver()
     with pytest.raises(ValueError, match="CPU torch.Generator"):

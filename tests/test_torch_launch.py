@@ -1,4 +1,5 @@
-"""The port's Max-Cut serving CLI (``repro_torch.launch.maxcut``) on the CPU.
+"""The port's serving CLIs (``repro_torch.launch.maxcut``,
+``repro_torch.launch.serve_daemon``) on the CPU.
 
 Mirrors ``test_maxcut_service`` and
 ``test_maxcut_service_deterministic_across_bucket_policy`` of
@@ -7,7 +8,10 @@ Mirrors ``test_maxcut_service`` and
 graphs are the port's own (``random_graph`` from a seeded
 ``torch.Generator``), so the cuts are compared with the port's isolated
 solves and across bucket policies, exactly, and against the |E|/2 baseline
-of a random assignment; the FPGA quote equals the reference model's.
+of a random assignment; the FPGA quote equals the reference model's.  The
+serve daemon's CLI runs the mixed stream (DO-I trained retrieval and
+Max-Cut) in a subprocess on ticked arrivals and reports every request
+completed.
 """
 
 from __future__ import annotations
@@ -74,3 +78,21 @@ def test_maxcut_cli_prints_json():
     assert report["requests"] == 4 and report["device"] == "cpu"
     assert report["min_ratio_vs_half_edges"] > 1.0, report
     assert report["engine"]["slabs_per_bucket"] == {"maxcut:32:batch4": 1}
+
+
+def test_serve_daemon_cli_prints_json_report(tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    hb = str(tmp_path / "hb")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_daemon", "--device", "cpu",
+         "--ticked", "4", "--requests", "16", "--heartbeat", hb],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout)
+    assert report["completed"] == 16 and report["failed"] == 0 and report["rejected"] == 0
+    assert report["device"] == "cpu" and not report["preempted"]
+    assert report["latency"]["count"] == 16
+    assert report["stats"]["installed"] == ["cuts", "large", "small"]
+    assert report["stats"]["serving"]["ticks"] == report["ticks"]
+    assert os.path.exists(hb)
