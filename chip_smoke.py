@@ -118,10 +118,32 @@ and prints one JSON line per phase:
    solve.  ``mixed_stream``: ``install_mixed_workloads`` (DO-I on 7x6 and
    10x10 on the card, held to the CPU by the rule) and 64 requests of
    ``mixed_requests``, each equal to its isolated solve.
+13. ``launchers`` (six lines): the ONN launchers on the card at the widest
+   letter set, 22x22 (N = 484).  ``retrieve_cli`` three times, through
+   ``repro_torch.launch.retrieve``'s ``build_solver`` (DO-I on the card, held
+   to the CPU's by the DO-I rule) and ``serve_requests``' two halves
+   (``draw_requests``, ``serve_corrupted``, seed 0, 25 % corruption): the
+   kernel backend (kernel 5), 1024 requests under "pow2" (N 512) and
+   "exact" (484); the hybrid backend's kernel route (kernel 7), 256
+   requests; rtl on the recurrent architecture (kernel 1), 64 requests.
+   Every request's spins, settle cycle and settled flag, and the report's
+   accuracy, mean settle cycles and timeouts, equal the CPU's serve on the
+   same weights and draws; requests/s of the first and a warm serve, slabs,
+   pad fraction, launches.  ``train_onn``: ``run_train_serve`` at 22x22,
+   128 probes, the kernel backend, QAT: converged, trained accuracy not
+   below the Hebbian, one hot swap, no kernel built and no plan made after
+   it, every probe completed, the checkpoint (reference route names) loaded
+   back, the trained weights held to the CPU's by the DO-I rule; card and
+   CPU seconds.  ``energy``: ``hamiltonian`` on phase 4's 1024 final states
+   with its couplings at N = 506, ``is_local_minimum`` on 64 of them and
+   ``energy_trace`` of an 8-step ``step`` trajectory of 8 lanes, each equal
+   to the CPU.  ``examples``: ``examples/torch_quickstart.py`` in a
+   subprocess on the card prints ``retrieved correctly: True``.
 
-Launch counts are set to 0 before each main-path phase (4-12) and read after
+Launch counts are set to 0 before each main-path phase (4-13) and read after
 it; every kernel must have launched on a main path, and each row of the
-``kernels`` line carries the launches of phase 12 as ``launches_daemon``.  The line before the last
+``kernels`` line carries the launches of phase 12 as ``launches_daemon`` and
+of phase 13 as ``launches_launchers``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
 """
@@ -203,6 +225,13 @@ ENGINE_REPEATS, ENGINE_MC_REPEATS = 5, 3
 DAEMON_SLAB, DAEMON_TENANTS, DAEMON_PER_TICK = 128, (("alpha", 2.0), ("beta", 1.0)), 8
 DAEMON_MC_AT, DAEMON_REPEATS, DAEMON_IDLE_SLEEP_S = (76, 152), 3, 0.0005
 DAEMON_SWAP_REQUESTS, DAEMON_TRAINED_REQUESTS, MIXED_REQUESTS = 64, 128, 64
+#: Phase 13, the launchers: the widest letter set (22x22, N = 484), its
+#: requests (kernel 5, kernel 7, rtl), corruption and seed, the probes of
+#: ``train_onn``; the energy checks' lanes of ``is_local_minimum`` and the
+#: ``step`` trajectory's lanes and steps.
+LAUNCH_DATASET, LAUNCH_CORRUPTION, LAUNCH_SEED, LAUNCH_PROBES = "22x22", 0.25, 0, 128
+LAUNCH_REQUESTS, LAUNCH_HYBRID_REQUESTS, LAUNCH_RTL_REQUESTS = 1024, 256, 64
+ENERGY_MIN_LANES, ENERGY_TRACE_LANES, ENERGY_TRACE_STEPS = 64, 8, 8
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -904,6 +933,204 @@ def daemon_lines(dev, seed, cfg_mem, w_np, w2, xi, probes, checked, spans, mc, m
           "requests_per_s": len(reqs) / seconds, "latency": latency_ms(report),
           "doi_rule": rules, "launches": path, "equal_to_isolated_solve": True,
           "part_s": time.perf_counter() - t_part})
+    return own
+
+
+def launcher_lines(dev, seed, w_np, checked, drive) -> dict:
+    """Phase 13: the ONN launchers (``repro_torch.launch.retrieve``,
+    ``launch.train_onn``), ``core.energy`` and ``examples/torch_quickstart.py``
+    on ``dev``, one JSON line per part, each held to the CPU; returns the
+    launches of these lines by kernel.
+
+    ``w_np``: phase 4's int8 couplings (N = 506); ``checked``: phase 4's
+    result on its probes (held to the CPU there); ``drive``: main's
+    launch-counting runner."""
+    from repro_torch import api, train
+    from repro_torch.checkpoint import load_onn
+    from repro_torch.configs import onn as configs
+    from repro_torch.core import dynamics as dyn
+    from repro_torch.core import energy, quantization
+    from repro_torch.core import oscillator as osc
+    from repro_torch.launch import retrieve as launch_retrieve
+    from repro_torch.launch.train_onn import run_train_serve
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from doi_rule import hold, replay
+
+    own = {}
+
+    def driven(fn):
+        res, seconds, path = drive(fn)
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        return res, seconds, path
+
+    def rule(got, want, rp, what):
+        try:
+            return hold(got, want, rp, quantize=lambda w: api.quantize_weights(w.cpu()).values,
+                        what=what, ports=("got", "want"))
+        except AssertionError as exc:
+            fail(str(exc))
+
+    # retrieve_cli: build_solver + serve_requests' two halves, card against CPU
+    xi_cpu = launch_retrieve.pat.load_dataset(LAUNCH_DATASET, device="cpu")
+    doi = train.TrainConfig(self_coupling=True)  # diederich_opper_i's
+    card_do = train.train_doi(xi_cpu, doi, device=dev)
+    doi_kind = rule(card_do, train.train_doi(xi_cpu, doi, device="cpu"),
+                    replay(xi_cpu.numpy(), self_coupling=True),
+                    f"retrieve_cli {LAUNCH_DATASET} DO-I (card against CPU)")
+    fields = ("final_sigma", "settle_cycle", "settled")
+    for part, arch, mode, route, requests, kernel in (
+        ("kernel", "hybrid", "functional", dict(backend="kernel"), LAUNCH_REQUESTS,
+         "phase_step_multi"),
+        ("hybrid_kernel", "hybrid", "functional", dict(backend="hybrid", hybrid_impl="kernel"),
+         LAUNCH_HYBRID_REQUESTS, "hybrid_phase_step"),
+        ("rtl", "recurrent", "rtl", dict(backend="kernel"), LAUNCH_RTL_REQUESTS, "coupling_sum"),
+    ):
+        t_part = time.perf_counter()
+        (solver, xi), build_s, _ = driven(lambda: launch_retrieve.build_solver(
+            LAUNCH_DATASET, arch, mode, device=dev, **route))
+        require(torch.equal(solver.params.weights.cpu(),
+                            api.quantize_weights(card_do.weights.cpu()).values),
+                f"retrieve_cli {part}: build_solver's weights are not the card's DO-I")
+        cpu_solver = api.RetrievalSolver(solver.config, api.make_params(
+            solver.config, solver.params.weights.cpu(), device="cpu"))
+        per_policy = {}
+        for policy in (("pow2", "exact") if part != "rtl" else ("pow2",)):
+            def serve(s=solver, policy=policy):
+                gen = torch.Generator().manual_seed(LAUNCH_SEED)
+                which, corrupted = launch_retrieve.draw_requests(
+                    xi, LAUNCH_CORRUPTION, requests, gen)
+                return launch_retrieve.serve_corrupted(
+                    s, xi.cpu()[which], corrupted, gen, corruption=LAUNCH_CORRUPTION,
+                    n_policy=policy)
+
+            (report, res), first_s, path = driven(serve)
+            require(path.get(kernel, 0) > 0, f"retrieve_cli {part} {policy}: {kernel} never launched")
+            want, want_res = serve(cpu_solver)
+            for f in fields:
+                require(torch.equal(getattr(res, f), getattr(want_res, f)),
+                        f"retrieve_cli {part} {policy}: {f} differs from the CPU")
+            for k in ("accuracy", "mean_settle_cycles", "timeouts"):
+                require(report[k] == want[k], f"retrieve_cli {part} {policy}: {k} != the CPU's")
+            warm, _ = serve()
+            per_policy[policy] = {
+                "n_bucket": int(next(iter(report["engine"]["retrieval"]["n_buckets"]))),
+                "slabs": report["engine"]["slabs"], "pad_fraction": report["engine"]["pad_fraction"],
+                "slabs_per_bucket": report["engine"]["slabs_per_bucket"],
+                "first_wall_s": report["wall_s"], "first_requests_per_s": report["requests_per_s"],
+                "wall_s": warm["wall_s"], "requests_per_s": warm["requests_per_s"],
+                "first_call_s": first_s, "launches": path, f"{kernel}_launches": path[kernel],
+            }
+        emit({"phase": "launchers", "part": "retrieve_cli", "route": part,
+              "dataset": LAUNCH_DATASET, "n": int(xi.shape[1]), "architecture": arch,
+              "mode": mode, "backend": solver.config.backend,
+              "hybrid_impl": solver.config.hybrid_impl, "requests": requests,
+              "corruption": LAUNCH_CORRUPTION, "seed": LAUNCH_SEED,
+              "accuracy": report["accuracy"], "mean_settle_cycles": report["mean_settle_cycles"],
+              "timeouts": report["timeouts"], "build_solver_s": build_s, "policies": per_policy,
+              "doi_rule": doi_kind, "equal_to_cpu": True, "part_s": time.perf_counter() - t_part})
+
+    # train_onn: train -> hot swap -> serve on the card, then on the CPU
+    t_part = time.perf_counter()
+    ckpt = tempfile.mkdtemp()
+    try:
+        kw = dict(dataset=LAUNCH_DATASET, probes=LAUNCH_PROBES, backend="kernel")
+        card, card_s, path = driven(lambda: run_train_serve(
+            ckpt_dir=os.path.join(ckpt, "card"), device=dev, **kw))
+        t0 = time.perf_counter()
+        run_train_serve(ckpt_dir=os.path.join(ckpt, "cpu"), device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        require(card["train"]["converged"], "train_onn: DO-I did not converge")
+        require(card["accuracy_trained"] >= card["accuracy_hebbian"],
+                "train_onn: training lowered the accuracy")
+        require(card["hot_swaps"] == 1, "train_onn: not one hot swap")
+        require(card["serving_retraces_after_swap"] == 0,
+                f"train_onn: {card['serving_retraces_after_swap']} builds or plans after the swap")
+        require(card["completed"] == 3 * LAUNCH_PROBES, "train_onn: requests not all completed")
+        require(path.get("phase_step_multi", 0) > 0, "train_onn: phase_step_multi never launched")
+        with open(os.path.join(card["checkpoint"], "onn.json")) as f:
+            header = json.load(f)["config"]
+        require(header["backend"] == "pallas", "train_onn: the header names the kernel route "
+                f"{header['backend']!r}, not the reference's 'pallas'")
+        loaded = load_onn(card["checkpoint"], device=dev)
+        require(loaded.config.backend == "kernel", "train_onn: checkpoint config not restored")
+        tcfg = train.TrainConfig(qat_bits=loaded.config.weight_bits)
+        card_t = train.train_doi(xi_cpu, tcfg, device=dev)
+        cpu_t = train.train_doi(xi_cpu, tcfg, device="cpu")
+        require(torch.equal(loaded.params.weights.cpu(),
+                            api.quantize_weights(card_t.weights.cpu()).values),
+                "train_onn: the checkpoint does not hold the card's trained weights")
+        kind = rule(card_t, cpu_t, replay(xi_cpu.numpy(), **dataclasses.asdict(tcfg),
+                                          fake_quantize=quantization.fake_quantize),
+                    "train_onn (card against CPU)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "launchers", "part": "train_onn", "dataset": LAUNCH_DATASET,
+          "n": card["n"], "probes": LAUNCH_PROBES, "backend": "kernel", "rule": card["rule"],
+          "train": card["train"], "accuracy_hebbian": card["accuracy_hebbian"],
+          "accuracy_trained": card["accuracy_trained"], "hot_swaps": card["hot_swaps"],
+          "serving_retraces_after_swap": card["serving_retraces_after_swap"],
+          "completed": card["completed"], "ticks": card["ticks"], "card_s": card_s,
+          "cpu_s": cpu_s, "checkpoint_round_trip": True, "doi_rule": kind,
+          "launches": path,
+          "part_s": time.perf_counter() - t_part})
+
+    # energy: eq. 1 at N = 506 on phase 4's final spins, card against CPU
+    t_part = time.perf_counter()
+    wc = torch.as_tensor(w_np)
+    wg = wc.to(dev)
+    spins = checked.final_sigma
+    (h_card, mins_card), seconds, path = driven(lambda: (
+        energy.hamiltonian(wg, spins.to(dev)),
+        torch.stack([energy.is_local_minimum(wg, spins[i].to(dev))
+                     for i in range(ENERGY_MIN_LANES)])))
+    h_cpu = energy.hamiltonian(wc, spins.cpu())
+    mins_cpu = torch.stack([energy.is_local_minimum(wc, spins[i].cpu())
+                            for i in range(ENERGY_MIN_LANES)])
+    require(torch.equal(h_card.cpu(), h_cpu), "energy: hamiltonian on the card != CPU")
+    require(torch.equal(mins_card.cpu(), mins_cpu), "energy: is_local_minimum on the card != CPU")
+    cfg_e = dataclasses.replace(configs.ONN_HYBRID_506, backend="kernel")
+    starts = spins[:ENERGY_TRACE_LANES]
+
+    def trajectory(device):
+        params = api.make_params(cfg_e, w_np, device=device)
+        out = []
+        for lane in starts:
+            state = dyn.init_state(cfg_e, lane.to(device))
+            steps = []
+            for _ in range(ENERGY_TRACE_STEPS):
+                state = dyn.step(cfg_e, params, state)
+                steps.append(osc.spin(state.phase, cfg_e.phase_bits))
+            out.append(torch.stack(steps))
+        return torch.stack(out, dim=1)  # (T, lanes, N)
+
+    traj_card, _, path_t = driven(lambda: trajectory(dev))
+    traj_cpu = trajectory("cpu")
+    require(torch.equal(traj_card.cpu(), traj_cpu), "energy: step trajectory on the card != CPU")
+    e_card = energy.energy_trace(wg, traj_card)
+    require(torch.equal(e_card.cpu(), energy.energy_trace(wc, traj_cpu)),
+            "energy: energy_trace on the card != CPU")
+    emit({"phase": "launchers", "part": "energy", "n": N, "lanes": int(spins.shape[0]),
+          "hamiltonian_dtype": str(h_card.dtype), "mean_energy": float(h_cpu.mean()),
+          "local_minimum_lanes": ENERGY_MIN_LANES,
+          "local_minima": int(mins_cpu.sum()), "trace_steps": ENERGY_TRACE_STEPS,
+          "trace_lanes": ENERGY_TRACE_LANES,
+          "seconds": seconds, "launches": {**path, **path_t}, "equal_to_cpu": True,
+          "part_s": time.perf_counter() - t_part})
+
+    # examples: the quickstart in a subprocess on the card
+    t_part = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch_quickstart.py")],
+                         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"examples: torch_quickstart.py exited {out.returncode}:\n"
+            f"{out.stderr[-2000:]}")
+    require("retrieved correctly: True" in out.stdout,
+            f"examples: torch_quickstart.py did not retrieve:\n{out.stdout[-2000:]}")
+    emit({"phase": "launchers", "part": "examples", "script": "examples/torch_quickstart.py",
+          "exit_code": out.returncode, "retrieved_correctly": True,
+          "seconds": time.perf_counter() - t_part})
     return own
 
 
@@ -1798,9 +2025,13 @@ def main() -> None:
     daemon_launches = daemon_lines(dev, args.seed, cfg_k, w_np, make_hebbian(args.seed + 1), xi,
                                    probes, results[False], spans_k, mc_in, mc_kw, drive)
 
+    # 13. the ONN launchers, the energy model and the quickstart example --------------
+    launcher_launches = launcher_lines(dev, args.seed, w_np, results[False], drive)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_daemon"] = daemon_launches.get(name, 0)
+        row["launches_launchers"] = launcher_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,14 @@
 The reference's format (``repro.checkpoint.onn``): one directory holding
 ``onn.npz`` (int8 weight values, int32 bias, float32 quantization scale) and
 ``onn.json`` (every ``ONNConfig`` field, the quantization width and caller
-metadata).  A directory written by the JAX package loads here; its
-``"pallas"`` route names map to ``"kernel"``.  Written atomically (tmp
-directory + ``os.replace``).
+metadata).  A directory written by the JAX package loads here, and one
+written here loads there: the header names routes as the reference does
+(``"pallas"``), and loading maps them back to ``"kernel"``.  Written
+atomically (tmp directory + ``os.replace``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -19,7 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import config_from_reference
+from repro_torch.convert import config_from_reference, config_to_reference
 from repro_torch.core import dynamics, quantization
 from repro_torch.core.checks import resolve_device
 
@@ -69,7 +69,7 @@ def save_onn(
     )
     header = {
         "format": _FORMAT,
-        "config": dataclasses.asdict(config),
+        "config": config_to_reference(config),
         "weight_bits": int(quantized.bits),
         "meta": extra_meta or {},
     }

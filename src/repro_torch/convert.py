@@ -4,7 +4,8 @@ The port never imports ``repro``; these functions read a reference
 ``ONNConfig`` or ``MaxCutSolver`` (or its ``dataclasses.asdict`` form, as
 checkpoint headers store a config) by field name, and take weights as numpy
 arrays.  The reference's kernel route is named ``"pallas"``; the port's is
-``"kernel"``.
+``"kernel"``.  :func:`config_to_reference` goes the other way, for the
+checkpoint headers the port writes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 from repro_torch.core.dynamics import ONNConfig, OnnParams, make_params
 
 _ROUTE_NAMES = {"pallas": "kernel"}
+_REFERENCE_ROUTE_NAMES = {v: k for k, v in _ROUTE_NAMES.items()}
 
 
 def _fields_from_reference(cls, obj_or_dict: Any) -> dict:
@@ -38,6 +40,16 @@ def config_from_reference(obj_or_dict: Any) -> ONNConfig:
     """The port's ``ONNConfig`` for a reference config object or dict.
     Validation is the port's own."""
     return ONNConfig(**_fields_from_reference(ONNConfig, obj_or_dict))
+
+
+def config_to_reference(cfg: ONNConfig) -> dict:
+    """Every field of a port ``ONNConfig`` as the reference names it: the
+    inverse of :func:`config_from_reference`, with ``"kernel"`` mapped to
+    ``"pallas"`` for both ``backend`` and ``hybrid_impl``."""
+    values = dataclasses.asdict(cfg)
+    for key in ("backend", "hybrid_impl"):
+        values[key] = _REFERENCE_ROUTE_NAMES.get(values[key], values[key])
+    return values
 
 
 def maxcut_solver_from_reference(obj_or_dict: Any, device=None):

@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -105,6 +105,12 @@ def build_all(stems: Iterable[str] = tuple(SOURCES)) -> None:
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def loaded() -> Tuple[str, ...]:
+    """The sources whose library this process has built or loaded."""
+    with _LOCK:
+        return tuple(_LOADED)
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -25,6 +25,7 @@ import torch
 from doi_rule import hold, replay
 from repro_torch import api, serving, train
 from repro_torch.core import dynamics as dyn
+from repro_torch.core import energy
 from repro_torch.core import quantization
 from repro_torch.engine import Request
 from repro_torch.core import ising
@@ -533,3 +534,32 @@ def test_continuous_engine_on_card_equals_cpu(cuda):
     for got, want in zip(*results):
         for f in got._fields:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), f
+
+
+def test_energy_on_card_equals_cpu(cuda):
+    """``hamiltonian`` (with and without a field), ``energy_trace`` and
+    ``is_local_minimum`` on the card equal the CPU exactly at N = 506 on
+    5-bit couplings, and ``is_local_minimum`` also on int32 J up to 2^20."""
+    rng = np.random.default_rng(506)
+    n = 506
+    a = rng.integers(-15, 16, (n, n))
+    w = np.triu(a, 1) + np.triu(a, 1).T
+    sigma = np.where(rng.random((64, n)) < 0.5, 1, -1).astype(np.int8)
+    h = rng.integers(-3, 4, n).astype(np.int32)
+    for j in (w.astype(np.int8), (w * 2**16).astype(np.int32)):
+        jc, sc = torch.as_tensor(j), torch.as_tensor(sigma)
+        jg, sg = jc.to(cuda), sc.to(cuda)
+        for args in ((), (torch.as_tensor(h), 0.5)):
+            gpu_args = tuple(x.to(cuda) if isinstance(x, torch.Tensor) else x for x in args)
+            assert torch.equal(energy.hamiltonian(jg, sg, *gpu_args).cpu(),
+                               energy.hamiltonian(jc, sc, *args))
+        assert torch.equal(energy.energy_trace(jg, sg.reshape(8, 8, n)).cpu(),
+                           energy.energy_trace(jc, sc.reshape(8, 8, n)))
+        for lane in range(sigma.shape[0]):
+            assert bool(energy.is_local_minimum(jg, sg[lane])) == bool(
+                energy.is_local_minimum(jc, sc[lane]))
+        settled, prev = sc[0].clone(), None
+        while prev is None or not torch.equal(settled, prev):  # Hopfield: converges
+            settled, prev = dyn.async_sweep(jc, settled, range(n)), settled
+        assert bool(energy.is_local_minimum(jg, settled.to(cuda)))
+        assert bool(energy.is_local_minimum(jc, settled))
