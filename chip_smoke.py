@@ -139,11 +139,33 @@ and prints one JSON line per phase:
    ``energy_trace`` of an 8-step ``step`` trajectory of 8 lanes, each equal
    to the CPU.  ``examples``: ``examples/torch_quickstart.py`` in a
    subprocess on the card prints ``retrieved correctly: True``.
+14. ``sharded`` (eleven lines): the row-sharded path of
+   ``repro_torch.distributed`` on meshes that repeat the card (one card:
+   every cross-device copy is a no-op).  ``retrieve`` under plans 1x4, 2x2,
+   4x1 and 2x4: phase 4's 1024 probes at ``ONN_HYBRID_506`` on the kernel
+   route, every field of every lane equal to phase 4's unsharded result;
+   kernel 1 once per row block (and lane shard) a cycle under the model
+   plans, kernel 5 once per lane shard a chunk under 4x1; per-block W
+   bytes, first and warm solve seconds.  ``retrieve_hybrid``: kernel 6 at
+   P = 32 under 1x4.  ``rtl``: phase 6's recurrent rtl with jitter on 64
+   lanes under 1x2, kernel 1 twice an edge.  ``n4096``: Hebbian 5-bit
+   couplings of 200 patterns at N = 4096, 1024 probes, under 1x8 (kernel 1
+   eight times a cycle on 2 MiB blocks) equal to the unsharded solve
+   (kernel 5), both timed, with the card's name and power limit.
+   ``maxcut``: phase 10's 16 graphs under 2x4, kernel 1i eight times an
+   update group, equal to phase 10.  ``compressed``: the int8 wire under
+   1x4, equal to the CPU's run of the same plan, the lanes that differ from
+   the exact path counted; the small field (N = 40, ``weight_bits`` 2)
+   equal to the exact path.  ``daemon``: phase 12's request stream through
+   ``ServeDaemon`` under 1x2, every request equal to its solve.
+   ``launcher``: ``launch.retrieve``'s serve under 1x4, equal to the
+   unsharded serve, the report with ``mesh_devices`` 4 and ``shard_plan``.
 
-Launch counts are set to 0 before each main-path phase (4-13) and read after
+Launch counts are set to 0 before each main-path phase (4-14) and read after
 it; every kernel must have launched on a main path, and each row of the
-``kernels`` line carries the launches of phase 12 as ``launches_daemon`` and
-of phase 13 as ``launches_launchers``.  The line before the last
+``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
+phase 13 as ``launches_launchers`` and of phase 14 as ``launches_sharded``.
+The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
 """
@@ -232,6 +254,9 @@ DAEMON_SWAP_REQUESTS, DAEMON_TRAINED_REQUESTS, MIXED_REQUESTS = 64, 128, 64
 LAUNCH_DATASET, LAUNCH_CORRUPTION, LAUNCH_SEED, LAUNCH_PROBES = "22x22", 0.25, 0, 128
 LAUNCH_REQUESTS, LAUNCH_HYBRID_REQUESTS, LAUNCH_RTL_REQUESTS = 1024, 256, 64
 ENERGY_MIN_LANES, ENERGY_TRACE_LANES, ENERGY_TRACE_STEPS = 64, 8, 8
+#: Phase 14: the oscillator count of the wall-breaker solve (W row-sharded 8
+#: ways) and the launcher's requests.
+SHARDED_N, SHARDED_LAUNCH_REQUESTS = 4096, 256
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -292,11 +317,13 @@ SYMBOLS = {
 }
 
 
-def device_ms(fn, name: str, iters: int = 20):
-    """Device time per call of the named hand-written kernel alone, from a
-    ``torch.profiler`` trace of ``iters`` calls, each of which launches it
-    once; a trace that holds fewer launches (the profiler now and then drops
-    some or all) is taken again, up to three times, then None."""
+def device_ms(fn, name: str, iters: int = 20, launches: int = 1):
+    """Device time per launch of the named hand-written kernel alone: the
+    mean over the launches a ``torch.profiler`` trace of ``iters`` calls
+    recorded, each call launching it ``launches`` times.  The profiler drops
+    some records (late in a long process, the first few of each trace), so
+    a trace that holds fewer than half the launches, or more than were
+    made, is taken again, up to three times, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -311,8 +338,8 @@ def device_ms(fn, name: str, iters: int = 20):
             if any(s in evt.key for s in SYMBOLS[name]):
                 total_us += evt.device_time_total
                 count += evt.count
-        if count == iters and total_us:
-            return total_us / 1e3 / iters
+        if iters * launches // 2 <= count <= iters * launches and total_us:
+            return total_us / 1e3 / count
     return None
 
 
@@ -1131,6 +1158,392 @@ def launcher_lines(dev, seed, w_np, checked, drive) -> dict:
     emit({"phase": "launchers", "part": "examples", "script": "examples/torch_quickstart.py",
           "exit_code": out.returncode, "retrieved_correctly": True,
           "seconds": time.perf_counter() - t_part})
+    return own
+
+
+def sharded_lines(dev, seed, w_np, xi, probes, checked, rtl_rec, graphs, mc_res, mc_kw,
+                  spans, mc_in, drive) -> dict:
+    """Phase 14: the row-sharded ONN path (``repro_torch.distributed``) on
+    meshes that repeat ``dev``, one JSON line per part; returns the launches
+    of these lines by kernel.
+
+    ``w_np``, ``xi``, ``probes``: phase 4's int8 couplings, its 40 patterns
+    and its 1024 probes; ``checked``: phase 4's unsharded kernel-route
+    result (held to the CPU); ``rtl_rec``: phase 6's recurrent rtl (config,
+    result, enable offsets); ``graphs``, ``mc_res``, ``mc_kw``: phase 10's
+    instances, its kernel-route result (held to the CPU) and solver
+    arguments; ``spans``, ``mc_in``: phase 12's retrieval request spans and
+    Max-Cut requests; ``drive``: main's launch-counting runner."""
+    from repro_torch import api, serving
+    from repro_torch.configs import onn as configs
+    from repro_torch.core import dynamics as dyn
+    from repro_torch.core import ising
+    from repro_torch.distributed import ShardPlan, make_mesh, sharding
+    from repro_torch.engine import Request
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.launch import retrieve as launch_retrieve
+    from repro_torch.optim import compress
+
+    own = {}
+
+    def driven(fn, seen=None):
+        """``drive(fn)``; with a dict ``seen``, it also records the inputs of
+        the path's first row-sharded sum per W rank (2: kernel 1 or 6, 3:
+        their instance axis) and of its first kernel-5 launch."""
+        if seen is None:
+            res, seconds, path = drive(fn)
+        else:
+            real_sum, real_multi = dyn._model_sharded_sum, ops.phase_step_multi
+
+            def sum_seen(cfg, w, sigma, plan, mesh, placement=None):
+                if w.dim() not in seen:
+                    seen[w.dim()] = (cfg, w, sigma.clone(), plan, mesh, placement)
+                return real_sum(cfg, w, sigma, plan, mesh, placement=placement)
+
+            def multi_seen(*args, **kw):
+                if "multi" not in seen:
+                    seen["multi"] = ([a.clone() for a in args], kw)
+                return real_multi(*args, **kw)
+
+            dyn._model_sharded_sum, ops.phase_step_multi = sum_seen, multi_seen
+            try:
+                res, seconds, path = drive(fn)
+            finally:
+                dyn._model_sharded_sum, ops.phase_step_multi = real_sum, real_multi
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        return res, seconds, path
+
+    def shard_kernels(seen, what):
+        """The kernels of the sharded path at the shapes it gave them, each
+        held with max_abs_err 0 against its plain version on the inputs that
+        ``driven`` recorded: the row-block partial fields
+        (``dyn.row_block_partials``: every block and data shard, concatenated)
+        against the plain sum of the whole W, and kernel 5 on a lane shard
+        against its plain version; device ms a launch, and the plain
+        version's ms on the same inputs."""
+        out = []
+        for rank in (2, 3):
+            if rank not in seen:
+                continue
+            cfg, w, sig, plan, mesh, placement = seen[rank]
+            hybrid = cfg.backend == "hybrid"
+            require(cfg.backend == "kernel" or (hybrid and cfg.hybrid_impl == "kernel"),
+                    f"{what}: backend {cfg.backend} runs no kernel")
+            p = cfg.hybrid_parallel
+            name = ("hybrid_coupling_sum" if hybrid else "coupling_sum") + (
+                "_batched" if rank == 3 else "")
+
+            def partials():
+                return dyn.row_block_partials(cfg, w, sig, plan, mesh, placement)
+
+            def whole_plain():
+                if hybrid:
+                    return plain.hybrid_coupling_sum_ref(w, sig, p)
+                return plain.coupling_sum_ref(w, sig)
+
+            parts = partials()
+            got = torch.cat([torch.cat([q.to(sig.device) for q in ps], dim=-1) for ps in parts])
+            err = max_abs_err(got, whole_plain())
+            require(err == 0, f"{what}: {name} on its row blocks disagrees with its plain "
+                              f"version (max_abs_err {err})")
+            n_launch = sum(len(ps) for ps in parts)
+            out.append({
+                "kernel": name, "parallel": p if hybrid else None,
+                "w": list(w.shape), "sigma": list(sig.shape), "data_shards": len(parts),
+                "partial_shapes": [list(q.shape) for q in parts[0]],
+                "launches_per_sum": n_launch, "max_abs_err": err,
+                "kernel_ms_per_launch": device_ms(partials, name, launches=n_launch),
+                "partials_ms": cuda_ms(partials), "combine_ms": cuda_ms(
+                    lambda: torch.cat([q.to(sig.device) for q in parts[0]], dim=-1)),
+                "plain_ms": cuda_ms(whole_plain, iters=5, warmup=1)})
+        if "multi" in seen:
+            args, kw = seen["multi"]
+            w_, bias_, ph_, pv_, *cols_ = args
+
+            def kern():
+                return ops.phase_step_multi(*args, **kw)
+
+            def plain_fn():
+                return plain.phase_step_multi_ref(
+                    w_, bias_, ph_, pv_, *(c.to(torch.int32)[:, None] for c in cols_),
+                    half=kw["half"], chunk=kw["chunk"], max_cycles=kw["max_cycles"])
+
+            want = plain_fn()
+            err = max_abs_err(kern(), [want[0], want[1], *(x[:, 0] for x in want[2:])])
+            require(err == 0, f"{what}: phase_step_multi on a lane shard disagrees with its "
+                              f"plain version (max_abs_err {err})")
+            name = "phase_step_multi_packed" if kw.get("packed") else "phase_step_multi"
+            out.append({"kernel": name, "shape": list(ph_.shape), "max_abs_err": err,
+                        "kernel_ms": device_ms(kern, name),
+                        "plain_ms": cuda_ms(plain_fn, iters=5, warmup=1)})
+        require(out, f"{what}: no kernel input recorded")
+        return out
+
+    def mesh_of(plan):
+        return make_mesh((plan.batch, plan.model), devices=[dev] * plan.devices)
+
+    def warm_s(solve, repeats=3):
+        return sorted(solve_seconds(solve) for _ in range(repeats))[repeats // 2]
+
+    def block_bytes(params, plan, mesh):
+        return sorted({b.nbytes for b in sharding.weight_blocks(
+            params.weights, plan, mesh, placement=params.placement)[0]})
+
+    def per_cycle(launches, name, plan, chunk):
+        """Launches of ``name`` a cycle: whole chunks of ``per`` launches."""
+        n = launches.get(name, 0)
+        per = plan.batch * plan.model if plan.model_sharded else plan.batch
+        require(n > 0 and n % (per * chunk) == 0,
+                f"sharded {name}: {n} launches, not whole chunks of {per} a cycle")
+        return per
+
+    cfg_k = dataclasses.replace(configs.ONN_HYBRID_506, backend="kernel")
+    chunk = dyn.resolve_chunk(cfg_k)
+
+    # retrieve: ONN_HYBRID_506 on the kernel route, 1024 probes, four plans
+    for shape in ((1, 4), (2, 2), (4, 1), (2, 4)):
+        plan = ShardPlan(*shape)
+        mesh = mesh_of(plan)
+        solver = api.RetrievalSolver(cfg_k, sharding.shard_onn_params(
+            api.make_params(cfg_k, w_np, device=dev), plan, mesh))
+        seen = {}
+        with plan.context(mesh):
+            res, seconds, path = driven(lambda: solver.solve(probes), seen)
+            warm = warm_s(lambda: solver.solve(probes))
+        require_equal(res, checked, f"sharded retrieve {shape}: != the unsharded solve")
+        fields = shard_kernels(seen, f"sharded retrieve {shape}")
+        if plan.model > 1:
+            per = per_cycle(path, "coupling_sum", plan, chunk)
+            require(path.get("phase_step_multi", 0) == 0, f"sharded {shape}: kernel 5 ran")
+        else:
+            per = plan.batch  # kernel-5 launches a chunk: one per lane shard
+            require(path.get("phase_step_multi", 0) % plan.batch == 0
+                    and path.get("phase_step_multi", 0) > 0,
+                    f"sharded {shape}: kernel 5 not once per lane shard")
+            require(path.get("coupling_sum", 0) == 0, f"sharded {shape}: kernel 1 ran")
+        combine = {}
+        if shape == (1, 4):
+            # The combine alone at this shape: the four partial fields of the
+            # probes, concatenated (exact) or through the int8 wire.
+            parts = dyn.row_block_partials(cfg_k, solver.params.weights,
+                                           torch.as_tensor(probes, device=dev), plan, mesh,
+                                           solver.params.placement)[0]
+            combine = {"combine_ms": cuda_ms(lambda: torch.cat(parts, dim=-1)),
+                       "compressed_combine_ms": cuda_ms(
+                           lambda: compress.compressed_psum_scatter(parts))}
+        emit({"phase": "sharded", "part": "retrieve", "config": "ONN_HYBRID_506",
+              "backend": "kernel", "plan": dataclasses.asdict(plan), "requests": B, **combine,
+              "w_block_bytes": block_bytes(solver.params, plan, mesh),
+              "w_bytes": int(solver.params.weights.nbytes),
+              "launches": path, "kernel": "coupling_sum" if plan.model > 1 else
+              "phase_step_multi", "launches_per_cycle_or_chunk": per,
+              "field_kernel_at_shard": fields,
+              "first_call_s": seconds, "warm_solve_s": warm,
+              "requests_per_s": B / warm, "equal_to_unsharded": True})
+
+    # retrieve_hybrid: kernel 6 per row block at P = 32 under 1x4
+    cfg_h = dataclasses.replace(configs.ONN_HYBRID_506, backend="hybrid", hybrid_impl="kernel")
+    plan = ShardPlan(1, 4)
+    mesh = mesh_of(plan)
+    solver = api.RetrievalSolver(cfg_h, sharding.shard_onn_params(
+        api.make_params(cfg_h, w_np, device=dev), plan, mesh))
+    seen = {}
+    with plan.context(mesh):
+        res, seconds, path = driven(lambda: solver.solve(probes), seen)
+        warm = warm_s(lambda: solver.solve(probes))
+    require_equal(res, checked, "sharded retrieve_hybrid: != the unsharded solve")
+    fields = shard_kernels(seen, "sharded retrieve_hybrid")
+    per = per_cycle(path, "hybrid_coupling_sum", plan, chunk)
+    require(path.get("hybrid_phase_step", 0) == 0, "sharded retrieve_hybrid: kernel 7 ran")
+    emit({"phase": "sharded", "part": "retrieve_hybrid", "config": "ONN_HYBRID_506",
+          "parallel": cfg_h.hybrid_parallel, "plan": dataclasses.asdict(plan), "requests": B,
+          "launches": path, "launches_per_cycle": per, "field_kernel_at_shard": fields,
+          "first_call_s": seconds, "warm_solve_s": warm, "requests_per_s": B / warm,
+          "equal_to_unsharded": True})
+
+    # rtl: the recurrent architecture with sync_jitter, kernel 1 per block
+    cfg_r, rtl_res, rtl_t0 = rtl_rec
+    plan = ShardPlan(1, 2)
+    mesh = mesh_of(plan)
+    params_r = api.make_params(cfg_r, w_np, device=dev)
+    lanes = RTL_CHECK_LANES
+    seen = {}
+    with plan.context(mesh):
+        res, seconds, path = driven(lambda: dyn.retrieve(
+            cfg_r, params_r, torch.as_tensor(probes[:lanes], device=dev), t0=rtl_t0[:lanes]),
+            seen)
+    require_rows(res, rtl_res, 0, "sharded rtl: != the unsharded rtl")
+    fields = shard_kernels(seen, "sharded rtl")
+    clocks = cfg_r.clocks_per_cycle
+    n_launch = path.get("coupling_sum", 0)
+    require(n_launch > 0 and n_launch % (2 * clocks * dyn.resolve_chunk(cfg_r)) == 0,
+            f"sharded rtl: {n_launch} launches, not 2 an edge in whole chunks")
+    emit({"phase": "sharded", "part": "rtl", "config": "ONN_HYBRID_506",
+          "architecture": "recurrent", "sync_jitter": True, "plan": dataclasses.asdict(plan),
+          "lanes": lanes, "launches": path, "launches_per_edge": 2,
+          "launches_per_cycle": 2 * clocks, "field_kernel_at_shard": fields,
+          "first_call_s": seconds, "equal_to_unsharded": True})
+
+    # n4096: Hebbian 5-bit couplings of 200 patterns, 1024 probes, W split 8 ways
+    n_big = SHARDED_N
+    rng = np.random.default_rng([seed, 41])
+    xi_big = torch.as_tensor(np.where(rng.random((200, n_big)) < 0.5, 1, -1).astype(np.int8))
+    w_big = api.quantize_weights(api.hebbian(xi_big)).values
+    target_big = torch.as_tensor(rng.integers(0, 200, B))
+    probes_big = xi_big[target_big].clone()
+    probes_big[torch.as_tensor(rng.random((B, n_big)) < 0.2)] *= -1
+    cfg_big = dataclasses.replace(cfg_k, n=n_big)
+    solver = api.RetrievalSolver(cfg_big, api.make_params(cfg_big, w_big, device=dev))
+    plan = ShardPlan(1, 8)
+    mesh = mesh_of(plan)
+    solver_s = api.RetrievalSolver(cfg_big, sharding.shard_onn_params(solver.params, plan, mesh))
+    want, seconds_u, path_u = driven(lambda: solver.solve(probes_big))
+    require(path_u.get("phase_step_multi", 0) > 0, "n4096 unsharded: kernel 5 never launched")
+    warm_u = warm_s(lambda: solver.solve(probes_big))
+    seen = {}
+    with plan.context(mesh):
+        res, seconds, path = driven(lambda: solver_s.solve(probes_big), seen)
+        warm = warm_s(lambda: solver_s.solve(probes_big))
+    require_equal(res, want, "sharded n4096 1x8: != the unsharded solve (kernel 5)")
+    fields = shard_kernels(seen, "sharded n4096")
+    per = per_cycle(path, "coupling_sum", plan, chunk)
+    blocks = block_bytes(solver_s.params, plan, mesh)
+    require(blocks == [n_big * n_big // 8], f"n4096: W blocks of {blocks} bytes, not 2 MiB")
+    accuracy = float(torch.all(res.final_sigma.cpu() == xi_big[target_big], dim=-1)
+                     .float().mean())
+    emit({"phase": "sharded", "part": "n4096", "n": n_big, "patterns": 200, "requests": B,
+          "plan": dataclasses.asdict(plan), "w_bytes": int(w_big.nbytes),
+          "w_block_bytes": blocks, "launches": path, "launches_per_cycle": per,
+          "field_kernel_at_shard": fields, "unsharded_launches": path_u, "settled": int(res.settled.sum()),
+          "sharded_first_call_s": seconds, "sharded_warm_solve_s": warm,
+          "unsharded_first_call_s": seconds_u, "unsharded_warm_solve_s": warm_u,
+          "sharded_over_unsharded_s": warm / warm_u, "accuracy": accuracy,
+          "nvidia_smi": nvidia_smi_line(), "equal_to_unsharded": True})
+
+    # maxcut: phase 10's 16 graphs under 2x4, kernel 1i per block and instance shard
+    plan = ShardPlan(2, 4)
+    mesh = mesh_of(plan)
+    solver_mc = api.MaxCutSolver(**mc_kw, device=dev)
+    seen = {}
+    with plan.context(mesh):
+        res, seconds, path = driven(lambda: solver_mc.solve(
+            graphs, key=torch.Generator().manual_seed(seed)), seen)
+        warm = warm_s(lambda: solver_mc.solve(graphs, key=torch.Generator().manual_seed(seed)))
+    require_same(res, mc_res, ising.MaxCutResult._fields, "sharded maxcut 2x4: != unsharded")
+    fields = shard_kernels(seen, "sharded maxcut")
+    groups = ising.resolve_stagger_groups(0, N)
+    stepped = -(-int(res.sweeps_run.max()) // MC_CHUNK) * MC_CHUNK
+    n_launch = path.get("coupling_sum_batched", 0)
+    require(n_launch == 8 * groups * stepped,
+            f"sharded maxcut: {n_launch} launches of kernel 1i, not 8 a group")
+    emit({"phase": "sharded", "part": "maxcut", "n": N, "instances": MC_INSTANCES,
+          "plan": dataclasses.asdict(plan), "groups": groups, "sweeps_stepped": stepped,
+          "launches": path, "launches_per_group": 8, "field_kernel_at_shard": fields,
+          "first_call_s": seconds, "warm_solve_s": warm, "equal_to_unsharded": True})
+
+    # compressed: the int8 wire under 1x4 at N = 506, card against the CPU,
+    # then the small field (N = 40, weight_bits 2), where it is exact
+    plan = ShardPlan(1, 4, compressed=True)
+    mesh = mesh_of(plan)
+    solver = api.RetrievalSolver(cfg_k, api.make_params(cfg_k, w_np, device=dev))
+    seen = {}
+    with plan.context(mesh):
+        res, seconds, path = driven(lambda: solver.solve(probes), seen)
+    fields = shard_kernels(seen, "sharded compressed")
+    cpu_solver = api.RetrievalSolver(cfg_k, api.make_params(cfg_k, w_np, device="cpu"))
+    with plan.context(make_mesh((1, 4), devices=["cpu"] * 4)):
+        cpu_res = cpu_solver.solve(probes)
+    require_equal(res, cpu_res, "sharded compressed 1x4: card != CPU")
+    differs = torch.zeros(B, dtype=torch.bool)
+    for f in FIELDS:
+        a, b = getattr(res, f).cpu(), getattr(checked, f).cpu()
+        differs |= (a != b).reshape(B, -1).any(dim=1)
+    rng_s = np.random.default_rng([seed, 43])
+    w_small = rng_s.integers(-1, 2, (40, 40)).astype(np.int8)
+    np.fill_diagonal(w_small, 0)
+    s_small = torch.as_tensor(rng_s.choice([-1, 1], (256, 40)).astype(np.int8), device=dev)
+    cfg_s = dataclasses.replace(cfg_k, n=40, weight_bits=2)
+    params_s = api.make_params(cfg_s, w_small, device=dev)
+    exact = dyn.retrieve(cfg_s, params_s, s_small)
+    seen = {}
+    with plan.context(mesh):
+        small, _, path_small = driven(lambda: dyn.retrieve(cfg_s, params_s, s_small), seen)
+    require_equal(small, exact, "sharded compressed small field: != the exact path")
+    fields_small = shard_kernels(seen, "sharded compressed small field")
+    emit({"phase": "sharded", "part": "compressed", "config": "ONN_HYBRID_506",
+          "plan": dataclasses.asdict(plan), "requests": B, "launches": path,
+          "field_kernel_at_shard": fields, "first_call_s": seconds, "equal_to_cpu": True,
+          "lanes_differing_from_exact": int(differs.sum()),
+          "small_field": {"n": 40, "weight_bits": 2, "lanes": 256, "launches": path_small,
+                          "field_kernel_at_shard": fields_small, "equal_to_exact": True}})
+
+    # daemon: phase 12's retrieval stream and Max-Cut requests under 1x2
+    plan = ShardPlan(1, 2)
+    mesh = mesh_of(plan)
+    eng = serving.ContinuousEngine(torch.Generator().manual_seed(0), device=dev,
+                                   slab_lanes=DAEMON_SLAB, tenant_weights=dict(DAEMON_TENANTS))
+    eng.install("mem", "retrieval", solver=api.RetrievalSolver(
+        cfg_k, sharding.shard_onn_params(api.make_params(cfg_k, w_np, device=dev), plan, mesh)))
+    eng.install("cuts", "maxcut", device=dev, **mc_kw)
+    order = [("mem", a, c) for a, c in spans]
+    for i, (pos, *_rest) in enumerate(mc_in):
+        order.insert(pos, ("cuts", i, 1))
+    reqs = []
+    for kind, ref, count in order:
+        if kind == "mem":
+            reqs.append(Request("mem", probes[ref:ref + count]))
+        else:
+            _, adj, key_seed, _ = mc_in[ref]
+            reqs.append(Request("cuts", adj, key=torch.Generator().manual_seed(key_seed)))
+    seen = {}
+    with plan.context(mesh):
+        (report, futs, wall, *_), seconds, path = driven(lambda: serve_stream(
+            eng, reqs, serving.ticked_source(reqs, per_tick=DAEMON_PER_TICK)), seen)
+    for i, ((kind, ref, _), f) in enumerate(zip(order, futs)):
+        require(f.done() and f.exception() is None, f"sharded daemon request {i} failed")
+        if kind == "mem":
+            require_rows(f.result(), checked, ref, f"sharded daemon request {i} != solve")
+        else:
+            require_same(f.result(), mc_in[ref][3], ising.MaxCutResult._fields,
+                         f"sharded daemon Max-Cut request {i} != solve")
+    require(report["completed"] == len(reqs), "sharded daemon: not every request completed")
+    for k in ("coupling_sum", "coupling_sum_batched"):
+        require(path.get(k, 0) > 0, f"sharded daemon: {k} never launched")
+    fields = shard_kernels(seen, "sharded daemon")
+    emit({"phase": "sharded", "part": "daemon", "plan": dataclasses.asdict(plan),
+          "requests": len(reqs), "completed": report["completed"], "ticks": report["ticks"],
+          "wall_s": wall, "requests_per_s": len(reqs) / wall, "latency": latency_ms(report),
+          "launches": path, "field_kernel_at_shard": fields, "equal_to_solve": True})
+
+    # launcher: serve_requests' halves under 1x4 against the unsharded serve
+    plan = ShardPlan(1, 4)
+    mesh = mesh_of(plan)
+    solver = api.RetrievalSolver(cfg_k, api.make_params(cfg_k, w_np, device=dev))
+    xi_dev = torch.as_tensor(xi, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    which, corrupted = launch_retrieve.draw_requests(xi_dev, 0.25, SHARDED_LAUNCH_REQUESTS, gen)
+    served, seen = [], {}
+    for p in (None, plan):
+        (report, res), seconds, path = driven(lambda p=p: launch_retrieve.serve_corrupted(
+            solver, xi_dev.cpu()[which], corrupted, torch.Generator().manual_seed(seed),
+            corruption=0.25, plan=p, mesh=None if p is None else mesh),
+            None if p is None else seen)
+        served.append((report, res, seconds, path))
+    (rep_u, res_u, *_), (rep_s, res_s, seconds, path) = served
+    require_same(res_s, res_u, FIELDS, "sharded launcher: != the unsharded serve")
+    require(rep_s["mesh_devices"] == 4 and rep_s["shard_plan"] == dataclasses.asdict(plan),
+            f"sharded launcher: report {rep_s['mesh_devices']}, {rep_s['shard_plan']}")
+    require(path.get("coupling_sum", 0) > 0, "sharded launcher: kernel 1 never launched")
+    fields = shard_kernels(seen, "sharded launcher")
+    full = launch_retrieve.serve_requests(solver, xi_dev, 0.25, 64, seed, plan=plan, mesh=mesh)
+    require(full["mesh_devices"] == 4, "serve_requests: mesh_devices != 4")
+    emit({"phase": "sharded", "part": "launcher", "entry": "launch.retrieve.serve_requests",
+          "requests": SHARDED_LAUNCH_REQUESTS, "mesh_devices": rep_s["mesh_devices"],
+          "shard_plan": rep_s["shard_plan"], "accuracy": rep_s["accuracy"],
+          "wall_s": rep_s["wall_s"], "unsharded_wall_s": rep_u["wall_s"], "launches": path,
+          "field_kernel_at_shard": fields, "equal_to_unsharded": True})
     return own
 
 
@@ -2028,10 +2441,16 @@ def main() -> None:
     # 13. the ONN launchers, the energy model and the quickstart example --------------
     launcher_launches = launcher_lines(dev, args.seed, w_np, results[False], drive)
 
+    # 14. the row-sharded path on meshes that repeat the card ---------------------------
+    sharded_launches = sharded_lines(dev, args.seed, w_np, xi, probes, results[False],
+                                     rtl["recurrent"], graphs, maxcut["kernel"], mc_kw, spans_k,
+                                     mc_in, drive)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_daemon"] = daemon_launches.get(name, 0)
         row["launches_launchers"] = launcher_launches.get(name, 0)
+        row["launches_sharded"] = sharded_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,12 +39,20 @@ keeps the per-cycle step: one coupling-sum launch per slow-clock edge.
 against spins (I, B, N), on every backend (the Max-Cut annealer of
 :mod:`repro_torch.core.ising`); :func:`async_sweep` is the sequential
 Hopfield sweep of its oracle.
+
+Under an active :class:`repro_torch.distributed.ShardPlan` (``with
+plan.context(mesh):``) a model-sharded plan turns every weighted sum into a
+row-sharded collective (:func:`_model_sharded_sum`: the backend per row
+block of W on the ``"model"`` devices, lanes over ``"data"``, an exact
+combine on the mesh's first device) and bypasses the kernels that need the
+whole W (3, 4, 5, 7); a data-only plan advances each lane shard on its own
+device (kernel 5 once per shard).  Both equal the unsharded solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +61,11 @@ from repro_torch.core import coupling as coupling_lib
 from repro_torch.core import oscillator as osc
 from repro_torch.core.checks import require_int_dtype, resolve_device
 from repro_torch.core.quantization import check_weight_range
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.optim import compress
 
 _BACKEND_NAMES = ("parallel", "serial", "kernel", "hybrid")
 _HYBRID_IMPLS = ("scan", "kernel")
@@ -165,6 +175,9 @@ class ONNConfig:
 class OnnParams(NamedTuple):
     weights: torch.Tensor  # (N, N) int8 coupling matrix
     bias: torch.Tensor  # (N,) int32 per-oscillator field offset
+    # W's row blocks placed for a ShardPlan (distributed.sharding.Placement,
+    # set by shard_onn_params); None when W is not placed for one
+    placement: Optional[Any] = None
 
 
 class OnnState(NamedTuple):
@@ -326,14 +339,120 @@ BACKENDS = {
 }
 
 
-def weighted_sum(cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+def _model_plan():
+    """The active (ShardPlan, Mesh) pair if the row-sharded collective is on.
+
+    The reference discriminates its jit caches on ``_sharding_cache_key``;
+    the port compiles nothing per call, so it has no counterpart: the plan
+    is read from the thread-local context at each call (kernel launch plans
+    are keyed by shape, so row blocks get their own).
+    """
+    plan, mesh = shard_lib.current_plan(), shard_lib.current_mesh()
+    if plan is None or mesh is None or not plan.model_sharded:
+        return None
+    return plan, mesh
+
+
+def _data_plan():
+    """The active (ShardPlan, Mesh) pair if lanes split over ``"data"`` with
+    W whole on each device (a data-only plan: ``Bx1`` or
+    ``layout="replicated"``)."""
+    plan, mesh = shard_lib.current_plan(), shard_lib.current_mesh()
+    if plan is None or mesh is None or plan.model_sharded or plan.batch < 2:
+        return None
+    return plan, mesh
+
+
+def _check_home(mesh, t: torch.Tensor) -> None:
+    if t.device != mesh.first:
+        raise ValueError(
+            f"sharded solve: operands on {t.device}, but the mesh's first device "
+            f"(where the combine runs) is {mesh.first}"
+        )
+
+
+def row_block_partials(
+    cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor, plan, mesh, placement=None
+) -> list:
+    """The partial fields of the row-sharded collective
+    (:func:`_model_sharded_sum`): ``parts[i][j]`` is the configured backend's
+    field of W's row block j (``ceil(M / model)`` rows, the last one shorter
+    when M does not divide; an empty block runs nothing) on
+    ``mesh.devices[i, j]`` against data shard i of σ — σ's leading axis
+    (lanes, or instances with W's) split over ``"data"`` when the plan
+    data-parallelizes and that axis divides it, else one shard.  The blocks
+    are ``placement``'s when it was made for this W
+    (``sharding.shard_onn_params``), else ``sharding.weight_blocks``'.
+    """
+    _check_home(mesh, sigma)
+    lead = plan.batch > 1 and sigma.dim() >= 2 and sigma.shape[0] % plan.batch == 0
+    shards = plan.batch if lead else 1
+    size = sigma.shape[0] // shards
+    blocks = shard_lib.weight_blocks(w, plan, mesh, data=shards, placement=placement)
+    out = []
+    for i in range(shards):
+        s_i = sigma[i * size:(i + 1) * size] if lead else sigma
+        parts = []
+        for wb in blocks[i]:
+            if wb.shape[-2] == 0:
+                continue
+            if lead and w.dim() == 3:
+                wb = wb[i * size:(i + 1) * size]
+            parts.append(BACKENDS[cfg.backend](cfg, wb, s_i.to(wb.device)))
+        out.append(parts)
+    return out
+
+
+def _model_sharded_sum(
+    cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor, plan, mesh, placement=None
+) -> torch.Tensor:
+    """S = W σ as a row-sharded collective over the ``"model"`` axis.
+
+    The software analogue of partitioning the coupling fabric across boards:
+    W's rows are split over the ``"model"`` mesh axis, each device runs the
+    *configured backend* on its row block against the full σ — so the kernel
+    routes launch kernel 1 (or 6) per device — (:func:`row_block_partials`)
+    and the partial fields are combined on the mesh's first device.  The
+    blocks are disjoint, so the reference's ``psum`` of zero-filled buffers
+    is a concatenation, exact for every backend at any N.  When M does not
+    divide the model degree the last block is shorter: the reference's
+    zero-padded rows would add zero columns that its final slice drops, so
+    the port runs the real rows only.
+
+    ``w`` may be a row slab (M < N rows — the Ising window path) or one
+    matrix per instance, (I, M, N) with σ (I, B, N); σ keeps the full
+    contraction width N.  When the plan also data-parallelizes, σ's leading
+    axis splits over ``"data"`` and the shards' fields concatenate along it.
+    ``plan.compressed`` swaps the exact combine for the int8 wire
+    :func:`repro_torch.optim.compress.compressed_psum_scatter`.
+    """
+    home = sigma.device
+    out = []
+    for parts in row_block_partials(cfg, w, sigma, plan, mesh, placement):
+        if plan.compressed:
+            out.append(compress.compressed_psum_scatter(parts)[0].to(home))
+        else:
+            out.append(torch.cat([p.to(home) for p in parts], dim=-1))
+    return torch.cat(out, dim=0) if len(out) > 1 else out[0]
+
+
+def weighted_sum(
+    cfg: ONNConfig, w: torch.Tensor, sigma: torch.Tensor, placement=None
+) -> torch.Tensor:
     """S = W σ through the backend selected by ``cfg.backend``.
 
     ``w`` (M, N) with ``sigma`` (..., N) → (..., M) int32, or one matrix per
     instance, ``w`` (I, M, N) with ``sigma`` (I, B, N) → (I, B, M): the
     reference's ``jax.vmap`` over instances, written out (one kernel launch
-    for all instances on the kernel routes).
+    for all instances on the kernel routes).  Under an active model-sharded
+    :class:`repro_torch.distributed.ShardPlan` the backend runs per device
+    on its row block (:func:`_model_sharded_sum`), equal to the
+    single-device sum; ``placement`` is W's placement for the plan
+    (``OnnParams.placement``), without which the blocks are cut per call.
     """
+    pm = _model_plan()
+    if pm is not None:
+        return _model_sharded_sum(cfg, w, sigma, *pm, placement=placement)
     return BACKENDS[cfg.backend](cfg, w, sigma)
 
 
@@ -364,9 +483,15 @@ def functional_update(
     the launch takes the packed phases and derives σ in registers.  On the
     hybrid backend's ``kernel`` route it is one launch of kernel 7 (the
     serialized-MAC sum with the same epilogue).
+
+    Under a model-sharded ShardPlan the fused whole-cycle launches are
+    bypassed — they need the full square W — and the cycle runs as the
+    coupling collective + bias + alignment; the coupling kernels (1, 6)
+    still run, per device on their row block (:func:`_model_sharded_sum`).
     """
     half = osc.n_positions(cfg.phase_bits) // 2
-    if cfg.backend == "kernel":
+    model_sharded = _model_plan() is not None
+    if cfg.backend == "kernel" and not model_sharded:
         if cfg.phase_pack:
             return kernel_ops.phase_step_packed(
                 params.weights, params.bias, phase, half=half
@@ -374,12 +499,12 @@ def functional_update(
         sigma = osc.spin(phase, cfg.phase_bits)
         return kernel_ops.phase_step(params.weights, sigma, params.bias, phase, half=half)
     sigma = osc.spin(phase, cfg.phase_bits)
-    if cfg.backend == "hybrid" and cfg.hybrid_impl == "kernel":
+    if cfg.backend == "hybrid" and cfg.hybrid_impl == "kernel" and not model_sharded:
         return kernel_ops.hybrid_phase_step(
             params.weights, sigma, params.bias, phase, half=half,
             parallel=cfg.hybrid_parallel,
         )
-    s = weighted_sum(cfg, params.weights, sigma) + params.bias
+    s = weighted_sum(cfg, params.weights, sigma, params.placement) + params.bias
     return osc.phase_align(phase, s, cfg.phase_bits)
 
 
@@ -509,7 +634,7 @@ def _rtl_clock_edge(
     # The hybrid's serialized sum consumed amplitudes from one slow clock
     # earlier; the recurrent adder tree is combinational (current amps).
     sigma_used = sigma_lab_prev if cfg.architecture == "hybrid" else sigma_lab
-    s = weighted_sum(cfg, params.weights, sigma_used) + params.bias
+    s = weighted_sum(cfg, params.weights, sigma_used, params.placement) + params.bias
     # Reference level is absolute (high iff S > 0); aligning the oscillator
     # to it in the lab frame == rotating-frame target sign(S) * sign_ref.
     return osc.phase_align(phase, s * sign_ref, cfg.phase_bits), sigma_lab
@@ -706,19 +831,50 @@ def _chunk_fused(cfg: ONNConfig, params: OnnParams, c: BatchState, chunk: int) -
     )
 
 
+def _advance_local(
+    cfg: ONNConfig, params: OnnParams, state: BatchState, chunk: int
+) -> BatchState:
+    """One settle-chunk of the slab on the device of its tensors."""
+    if cfg.mode == "rtl":
+        for _ in range(chunk):
+            state = _batch_step(cfg, params, state)
+        return state
+    # The multi-cycle kernel needs the full square W, which a model-sharded
+    # plan has split: the fused loop's weighted sums run the collective.
+    if _multi_kernel_eligible(cfg) and _model_plan() is None:
+        return _chunk_multi(cfg, params, state, chunk)
+    return _chunk_fused(cfg, params, state, chunk)
+
+
 def _advance_chunk_batched(
     cfg: ONNConfig, params: OnnParams, state: BatchState, chunk: int
 ) -> BatchState:
     """Advance the slab by one settle-chunk through the fastest exact route:
     in functional mode one multi-cycle kernel launch where eligible, else the
-    fused loop; in rtl ``chunk`` per-cycle steps (the aux carry is live)."""
-    if cfg.mode == "rtl":
-        for _ in range(chunk):
-            state = _batch_step(cfg, params, state)
-        return state
-    if _multi_kernel_eligible(cfg):
-        return _chunk_multi(cfg, params, state, chunk)
-    return _chunk_fused(cfg, params, state, chunk)
+    fused loop; in rtl ``chunk`` per-cycle steps (the aux carry is live).
+
+    Under a data-only ShardPlan whose batch divides the lanes, each lane
+    shard advances on its ``"data"`` device against W's copy there (kernel 5
+    once per shard on the kernel route); lanes never read each other, so the
+    shards concatenate exactly on the first device, where the one host read
+    of the early exit happens.
+    """
+    dp = _data_plan()
+    b = state.phase.shape[0]
+    if dp is None or b % dp[0].batch != 0:
+        return _advance_local(cfg, params, state, chunk)
+    plan, mesh = dp
+    _check_home(mesh, state.phase)
+    size = b // plan.batch
+    blocks = shard_lib.weight_blocks(params.weights, plan, mesh, placement=params.placement)
+    shards = []
+    for i in range(plan.batch):
+        w_i = blocks[i][0]
+        sub = BatchState(*(x[i * size:(i + 1) * size].to(w_i.device) for x in state))
+        shards.append(_advance_local(
+            cfg, OnnParams(w_i, params.bias.to(w_i.device)), sub, chunk))
+    home = state.phase.device
+    return BatchState(*(torch.cat([s[k].to(home) for s in shards]) for k in range(len(state))))
 
 
 def _init_carry(cfg: ONNConfig, phase0: torch.Tensor, t0=None) -> BatchState:

@@ -1,7 +1,11 @@
-"""Fault tolerance for the serve daemon (:mod:`repro_torch.distributed.ft`).
+"""Distributed execution: the ShardPlan API, the sharding context and the
+fault-tolerance primitives (the port of ``repro.distributed``).
 
-The sharded-solve surface of ``repro.distributed`` (``ShardPlan``) is not
-ported yet; only the host-side fault-tolerance primitives are exported.
+The public surface for parallel solves is :class:`ShardPlan` and its
+:class:`Mesh` (:mod:`repro_torch.distributed.plan`); the placement of the
+coupling matrix (:mod:`repro_torch.distributed.sharding`) and the
+fault-tolerance primitives (:mod:`repro_torch.distributed.ft`) are
+submodules.
 """
 
 from repro_torch.distributed.ft import (  # noqa: F401
@@ -10,4 +14,10 @@ from repro_torch.distributed.ft import (  # noqa: F401
     StepMonitor,
     StragglerEvent,
     propose_mesh,
+)
+from repro_torch.distributed.plan import (  # noqa: F401
+    Mesh,
+    ShardPlan,
+    make_mesh,
+    plan_of_legacy_shard_batch,
 )

@@ -1,0 +1,198 @@
+"""The active sharding context and the ONN coupling matrix's placement (the
+ONN half of ``repro.distributed.sharding``).
+
+The reference turns logical axis names into ``with_sharding_constraint``
+calls and lets GSPMD split the work.  The port has no compiler to hand that
+to: the work is split where it is computed —
+``repro_torch.core.dynamics._model_sharded_sum`` runs the weighted sum per
+row block and ``_advance_chunk_batched`` per lane shard — so
+:func:`shard` and :func:`constrain_onn` are identities kept for the
+reference's call shapes, and the context below only tells those functions
+which plan and mesh are active.  Specs are plain tuples of axis names
+(``("model", None)``), standing in for ``PartitionSpec``.
+
+:func:`shard_onn_params` places W at rest for a plan: its row blocks on
+the model-axis devices when N divides the model degree, otherwise one full
+copy per device with the blocks as views of it (the reference's rule: uneven
+named shardings do not exist, so only the compute is split).  The blocks are
+held by the params it returns (``OnnParams.placement``, a
+:class:`Placement`), and the solve reads them from there: W is never copied
+per cycle.  A block on the device W already lies on is a view, so a mesh
+that repeats one device copies nothing.  Tensors with no placement (the
+Max-Cut windows, made anew each sweep; the engine's padded params) get their
+blocks from :func:`weight_blocks` at each call: views on W's device, copies
+on any other.  Every mesh measured so far repeats one card, so that copy has
+never run on hardware.
+
+The context is thread-local, as in the reference; the scheduler that solves
+under it is single-threaded.  The LM rule tables (``single_pod_rules``,
+``logical_to_pspec``, ...) are not ported here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import TYPE_CHECKING, Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+if TYPE_CHECKING:  # pragma: no cover — annotation only (no import cycle)
+    from repro_torch.distributed.plan import Mesh, ShardPlan
+
+_state = threading.local()
+
+Spec = Tuple[Optional[str], ...]
+
+
+@contextlib.contextmanager
+def use_rules(
+    rules: Optional[Dict[str, Any]],
+    mesh: Optional["Mesh"] = None,
+    plan: Optional["ShardPlan"] = None,
+):
+    """Activate a rule table (and optionally a mesh + ShardPlan)."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = (rules, mesh, plan)
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def use_plan(plan: "ShardPlan", mesh: "Mesh"):
+    """Activate a :class:`repro_torch.distributed.plan.ShardPlan` over
+    ``mesh``.  Prefer ``plan.context(mesh)``, which wraps this.  No rule
+    table goes with it: the port has no reader for one until the LM side
+    is ported."""
+    return use_rules(None, mesh, plan)
+
+
+def current_rules() -> Optional[Dict[str, Any]]:
+    ctx = getattr(_state, "ctx", None)
+    return ctx[0] if ctx else None
+
+
+def current_mesh() -> Optional["Mesh"]:
+    ctx = getattr(_state, "ctx", None)
+    return ctx[1] if ctx else None
+
+
+def current_plan() -> Optional["ShardPlan"]:
+    ctx = getattr(_state, "ctx", None)
+    return ctx[2] if ctx else None
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """The identity: the port splits work where it is computed, not by
+    constraining a tensor's layout (see the module docstring)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# ONN parameter placement
+# ---------------------------------------------------------------------------
+
+
+def onn_weight_spec(plan: "ShardPlan") -> Spec:
+    """The spec of the (N, N) coupling matrix under ``plan``: rows over the
+    ``"model"`` axis (replicated across ``"data"``) when the plan
+    model-parallelizes, else replicated."""
+    return ("model", None) if plan.model_sharded else (None, None)
+
+
+def at_rest_spec(n: int, plan: "ShardPlan") -> Spec:
+    """The spec W actually rests in: :func:`onn_weight_spec`, replicated
+    when N does not divide the model degree."""
+    if plan.model_sharded and n % plan.model == 0:
+        return ("model", None)
+    return (None, None)
+
+
+def onn_param_shardings(plan: "ShardPlan"):
+    """``OnnParams``-shaped specs: W per :func:`onn_weight_spec`, the bias
+    replicated."""
+    from repro_torch.core.dynamics import OnnParams
+
+    return OnnParams(weights=onn_weight_spec(plan), bias=(None,))
+
+
+def constrain_onn(params, layout: Optional[str] = None):
+    """The identity (see the module docstring): placement is
+    :func:`shard_onn_params`' job, and the split happens in the solve."""
+    return params
+
+
+class Placement(NamedTuple):
+    """W's row blocks placed for one plan on one mesh (:func:`shard_onn_params`)."""
+
+    weights: torch.Tensor  # the W the blocks were cut from
+    key: tuple  # (model parts, mesh key)
+    blocks: List[List[torch.Tensor]]  # blocks[i][j] on mesh.devices[i, j]
+
+
+def weight_blocks(
+    w: torch.Tensor,
+    plan: "ShardPlan",
+    mesh: "Mesh",
+    data: Optional[int] = None,
+    placement: Optional[Placement] = None,
+) -> List[List[torch.Tensor]]:
+    """W's row blocks where the solve computes them: ``blocks[i][j]`` is
+    row block j (of ``ceil(M / model)`` rows; the last one shorter when M
+    does not divide) on ``mesh.devices[i, j]``, for the ``data`` lane
+    shards (default ``plan.batch``) and the model degree (1 when the plan
+    does not model-shard: the whole of W).
+
+    Rows are W's axis −2, so a stack of per-instance matrices (I, M, N)
+    splits the same way.  ``placement``, when it was made for this W, plan
+    and mesh, is returned as it is (no copy).  Otherwise each block is a
+    view of W on W's own device, a row slice of one copy per device when W
+    rests replicated (:func:`at_rest_spec`), or its own copy on its device
+    when W rests row-sharded.
+    """
+    parts = plan.model if plan.model_sharded else 1
+    data = plan.batch if data is None else data
+    if (placement is not None and placement.weights is w
+            and placement.key == (parts, mesh.key()) and data <= len(placement.blocks)):
+        return placement.blocks[:data]
+    m = w.shape[-2]
+    blk = -(-m // parts)
+    row_sharded = at_rest_spec(m, plan) == ("model", None)
+    full: Dict[torch.device, torch.Tensor] = {}
+    own: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+    blocks = []
+    for i in range(data):
+        row = []
+        for j in range(parts):
+            dev = mesh.devices[i, j]
+            lo, hi = min(j * blk, m), min((j + 1) * blk, m)
+            if dev == w.device:
+                b = w[..., lo:hi, :]
+            elif row_sharded:
+                if (dev, j) not in own:
+                    own[(dev, j)] = w[..., lo:hi, :].to(dev)
+                b = own[(dev, j)]
+            else:
+                if dev not in full:
+                    full[dev] = w.to(dev)
+                b = full[dev][..., lo:hi, :]
+            row.append(b)
+        blocks.append(row)
+    return blocks
+
+
+def shard_onn_params(params, plan: "ShardPlan", mesh: "Mesh"):
+    """Place live ``OnnParams`` for a plan: W and the bias on the mesh's
+    first device (where the solve's own tensors live and the combine runs),
+    and W's row blocks on the model-axis devices (:func:`weight_blocks`),
+    row-sharded at rest when N divides the model degree, else replicated.
+    Returns the params the solve should be given, with the blocks as their
+    ``placement``.
+    """
+    from repro_torch.core.dynamics import OnnParams
+
+    w = params.weights.to(mesh.first)
+    parts = plan.model if plan.model_sharded else 1
+    placement = Placement(w, (parts, mesh.key()), weight_blocks(w, plan, mesh))
+    return OnnParams(weights=w, bias=params.bias.to(mesh.first), placement=placement)

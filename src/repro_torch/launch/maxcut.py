@@ -1,6 +1,5 @@
 """Max-cut serving CLI: the oscillatory Ising machine behind
-``repro_torch.engine`` (the port of ``repro.launch.maxcut``, without its
-mesh flags).
+``repro_torch.engine`` (the port of ``repro.launch.maxcut``).
 
 Generates a stream of Erdős–Rényi instances with the port's
 ``random_graph`` from a ``torch.Generator`` seeded by ``--seed``, installs a
@@ -15,6 +14,13 @@ sweep.  Each request equals its isolated solve: the same (instance, seed)
 returns the same cut under every ``--n-policy``.  It runs on the card unless
 ``--device cpu``.
 
+``--mesh BxM`` activates a :class:`repro_torch.distributed.ShardPlan`: the
+instances of a slab split B ways over the data axis while the coupling
+field of every instance is computed through the M-way row-sharded
+``weighted_sum`` collective (``auto`` asks ``ft.propose_mesh``), over the
+real local devices.  The legacy ``--shard-batch`` flag still works as a
+deprecated alias for an all-data mesh.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.maxcut --n 506 --requests 16 \\
       --backend kernel --replicas 64 --stagnation 16
@@ -26,14 +32,16 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.api import MaxCutSolver
 from repro_torch.core.checks import resolve_device
 from repro_torch.core.ising import random_graph
+from repro_torch.distributed import Mesh, ShardPlan
 from repro_torch.engine import DEFAULT_BATCH_BUCKETS, Engine, Request
+from repro_torch.launch.retrieve import plan_mesh, plan_scope, resolve_plan_args
 
 
 def serve_cuts(
@@ -46,13 +54,18 @@ def serve_cuts(
     batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS,
     n_policy: Any = "pow2",
     coalesce: bool = True,
+    plan: Optional[ShardPlan] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Solve ``n_requests`` random G(n, edge_prob) instances through one engine.
 
     One CPU generator seeded with ``seed`` draws the graphs, then roots the
     engine, which seeds one generator per request on the solver's device.
+    ``plan``: serve under a ShardPlan, on ``mesh`` (default: the plan's mesh
+    over the local devices of the solver's device type).
     """
     dev = resolve_device(solver.device)
+    plan_ctx = plan_scope(plan, plan_mesh(plan, mesh, dev))
     gen = torch.Generator().manual_seed(seed)
     adjs = [random_graph(gen, n, edge_prob) for _ in range(n_requests)]
 
@@ -62,8 +75,9 @@ def serve_cuts(
     quote = eng.estimate("maxcut", adjs[0])
 
     t0 = time.perf_counter()
-    futures = [eng.submit(Request("maxcut", a)) for a in adjs]
-    stats = eng.drain()
+    with plan_ctx:
+        futures = [eng.submit(Request("maxcut", a)) for a in adjs]
+        stats = eng.drain()
     results = [f.result() for f in futures]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -100,6 +114,7 @@ def serve_cuts(
             "slabs_per_bucket": stats["slabs_per_bucket"],
             "maxcut": stats["solvers"].get("maxcut", {}),
         },
+        "mesh_devices": 1 if plan is None else plan.devices,
     }
 
 
@@ -129,10 +144,18 @@ def main() -> None:
                     help="largest engine batch bucket")
     ap.add_argument("--no-coalesce", action="store_true",
                     help="serve each request in its own slab (latency-first)")
+    ap.add_argument("--mesh", default=None, metavar="BxM",
+                    help="ShardPlan mesh: B-way data-parallel instances x "
+                         "M-way row-sharded coupling sum (e.g. 2x4), or "
+                         "'auto' (ft.propose_mesh over the local devices)")
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="deprecated: use --mesh Bx1; splits request slabs "
+                         "over all local devices (no-op on one device)")
     ap.add_argument("--device", default=None,
                     help='where to solve: the GPU unless "cpu"')
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    plan = resolve_plan_args(args.mesh, args.shard_batch, args.device)
 
     solver = MaxCutSolver(
         sweeps=args.sweeps,
@@ -153,6 +176,7 @@ def main() -> None:
     print(json.dumps(serve_cuts(
         solver, args.n, args.requests, args.edge_prob, args.seed,
         batch_buckets=buckets, n_policy=policy, coalesce=not args.no_coalesce,
+        plan=plan,
     ), indent=1))
 
 

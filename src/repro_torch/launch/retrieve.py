@@ -1,5 +1,5 @@
 """ONN pattern-retrieval CLI: a thin adapter over the ``repro_torch.engine``
-engine (the port of ``repro.launch.retrieve``, without its mesh flags).
+engine (the port of ``repro.launch.retrieve``).
 
 Trains Diederich–Opper I coupling weights for a letter dataset into a
 ``repro_torch.api.RetrievalSolver``, installs it on a serving engine, and
@@ -17,6 +17,14 @@ the batched ``retrieve``: ``--backend kernel`` runs each settle-chunk
 cycle, and ``--mode rtl`` steps clock by clock.  It runs on the card unless
 ``--device cpu``.
 
+``--mesh BxM`` activates a :class:`repro_torch.distributed.ShardPlan` —
+B-way data-parallel lanes × M-way row-sharded coupling matrix (``auto``
+asks ``ft.propose_mesh``) over the real local devices (the CUDA cards, or
+the one CPU); the legacy ``--shard-batch`` recipe still works as a
+deprecated alias for an all-data mesh.  A mesh that repeats one device
+(``make_mesh(devices=["cpu"] * 8)``) is passed to :func:`serve_requests`
+as ``mesh=``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.retrieve --dataset 22x22 \\
       --corruption 0.25 --requests 1024 --backend kernel
@@ -26,9 +34,12 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import time
-from typing import Any, Dict, Tuple
+import warnings
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +47,11 @@ import torch
 from repro_torch.api import RetrievalSolver
 from repro_torch.core.dynamics import ONNResult
 from repro_torch.data import patterns as pat
+from repro_torch.distributed import Mesh, ShardPlan, plan_of_legacy_shard_batch
+from repro_torch.distributed import sharding as shard_lib
+from repro_torch.distributed.plan import local_device_count
 from repro_torch.engine import DEFAULT_BATCH_BUCKETS, Engine, Request
+from repro_torch.launch import mesh as mesh_lib
 
 
 def build_solver(
@@ -86,6 +101,56 @@ def draw_requests(
     return which, corrupted
 
 
+def plan_mesh(plan: Optional[ShardPlan], mesh: Optional[Mesh], device) -> Optional[Mesh]:
+    """The mesh to serve ``plan`` on: ``mesh``, else the plan's mesh over the
+    local devices of ``device``'s type; None for no plan or a 1×1 plan."""
+    if plan is None or plan.devices == 1:
+        return None
+    return plan.make_mesh(device=device) if mesh is None else mesh
+
+
+def plan_scope(plan: Optional[ShardPlan], mesh: Optional[Mesh]):
+    """The context that activates ``plan`` on ``mesh`` (a no-op without one)."""
+    return contextlib.nullcontext() if mesh is None else plan.context(mesh)
+
+
+def plan_context(solver, plan: Optional[ShardPlan], mesh: Optional[Mesh] = None):
+    """(placed solver, active plan context) for serving under a plan.
+
+    Places the coupling matrix for the plan's layout on :func:`plan_mesh` —
+    row-sharded over the ``"model"`` axis when it model-parallelizes and N
+    divides — and returns the context manager that activates the plan for
+    every solve inside.  ``plan=None`` (or a trivial 1×1 plan) is a no-op.
+    """
+    mesh = plan_mesh(plan, mesh, solver.params.weights.device)
+    if mesh is not None:
+        params = shard_lib.shard_onn_params(solver.params, plan, mesh)
+        solver = dataclasses.replace(solver, params=params)
+    return solver, plan_scope(plan, mesh)
+
+
+def resolve_plan_args(
+    mesh_spec: Optional[str], shard_batch: bool, device=None
+) -> Optional[ShardPlan]:
+    """The ShardPlan implied by the ``--mesh`` / legacy ``--shard-batch``
+    flags, over the real local devices of ``device``'s type (the CUDA cards
+    unless ``"cpu"``)."""
+    if mesh_spec is not None and shard_batch:
+        raise SystemExit("--mesh and --shard-batch are mutually exclusive")
+    if mesh_spec is not None:
+        return mesh_lib.build_shard_plan(mesh_spec, device=device)
+    if shard_batch:
+        warnings.warn(
+            "--shard-batch is deprecated; use --mesh Bx1 (or --mesh auto)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if local_device_count(device) < 2:
+            return None
+        return plan_of_legacy_shard_batch(device=device)
+    return None
+
+
 def _stacked_results(results) -> ONNResult:
     """The per-request results as one ``ONNResult`` of stacked CPU fields,
     read from the device in one copy."""
@@ -105,14 +170,18 @@ def serve_corrupted(
     batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS,
     n_policy: Any = "pow2",
     coalesce: bool = True,
+    plan: Optional[ShardPlan] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Dict[str, Any], ONNResult]:
     """Serve each row of ``corrupted`` (R, N) as one request and score it
     against the same row of ``targets``; ``corruption`` is reported.
 
     The engine is rooted in ``generator`` (a CPU ``torch.Generator``), which
-    seeds one generator per request.  Returns (report, the requests' results
-    stacked on the CPU).
+    seeds one generator per request.  ``plan`` / ``mesh``: serve under a
+    ShardPlan (:func:`plan_context`).  Returns (report, the requests'
+    results stacked on the CPU).
     """
+    solver, plan_ctx = plan_context(solver, plan, mesh)
     dev = solver.params.weights.device
     n_requests, n = corrupted.shape
     batch = corrupted.to(device=dev, dtype=torch.int8)
@@ -121,8 +190,9 @@ def serve_corrupted(
     eng.install("retrieval", solver.as_engine_solver())
 
     t0 = time.perf_counter()
-    futures = [eng.submit(Request("retrieval", batch[i])) for i in range(n_requests)]
-    stats = eng.drain()
+    with plan_ctx:
+        futures = [eng.submit(Request("retrieval", batch[i])) for i in range(n_requests)]
+        stats = eng.drain()
     res = _stacked_results([f.result() for f in futures])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -155,6 +225,8 @@ def serve_corrupted(
             "retrieval": stats["solvers"].get("retrieval", {}),
         },
         "device": str(dev),
+        "mesh_devices": 1 if plan is None else plan.devices,
+        "shard_plan": None if plan is None else dataclasses.asdict(plan),
     }
     return report, res
 
@@ -169,14 +241,18 @@ def serve_requests(
     batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS,
     n_policy: Any = "pow2",
     coalesce: bool = True,
+    plan: Optional[ShardPlan] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Draw ``n_requests`` corrupted patterns of ``xi`` from one CPU generator
-    seeded with ``seed`` and serve them through one engine rooted in it."""
+    seeded with ``seed`` and serve them through one engine rooted in it,
+    under ``plan`` on ``mesh`` when given (:func:`plan_context`)."""
     gen = torch.Generator().manual_seed(seed)
     which, corrupted = draw_requests(xi, corruption, n_requests, gen)
     report, _ = serve_corrupted(
         solver, xi.cpu()[which], corrupted, gen, corruption=corruption,
         batch_buckets=batch_buckets, n_policy=n_policy, coalesce=coalesce,
+        plan=plan, mesh=mesh,
     )
     return report
 
@@ -199,6 +275,13 @@ def main() -> None:
                          "PyTorch, or the card's hybrid kernels")
     ap.add_argument("--settle-chunk", type=int, default=8,
                     help="cycles between early-exit checks (0 = fixed run)")
+    ap.add_argument("--mesh", default=None, metavar="BxM",
+                    help="ShardPlan mesh: B-way data-parallel lanes x M-way "
+                         "row-sharded coupling matrix (e.g. 2x4), or 'auto' "
+                         "(ft.propose_mesh over the local devices)")
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="deprecated: use --mesh Bx1; splits request slabs "
+                         "over all local devices (no-op on one device)")
     ap.add_argument("--n-policy", default="pow2",
                     help='engine N bucketing: "pow2", "exact", or comma sizes')
     ap.add_argument("--max-batch", type=int, default=max(DEFAULT_BATCH_BUCKETS),
@@ -209,6 +292,7 @@ def main() -> None:
                     help='where to train and serve: the GPU unless "cpu"')
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    plan = resolve_plan_args(args.mesh, args.shard_batch, args.device)
     solver, xi = build_solver(
         args.dataset, args.architecture, args.mode, backend=args.backend,
         settle_chunk=args.settle_chunk, parallel_factor=args.parallel_factor,
@@ -221,6 +305,7 @@ def main() -> None:
     print(json.dumps(serve_requests(
         solver, xi, args.corruption, args.requests, args.seed,
         batch_buckets=buckets, n_policy=policy, coalesce=not args.no_coalesce,
+        plan=plan,
     ), indent=1))
 
 

@@ -1,5 +1,5 @@
 """The long-lived ONN serve daemon: continuous batching under live load (the
-port of ``repro.launch.serve_daemon``, without its mesh flags).
+port of ``repro.launch.serve_daemon``).
 
 Builds a :class:`repro_torch.serving.ContinuousEngine` with the standard
 mixed workloads (two retrieval sizes trained with DO-I, and max-cut), wraps
@@ -12,6 +12,13 @@ Send SIGTERM to observe the graceful drain: in-flight slabs complete,
 queued requests are rejected (or served with ``--drain-queue``), the
 heartbeat file goes stale after exit.
 
+``--mesh BxM`` runs the whole daemon under a
+:class:`repro_torch.distributed.ShardPlan`: streaming slabs split B ways
+over the data axis and every coupling sum runs the M-way row-sharded
+collective, over the real local devices.  ``--mesh auto`` sizes the plan
+with ``repro_torch.distributed.ft.propose_mesh`` — the same elastic re-mesh
+policy the daemon's fault-tolerance hooks assume after a device loss.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_daemon --rate 20 --requests 200
   PYTHONPATH=src python -m repro_torch.launch.serve_daemon --device cpu --ticked 4 \\
@@ -21,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Dict, Optional, Tuple
 
@@ -28,6 +36,8 @@ import torch
 
 from repro_torch import serving
 from repro_torch.core.checks import resolve_device
+from repro_torch.distributed import Mesh, ShardPlan
+from repro_torch.launch.retrieve import plan_mesh, plan_scope, resolve_plan_args
 
 
 def parse_weights(spec: str) -> Tuple[Tuple[str, float], ...]:
@@ -56,9 +66,13 @@ def run_daemon(
     max_ticks: Optional[int] = None,
     onn_ckpt: Optional[str] = None,
     device=None,
+    plan: Optional[ShardPlan] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict:
     """Serve ``n_requests`` of the mixed stream on ``device`` (the GPU
-    unless ``"cpu"``); returns the daemon's report."""
+    unless ``"cpu"``); returns the daemon's report.  ``plan``: run the whole
+    daemon under a ShardPlan, on ``mesh`` (default: the plan's mesh over the
+    local devices of ``device``'s type)."""
     dev = resolve_device(device)
     eng = serving.ContinuousEngine(
         torch.Generator().manual_seed(seed),
@@ -81,7 +95,10 @@ def run_daemon(
         drain_queue_on_term=drain_queue_on_term,
         max_ticks=max_ticks,
     )
-    report = daemon.run(source)
+    with plan_scope(plan, plan_mesh(plan, mesh, dev)):
+        report = daemon.run(source)
+    if plan is not None:
+        report["shard_plan"] = dataclasses.asdict(plan)
     report["device"] = str(dev)
     return report
 
@@ -107,9 +124,17 @@ def main() -> None:
     ap.add_argument("--max-ticks", type=int, default=None)
     ap.add_argument("--onn-ckpt", default=None,
                     help="restore the small retrieval workload from this ONN checkpoint")
+    ap.add_argument("--mesh", default=None, metavar="BxM",
+                    help="ShardPlan mesh for the daemon: B-way data-parallel "
+                         "slabs x M-way row-sharded coupling sums, or 'auto' "
+                         "(ft.propose_mesh over the local devices)")
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="deprecated: use --mesh Bx1; splits streaming slabs "
+                         "over all local devices")
     ap.add_argument("--device", default=None,
                     help='where to serve: the GPU unless "cpu"')
     args = ap.parse_args()
+    plan = resolve_plan_args(args.mesh, args.shard_batch, args.device)
     report = run_daemon(
         rate_rps=args.rate,
         n_requests=args.requests,
@@ -124,6 +149,7 @@ def main() -> None:
         max_ticks=args.max_ticks,
         onn_ckpt=args.onn_ckpt,
         device=args.device,
+        plan=plan,
     )
     print(json.dumps(report, indent=1, default=str))
 

@@ -563,3 +563,128 @@ def test_energy_on_card_equals_cpu(cuda):
             settled, prev = dyn.async_sweep(jc, settled, range(n)), settled
         assert bool(energy.is_local_minimum(jg, settled.to(cuda)))
         assert bool(energy.is_local_minimum(jc, settled))
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded solves on a mesh that repeats the card
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(cuda, batch, model):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((batch, model), devices=[cuda] * (batch * model))
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (2, 4), (4, 2)])
+@pytest.mark.parametrize("route", [dict(backend="kernel"),
+                                   dict(backend="hybrid", hybrid_impl="kernel")])
+@pytest.mark.parametrize("n", [48, 506])
+def test_sharded_weighted_sum_on_card_equals_cpu(cuda, n, route, shape):
+    """Kernel 1 (or 6) per row block on the card == the CPU's unsharded
+    sum, with one launch per block and lane shard."""
+    from repro_torch.distributed import ShardPlan
+
+    rng = np.random.default_rng(n)
+    w = torch.as_tensor(rng.integers(-15, 16, (n, n)).astype(np.int8))
+    sigma = torch.as_tensor(np.where(rng.random((64, n)) < 0.5, 1, -1).astype(np.int8))
+    cfg = dyn.ONNConfig(n=n, **route)
+    want = dyn.weighted_sum(cfg, w, sigma)
+    ops.reset_launches()
+    with ShardPlan(*shape).context(_card_mesh(cuda, *shape)):
+        got = dyn.weighted_sum(cfg, w.to(cuda), sigma.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    name = "coupling_sum" if route["backend"] == "kernel" else "hybrid_coupling_sum"
+    blocks = sum(1 for j in range(shape[1]) if j * -(-n // shape[1]) < n)
+    assert ops.LAUNCHES[name] == shape[0] * blocks
+
+
+@pytest.mark.parametrize("shape,multi", [((1, 4), 0), ((2, 2), 0), ((4, 1), 4)])
+def test_sharded_retrieve_on_card_equals_cpu(cuda, shape, multi):
+    """retrieve at N = 506 under model and data plans on the card == the CPU
+    unsharded; kernel 5 runs once per lane shard and chunk under 4x1 and
+    never under a model plan."""
+    from repro_torch.distributed import ShardPlan, sharding
+
+    rng = np.random.default_rng(7)
+    n = 506
+    xi = np.where(rng.random((20, n)) < 0.5, 1, -1).astype(np.int8)
+    w = quantization.quantize_weights(torch.as_tensor(xi.T.astype(np.float32) @ xi / n)).values
+    probes = xi[rng.integers(0, 20, 256)].copy()
+    probes[rng.random((256, n)) < 0.2] *= -1
+    cfg = dyn.ONNConfig(n=n, backend="kernel")
+    want = dyn.retrieve(cfg, dyn.make_params(cfg, w, device="cpu"), torch.as_tensor(probes))
+    plan, mesh = ShardPlan(*shape), _card_mesh(cuda, *shape)
+    params = sharding.shard_onn_params(dyn.make_params(cfg, w, device=cuda), plan, mesh)
+    ops.reset_launches()
+    with plan.context(mesh):
+        got = dyn.retrieve(cfg, params, torch.as_tensor(probes, device=cuda))
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    if multi:
+        assert ops.LAUNCHES["phase_step_multi"] % multi == 0 and ops.LAUNCHES["phase_step_multi"]
+        assert ops.LAUNCHES["coupling_sum"] == 0
+    else:
+        assert ops.LAUNCHES["phase_step_multi"] == 0 and ops.LAUNCHES["phase_step"] == 0
+        assert ops.LAUNCHES["coupling_sum"] > 0
+
+
+@pytest.mark.parametrize("shape,lanes,n", [((1, 4), 1024, 506), ((2, 4), 1024, 506),
+                                           ((1, 2), 64, 506), ((1, 8), 64, 4096)])
+@pytest.mark.parametrize("route", ["kernel", "hybrid"])
+def test_row_block_partials_on_card_equal_plain(cuda, shape, lanes, n, route):
+    """Kernels 1 and 6 on the ragged row blocks a sharded solve gives them
+    (127 and 125 rows of 506 under 1x4, 253 under 1x2, 512 of 4096 under
+    1x8), and kernel 1i on 8-way window blocks, == their plain versions."""
+    from repro_torch.distributed import ShardPlan, sharding
+
+    rng = np.random.default_rng([n, *shape])
+    w = rng.integers(-15, 16, (n, n)).astype(np.int8)
+    hybrid = {"hybrid_impl": "kernel", "parallel_factor": 32} if route == "hybrid" else {}
+    cfg = dyn.ONNConfig(n=n, backend=route, **hybrid)
+    plan, mesh = ShardPlan(*shape), _card_mesh(cuda, *shape)
+    params = sharding.shard_onn_params(dyn.make_params(cfg, w, device=cuda), plan, mesh)
+    sig = torch.as_tensor(rng.choice([-1, 1], (lanes, n)).astype(np.int8), device=cuda)
+    win = torch.as_tensor(rng.integers(-15, 16, (16, 32, n)).astype(np.int8), device=cuda)
+    reps = torch.as_tensor(rng.choice([-1, 1], (16, 64, n)).astype(np.int8), device=cuda)
+    for w_, s_, pl in ((params.weights, sig, params.placement), (win, reps, None)):
+        ops.reset_launches()
+        parts = dyn.row_block_partials(cfg, w_, s_, plan, mesh, pl)
+        got = torch.cat([torch.cat(ps, dim=-1) for ps in parts])
+        want = (plain.hybrid_coupling_sum_ref(w_, s_, 32) if route == "hybrid"
+                else plain.coupling_sum_ref(w_, s_))
+        assert torch.equal(got, want)
+        name = "hybrid_coupling_sum" if route == "hybrid" else "coupling_sum"
+        name += "_batched" if w_.dim() == 3 else ""
+        assert ops.LAUNCHES[name] == sum(len(ps) for ps in parts)
+
+
+def test_sharded_maxcut_and_compressed_on_card_equal_cpu(cuda):
+    """Max-Cut under 2x4 (kernel 1i per block) and the compressed wire under
+    1x4 on the card == the same plans on the CPU."""
+    from repro_torch.distributed import ShardPlan
+
+    rng = np.random.default_rng(11)
+    n = 64
+    adj = np.triu(rng.random((4, n, n)) < 0.5, 1)
+    adj = torch.as_tensor((adj + adj.transpose(0, 2, 1)).astype(np.int8))
+    init = torch.as_tensor(rng.random((4, 8, n)).astype(np.float32))
+    sweeps = torch.as_tensor(rng.random((4, 10, n)).astype(np.float32))
+    cfg = dyn.ONNConfig(n=n, backend="kernel", max_cycles=10)
+    want = ising.solve_maxcut_batch(cfg, adj, init, sweeps)
+    with ShardPlan(2, 4).context(_card_mesh(cuda, 2, 4)):
+        got = ising.solve_maxcut_batch(cfg, adj.to(cuda), init.to(cuda), sweeps.to(cuda))
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    w = torch.as_tensor(rng.integers(-15, 16, (n, n)).astype(np.int8))
+    sig0 = torch.as_tensor(np.where(rng.random((32, n)) < 0.5, 1, -1).astype(np.int8))
+    cfg = dyn.ONNConfig(n=n, backend="kernel", max_cycles=20)
+    plan = ShardPlan(1, 4, compressed=True)
+    from repro_torch.distributed import make_mesh
+
+    with plan.context(make_mesh((1, 4), devices=["cpu"] * 4)):
+        want = dyn.retrieve(cfg, dyn.make_params(cfg, w, device="cpu"), sig0)
+    with plan.context(_card_mesh(cuda, 1, 4)):
+        got = dyn.retrieve(cfg, dyn.make_params(cfg, w, device=cuda), sig0.to(cuda))
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -33,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -172,7 +173,8 @@ def test_retrieval_service_equals_reference(dataset, backend, n_requests):
         assert got[key] == want[key], key
     for key in ("slabs", "pad_fraction", "slabs_per_bucket"):
         assert got["engine"][key] == want["engine"][key], key
-    assert set(want) - set(got) == {"mesh_devices", "shard_plan"}
+    assert set(want) <= set(got)
+    assert (got["mesh_devices"], got["shard_plan"]) == (want["mesh_devices"], want["shard_plan"])
     assert set(got) - set(want) == {"device"} and got["device"] == "cpu"
     # Each request's result: the engine serves it as its isolated solve, so
     # the reference's batched retrieve of the same rows gives it.
@@ -275,7 +277,9 @@ def test_train_onn_cli_prints_json(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("target", ["repro_torch.launch.retrieve", "repro_torch.launch.train_onn"]
+@pytest.mark.parametrize("target", ["repro_torch.launch.retrieve", "repro_torch.launch.train_onn",
+                                    "repro_torch.launch.maxcut", "repro_torch.launch.serve_daemon",
+                                    "repro_torch.launch.mesh"]
                          + [os.path.basename(p) for p in EXAMPLES])
 def test_imports_without_jax_or_repro(target):
     """Each launcher and ``examples/torch_*.py`` imports with ``jax`` and
@@ -306,3 +310,140 @@ def test_quickstart_example_retrieves_on_cpu():
     )
     assert out.returncode == 0, out.stderr
     assert "retrieved correctly: True" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# The --mesh / --shard-batch flags and serving under a ShardPlan
+# ---------------------------------------------------------------------------
+
+
+def _cpu_mesh(batch, model):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((batch, model), devices=["cpu"] * (batch * model))
+
+
+@pytest.mark.parametrize("mesh_spec,shard_batch", [
+    ("2x2", True), ("1x2", False), ("2x2", False), ("bad", False), ("1x1", False),
+    (None, True), (None, False),
+])
+def test_plan_flags_parse_and_refuse_as_the_reference(mesh_spec, shard_batch):
+    """``resolve_plan_args`` with the reference's outcome on one device:
+    the flags are mutually exclusive, a mesh wider than the local devices is
+    refused with its message, ``--shard-batch`` warns and is a no-op."""
+    from repro_torch.distributed import ShardPlan
+
+    def outcome(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                plan = fn()
+                result = ("plan", None if plan is None else (plan.batch, plan.model, plan.layout))
+            except SystemExit as exc:
+                result = ("exit", str(exc))
+            except ValueError as exc:
+                result = ("error", str(exc))
+        return result, [str(w.message) for w in caught if w.category is DeprecationWarning]
+
+    want = outcome(lambda: ref_retrieve.resolve_plan_args(mesh_spec, shard_batch))
+    got = outcome(lambda: port_retrieve.resolve_plan_args(mesh_spec, shard_batch, "cpu"))
+    assert got == want
+    if mesh_spec == "1x1":
+        assert port_retrieve.resolve_plan_args("1x1", False, "cpu") == ShardPlan(1, 1)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--mesh", "2x2"], "needs 4 devices, only 1 available"),
+    (["--mesh", "1x2", "--shard-batch"], "mutually exclusive"),
+])
+@pytest.mark.parametrize("module", ["retrieve", "maxcut", "serve_daemon"])
+def test_cli_mesh_flag_counts_real_devices(module, argv, message):
+    """Each launcher's ``--mesh`` counts the real local devices (one CPU)."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{module}", "--device", "cpu", *argv],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and message in out.stderr, out.stderr[-2000:]
+
+
+def test_retrieve_cli_reports_the_plan():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.retrieve", "--device", "cpu", "--dataset",
+         "5x4", "--requests", "8", "--mesh", "1x1"],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout)
+    assert report["mesh_devices"] == 1
+    assert report["shard_plan"] == {"batch": 1, "model": 1, "layout": "row", "compressed": False}
+
+
+@pytest.mark.parametrize("plan_shape,backend", [((2, 4), "kernel"), ((1, 4), "parallel"),
+                                                 ((4, 1), "kernel")])
+def test_serve_requests_under_a_plan_equals_unsharded(plan_shape, backend):
+    """``serve_requests``' halves under a CPU mesh: every request's result
+    equals the unsharded serve's, and the report carries the plan."""
+    from repro_torch.distributed import ShardPlan
+
+    solver, xi = port_retrieve.build_solver("5x4", "hybrid", backend=backend, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    which, corrupted = port_retrieve.draw_requests(xi, 0.25, 24, gen)
+    plan = ShardPlan(*plan_shape)
+    reports, results = [], []
+    for p, mesh in ((None, None), (plan, _cpu_mesh(*plan_shape))):
+        report, res = port_retrieve.serve_corrupted(
+            solver, xi.cpu()[which], corrupted, torch.Generator().manual_seed(5),
+            corruption=0.25, plan=p, mesh=mesh)
+        reports.append(report)
+        results.append(res)
+    for f in results[0]._fields:
+        assert torch.equal(getattr(results[0], f), getattr(results[1], f)), f
+    for key in ("accuracy", "mean_settle_cycles", "timeouts"):
+        assert reports[0][key] == reports[1][key]
+    assert reports[0]["mesh_devices"] == 1 and reports[0]["shard_plan"] is None
+    assert reports[1]["mesh_devices"] == plan.devices
+    assert reports[1]["shard_plan"] == dataclasses.asdict(plan)
+    full = port_retrieve.serve_requests(solver, xi, 0.25, 8, plan=plan,
+                                        mesh=_cpu_mesh(*plan_shape))
+    assert full["shard_plan"] == dataclasses.asdict(plan) and full["requests"] == 8
+
+
+def test_serve_cuts_under_2x4_equals_unsharded(monkeypatch):
+    """``serve_cuts`` under a 2x4 CPU mesh: every request's cut, spins and
+    trace equal the unsharded serve's, and the report counts 8 devices."""
+    from repro_torch.distributed import ShardPlan
+    from repro_torch.launch import maxcut as port_maxcut
+
+    served = []
+
+    class Recording(port_maxcut.Engine):
+        def submit(self, request):
+            fut = super().submit(request)
+            served.append(fut)
+            return fut
+
+    monkeypatch.setattr(port_maxcut, "Engine", Recording)
+    solver = MaxCutSolver(sweeps=12, replicas=4, stagnation=4, backend="kernel", device="cpu")
+    runs = []
+    for plan, mesh in ((None, None), (ShardPlan(2, 4), _cpu_mesh(2, 4))):
+        served.clear()
+        report = serve_cuts(solver, n=20, n_requests=6, seed=2, plan=plan, mesh=mesh)
+        runs.append((report, [f.result() for f in served]))
+    (rep0, res0), (rep1, res1) = runs
+    assert len(res0) == len(res1) == 6
+    for a, b in zip(res0, res1):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert rep0["mean_cut"] == rep1["mean_cut"]
+    assert (rep0["mesh_devices"], rep1["mesh_devices"]) == (1, 8)
+
+
+def test_run_daemon_under_a_plan_reports_it():
+    """The whole daemon under a 1x2 CPU plan serves every request and the
+    report carries ``shard_plan`` as the reference's does."""
+    from repro_torch.distributed import ShardPlan
+    from repro_torch.launch.serve_daemon import run_daemon
+
+    plan = ShardPlan(1, 2)
+    report = run_daemon(n_requests=8, ticked=4, device="cpu", plan=plan, mesh=_cpu_mesh(1, 2))
+    assert report["completed"] == 8 and report["failed"] == 0
+    assert report["shard_plan"] == {"batch": 1, "model": 2, "layout": "row",
+                                    "compressed": False}
