@@ -160,11 +160,30 @@ and prints one JSON line per phase:
    ``ServeDaemon`` under 1x2, every request equal to its solve.
    ``launcher``: ``launch.retrieve``'s serve under 1x4, equal to the
    unsharded serve, the report with ``mesh_devices`` 4 and ``shard_plan``.
+15. ``lm`` (four lines): the dense LM serving path (``repro_torch.models``,
+   the ``"lm"`` engine workload, ``repro_torch.launch.serve``), which runs
+   plain PyTorch and none of the kernels above (``ported_kernel_launches``
+   0).  ``serve``: qwen2-1.5b at full width (28 layers, 1.777 B parameters,
+   bf16, random weights from ``--seed``) built as ``serve(...,
+   reduced=False)`` builds it, serving the launcher's defaults (4 requests
+   of 32-token prompts, 16 new tokens) through the daemon and through
+   ``--once``: equal tokens, each request equal to a direct
+   ``make_generate`` of the same 4-lane bucket; prefill and decode seconds,
+   tokens/s, wall seconds, parameter bytes, peak memory, the idle share of a
+   warm serve, and the decode step's ms against its bound ((weight bytes +
+   KV bytes read) at 3.35 TB/s).  ``serve_batch128``: the same model with
+   128 requests of 512-token prompts and 64 new tokens (the widest batch
+   bucket), the same fields and equality.  ``cpu_check``: the ``serve``
+   run's 4 streams held to a CPU copy of the card model by the LM rule
+   (``tests/lm_rule.py``, bf16, all 28 layers), with the CPU seconds.
+   ``archs``: the four dense archs at their reduced sizes, card against CPU
+   on the same weights, float32 and bfloat16, by the rule.
 
-Launch counts are set to 0 before each main-path phase (4-14) and read after
+Launch counts are set to 0 before each main-path phase (4-15) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
-phase 13 as ``launches_launchers`` and of phase 14 as ``launches_sharded``.
+phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded`` and
+of phase 15 as ``launches_lm``.
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -192,6 +211,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
+BF16_FLOPS_PER_S = 989e12
 
 TPU_KERNELS = "src/repro/kernels/coupling_kernel.py"
 ROWS = {
@@ -257,6 +277,11 @@ ENERGY_MIN_LANES, ENERGY_TRACE_LANES, ENERGY_TRACE_STEPS = 64, 8, 8
 #: Phase 14: the oscillator count of the wall-breaker solve (W row-sharded 8
 #: ways) and the launcher's requests.
 SHARDED_N, SHARDED_LAUNCH_REQUESTS = 4096, 256
+#: Phase 15, the dense LM: the arch served at full width; (requests, prompt
+#: tokens, new tokens) of the launcher's defaults and of the engine's widest
+#: batch bucket; the dense archs held card against CPU at their reduced sizes.
+LM_ARCH, LM_SERVE, LM_BATCH128 = "qwen2-1.5b", (4, 32, 16), (128, 512, 64)
+LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -1547,6 +1572,152 @@ def sharded_lines(dev, seed, w_np, xi, probes, checked, rtl_rec, graphs, mc_res,
     return own
 
 
+def lm_lines(dev, seed, drive) -> dict:
+    """Phase 15: the dense LM serving path on ``dev``, one JSON line per part;
+    returns the launches of these lines by kernel (none is expected: the
+    path is plain PyTorch).  ``drive``: main's launch-counting runner."""
+    import copy
+
+    from repro_torch import configs as lm_configs
+    from repro_torch.engine.adapters import LMEngineSolver
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import make_generate
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from lm_rule import hold, stream_logits
+
+    own = {}
+
+    def driven(fn):
+        res, seconds, path = drive(fn)
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        return res, seconds, path
+
+    reduced_precision = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)  # as ``launch.serve.serve`` draws
+    lm = LMEngineSolver(LM_ARCH, gen, reduced=False, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = lm.cfg
+    weight_bytes = PM.param_bytes(lm.model.param_specs)
+    n_params = PM.count_params(lm.model.param_specs)
+    require((cfg.n_layers, cfg.d_model, n_params) == (28, 1536, 1_777_088_000),
+            f"lm: {LM_ARCH} is not at full width")
+
+    def decode_bound(batch, prompt_len, new):
+        """(ms, by): the least time of one decode step, averaged over the
+        steps of a run: every weight but the embedding table read once (B of
+        its rows), the valid keys and values of every layer read once, the
+        step's products at the bf16 peak."""
+        embed = cfg.padded_vocab * cfg.d_model * 2
+        weights = weight_bytes - embed + batch * cfg.d_model * 2
+        per_pos = 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * 2
+        steps = range(prompt_len, prompt_len + new - 1)  # index + 1 keys valid
+        kv = sum(per_pos * (i + 1) for i in steps) / len(steps)
+        flops = 2 * (n_params - cfg.padded_vocab * cfg.d_model) * batch
+        return bound(weights + kv, flops, BF16_FLOPS_PER_S)
+
+    def serve_part(part, batch, prompt_len, new, prompts):
+        torch.cuda.reset_peak_memory_stats()
+        t_part = time.perf_counter()
+        lm.timings.clear()
+        (rep_d, tok_d), _, path_d = driven(
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        lm.timings.clear()
+        (rep_o, tok_o), _, path_o = driven(lambda: launch_serve.serve_prompts(
+            lm, prompts, new, torch.Generator().manual_seed(seed), once=True))
+        require(torch.equal(tok_d, tok_o), f"lm {part}: daemon and --once tokens differ")
+        direct, _ = make_generate(lm.model)(lm.params, {"tokens": prompts}, new)
+        require(torch.equal(tok_d, direct),
+                f"lm {part}: a served request differs from make_generate of its bucket")
+        lm.timings.clear()
+        warm = solve_seconds(lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        timing = dict(lm.timings[-1])
+        busy_ms, per_name = device_busy(lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
+        bound_ms, bound_by = decode_bound(batch, prompt_len, new)
+        launches = sum(path_d.values()) + sum(path_o.values())
+        emit({
+            "phase": "lm", "part": part, "arch": LM_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": n_params, "param_bytes": weight_bytes,
+            "dtype": cfg.dtype, "requests": batch, "prompt_len": prompt_len, "new_tokens": new,
+            "daemon": rep_d, "once": rep_o, "daemon_equals_once": True,
+            "equal_to_make_generate_same_bucket": True,
+            "warm": {"wall_s": warm, "prefill_s": timing["prefill_s"],
+                     "decode_s": timing["decode_s"],
+                     "tokens_per_s": batch * new / max(timing["decode_s"], 1e-9),
+                     "device_busy_ms": busy_ms,
+                     "device_idle_share": 1.0 - busy_ms / (warm * 1e3),
+                     "top_device_ms": dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:6])},
+            "decode_step_ms": step_ms, "decode_bound_ms": bound_ms, "decode_bound_by": bound_by,
+            "decode_step_over_bound": step_ms / bound_ms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "allow_bf16_reduced_precision_reduction": reduced_precision,
+            "ported_kernel_launches": launches, "build_s": build_s,
+            "part_s": time.perf_counter() - t_part,
+        })
+        return tok_d
+
+    # serve: the launcher's defaults ---------------------------------------------
+    batch, prompt_len, new = LM_SERVE
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    served = serve_part("serve", batch, prompt_len, new, prompts)
+
+    # serve_batch128: the widest batch bucket --------------------------------------
+    b128, p128, n128 = LM_BATCH128
+    serve_part("serve_batch128", b128, p128, n128,
+               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen))
+
+    # cpu_check: the serve run's streams held to a CPU copy by the LM rule -----------
+    t_part = time.perf_counter()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    t_cpu = time.perf_counter()
+    cpu_logits = stream_logits(lm.model, cpu_lm, prompts, served)
+    cpu_s = time.perf_counter() - t_cpu
+    card_logits = stream_logits(lm.model, lm.params, prompts, served)
+    try:
+        rule = hold(served, card_logits, cpu_logits, cfg.dtype, cfg.n_layers, "lm cpu_check")
+    except AssertionError as exc:
+        fail(str(exc))
+    del cpu_lm, cpu_logits, card_logits
+    emit({"phase": "lm", "part": "cpu_check", "arch": LM_ARCH, "depth": cfg.n_layers,
+          "depth_cut": None, "streams": batch, "steps": new, "rule": rule, "cpu_s": cpu_s,
+          "part_s": time.perf_counter() - t_part})
+
+    # archs: the four dense archs at reduced size, card against CPU ----------------
+    t_part = time.perf_counter()
+    rules = {}
+    for i, arch in enumerate(LM_DENSE):
+        for dtype in ("float32", "bfloat16"):
+            rcfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype=dtype)
+            model = get_model(rcfg)
+            tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed + i),
+                                  device="cpu")
+            cpu_params = model.build_params(tree)
+            card_params = model.build_params(PM.map_tree(lambda t: t.to(dev), tree))
+            toks = torch.randint(0, rcfg.vocab, (2, 32), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(seed + 100 + i))
+            (stream, _), _, _ = driven(
+                lambda: make_generate(model)(card_params, {"tokens": toks}, 16))
+            try:
+                rules[f"{arch}:{dtype}"] = hold(
+                    stream, stream_logits(model, card_params, toks, stream),
+                    stream_logits(model, cpu_params, toks, stream), dtype, rcfg.n_layers,
+                    f"lm archs {arch} {dtype}")
+            except AssertionError as exc:
+                fail(str(exc))
+    emit({"phase": "lm", "part": "archs", "archs": list(LM_DENSE), "prompt_len": 32,
+          "new_tokens": 16, "rules": rules, "ring_buffer": "h2o-danube-1.8b (window 32)",
+          "part_s": time.perf_counter() - t_part})
+    del lm
+    torch.cuda.empty_cache()
+    return own
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2446,11 +2617,15 @@ def main() -> None:
                                      rtl["recurrent"], graphs, maxcut["kernel"], mc_kw, spans_k,
                                      mc_in, drive)
 
+    # 15. the dense LM serving path at qwen2-1.5b's full width ---------------------------
+    lm_launches = lm_lines(dev, args.seed, drive)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_daemon"] = daemon_launches.get(name, 0)
         row["launches_launchers"] = launcher_launches.get(name, 0)
         row["launches_sharded"] = sharded_launches.get(name, 0)
+        row["launches_lm"] = lm_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

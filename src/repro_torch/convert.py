@@ -3,8 +3,9 @@
 The port never imports ``repro``; these functions read a reference
 ``ONNConfig`` or ``MaxCutSolver`` (or its ``dataclasses.asdict`` form, as
 checkpoint headers store a config) by field name, and take weights as numpy
-arrays.  The reference's kernel route is named ``"pallas"``; the port's is
-``"kernel"``.  :func:`config_to_reference` goes the other way, for the
+arrays (an LM's as its parameter tree of them,
+:func:`lm_params_from_reference`).  The reference's kernel route is named
+``"pallas"``; the port's is ``"kernel"``.  :func:`config_to_reference` goes the other way, for the
 checkpoint headers the port writes.
 """
 
@@ -14,7 +15,9 @@ import dataclasses
 from typing import Any, Mapping, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.core.checks import resolve_device
 from repro_torch.core.dynamics import ONNConfig, OnnParams, make_params
 
 _ROUTE_NAMES = {"pallas": "kernel"}
@@ -61,6 +64,34 @@ def maxcut_solver_from_reference(obj_or_dict: Any, device=None):
     values = _fields_from_reference(MaxCutSolver, obj_or_dict)
     values["device"] = device
     return MaxCutSolver(**values)
+
+
+def _tensor_from_reference(a: np.ndarray) -> torch.Tensor:
+    """A reference array as a CPU tensor; bf16 (``ml_dtypes``, detected by
+    name) passes through its 16-bit pattern, so every bit is kept."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_reference(cfg, tree: Mapping[str, Any], device=None):
+    """The port's ``DenseLM`` on ``device`` (the GPU unless ``"cpu"``) holding
+    the reference's LM parameter tree (nested dicts of numpy arrays, layers
+    stacked on a leading axis, as ``repro.models.params.materialize`` makes
+    it): the layer axis is unstacked, the names stay.  Every leaf's path and
+    shape must match ``cfg``'s spec tree."""
+    from repro_torch.models import params as P
+    from repro_torch.models.model import get_model
+
+    model = get_model(cfg)
+    want = {path: tuple(spec.shape) for path, spec in P.leaves(model.param_specs)}
+    got = {path: tuple(np.shape(a)) for path, a in P.leaves(dict(tree))}
+    if got != want:
+        raise ValueError(f"{cfg.name}: the reference tree does not match the spec tree: "
+                         f"{sorted(set(got.items()) ^ set(want.items()))[:4]}")
+    dev = resolve_device(device)
+    return model.build_params(P.map_tree(lambda a: _tensor_from_reference(a).to(dev), dict(tree)))
 
 
 def params_from_reference(

@@ -1,11 +1,12 @@
-"""Engine adapters: retrieval and max-cut behind one surface (the port of
-``repro.engine.adapters``; the LM decode adapter waits for the LM side).
+"""Engine adapters: retrieval, max-cut and LM decode behind one surface (the
+port of ``repro.engine.adapters``).
 
 Each adapter implements :class:`repro_torch.engine.engine.EngineSolver`: it
 maps request payloads to shape buckets, packs lanes from many requests into
 one padded batch, and runs that batch through one batched solve on the
-device of its solver.  Both register with :mod:`repro_torch.engine.registry`
-from ``repro_torch.api``, beside the ``Solver`` classes they wrap.
+device of its solver.  Retrieval and max-cut register with
+:mod:`repro_torch.engine.registry` from ``repro_torch.api``, beside the
+``Solver`` classes they wrap; "lm" registers here.
 
 Randomness follows the isolated solve.  A request's ``torch.Generator`` is
 drawn from exactly as ``RetrievalSolver.solve`` / ``MaxCutSolver.solve``
@@ -35,6 +36,7 @@ from repro_torch.core import hardware_model as hw
 from repro_torch.core import ising as ising_lib
 from repro_torch.core.checks import resolve_device
 from repro_torch.engine import bucketing
+from repro_torch.engine.registry import register_solver
 from repro_torch.kernels import autotune
 
 
@@ -644,3 +646,119 @@ class MaxCutEngineSolver:
         """Per-design hardware quotes for an Ising request — the recurrent-vs-
         hybrid trade, as for retrieval; see :func:`_fpga_design_tradeoff`."""
         return dict(self._fpga_quote(bucket_sig)[1])
+
+
+# ---------------------------------------------------------------------------
+# LM decode: the transformer serving loop as an engine workload
+# ---------------------------------------------------------------------------
+
+
+def _prompt_rows(payload: Dict[str, Any]) -> torch.Tensor:
+    """An LM payload's prompt tokens, (L,) or (B, L), as (B, L) int32."""
+    toks = torch.as_tensor(payload["tokens"])
+    return (toks[None] if toks.dim() == 1 else toks).to(torch.int32)
+
+
+class LMEngineSolver:
+    """Serves prompt → greedy-decode requests for one model instance.
+
+    Payload: ``{"tokens": (L,) or (B, L) int, "max_new_tokens": int}``.
+    Buckets are (prompt_len, max_new_tokens, extras); lanes coalesce along
+    batch, padded lanes decode zero prompts whose outputs are dropped (batch
+    rows are independent, so real lanes are unaffected).  ``extras`` names
+    any other payload key; the dense family takes none, so a payload with
+    one (``vision``, ``frames``) is refused until its family is ported
+    (ROADMAP.md, section 1, item 5).
+
+    The weights are drawn by ``params.materialize`` from the CPU
+    ``generator`` and placed on ``device`` (the GPU unless ``"cpu"``), or
+    given as a built model (``params=``, e.g. from
+    ``repro_torch.convert.lm_params_from_reference``).  Requests' generators
+    are not drawn from: greedy decode is deterministic and the decode cache
+    starts at zero.  A request's result is its (max_new_tokens,) or (B,
+    max_new_tokens) int32 tokens, on the CPU.
+    """
+
+    def __init__(
+        self,
+        arch: str,
+        generator: Optional[torch.Generator] = None,
+        reduced: bool = True,
+        device=None,
+        params: Optional[torch.nn.Module] = None,
+    ) -> None:
+        from repro_torch import configs
+        from repro_torch.models import params as PM
+        from repro_torch.models import steps as steps_lib
+        from repro_torch.models.model import get_model
+
+        if (generator is None) == (params is None):
+            raise ValueError("LMEngineSolver takes exactly one of generator= and params=")
+        self.arch = arch
+        self.cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
+        self.model = get_model(self.cfg)
+        if params is None:
+            tree = PM.materialize(self.model.param_specs, generator, device)
+            params = self.model.build_params(tree)
+        elif params.cfg != self.cfg:
+            raise ValueError(f"params are built for {params.cfg.name}, not {self.cfg.name}")
+        self.params = params
+        self.device = params.device
+        self._generate = steps_lib.make_generate(self.model)
+        self.last_timing: Dict[str, float] = {}
+        #: Per-slab timings since construction (a drain may run many slabs).
+        self.timings: List[Dict[str, float]] = []
+
+    def lane_count(self, payload: Dict[str, Any]) -> int:
+        toks = torch.as_tensor(payload["tokens"])
+        return 1 if toks.dim() == 1 else toks.shape[0]
+
+    def signature(self, payload: Dict[str, Any]) -> Hashable:
+        toks = torch.as_tensor(payload["tokens"])
+        extras = tuple(sorted(k for k in payload if k not in ("tokens", "max_new_tokens")))
+        if extras:
+            raise ValueError(
+                f"{self.cfg.name}: payload keys {extras} belong to families not ported yet "
+                "(ROADMAP.md, section 1, item 5)"
+            )
+        return (toks.shape[-1], int(payload["max_new_tokens"]), extras)
+
+    def bucket(self, signature: Hashable, n_policy: bucketing.NBucketPolicy) -> Hashable:
+        return signature  # prompts are not length-padded (no attention mask yet)
+
+    def solve_bucket(
+        self,
+        bucket_sig: Hashable,
+        payloads: List[Dict[str, Any]],
+        keys: List[torch.Generator],
+        batch_bucket: int,
+    ) -> List[Any]:
+        prompt_len, max_new, _ = bucket_sig
+        lanes = [_prompt_rows(p) for p in payloads]
+        counts = [x.shape[0] for x in lanes]
+        total = sum(counts)
+        if total < batch_bucket:
+            lanes.append(torch.zeros((batch_bucket - total, prompt_len), dtype=torch.int32))
+        tokens = _gather(lanes, self.device, stack=False)
+        out_tokens, self.last_timing = self._generate(self.params, {"tokens": tokens}, max_new)
+        self.timings.append(self.last_timing)
+
+        results = []
+        offset = 0
+        for p, c in zip(payloads, counts):
+            rows = out_tokens[offset : offset + c]
+            results.append(rows[0] if torch.as_tensor(p["tokens"]).dim() == 1 else rows)
+            offset += c
+        return results
+
+    def cost_units(self, bucket_sig: Hashable, batch_bucket: int) -> float:
+        prompt_len, max_new, _ = bucket_sig
+        # prefill is O(L · d² · layers); each decode step O(d² · layers).
+        per_tok = self.cfg.n_layers * self.cfg.d_model * self.cfg.d_model
+        return float(batch_bucket) * (prompt_len + max_new) * per_tok
+
+    def fpga_seconds(self, bucket_sig: Hashable) -> Optional[float]:
+        return None  # no ONN mapping for the LM workload
+
+
+register_solver("lm", LMEngineSolver, "greedy LM decode loop (prefill + serve steps)")

@@ -4,7 +4,7 @@
 The engine serves *installed solver instances*; this module is the global
 catalog they are built from.  Workload modules call :func:`register_solver`
 at import time (``repro_torch.api`` registers ``retrieval`` and
-``maxcut``), so
+``maxcut``, ``repro_torch.engine.adapters`` registers ``lm``), so
 
     engine.install("letters", "retrieval", solver=retrieval_solver)
 
@@ -19,12 +19,6 @@ from typing import Callable, Dict, Tuple
 
 #: name → (factory, one-line description).
 _SOLVERS: Dict[str, Tuple[Callable[..., object], str]] = {}
-
-#: Workloads of the reference that the port does not serve yet → where they
-#: are planned; a lookup of one names its plan in the KeyError.
-NOT_PORTED: Dict[str, str] = {
-    "lm": "the LM decode workload waits for the LM side (ROADMAP.md, section 1, item 5)",
-}
 
 
 def register_solver(name: str, factory: Callable[..., object], doc: str = "") -> None:
@@ -44,8 +38,7 @@ def solver_factory(name: str) -> Callable[..., object]:
         return _SOLVERS[name][0]
     except KeyError:
         known = ", ".join(sorted(_SOLVERS)) or "<none>"
-        note = f"; {NOT_PORTED[name]}" if name in NOT_PORTED else ""
-        raise KeyError(f"no solver {name!r} registered (known: {known}){note}") from None
+        raise KeyError(f"no solver {name!r} registered (known: {known})") from None
 
 
 def available_solvers() -> Dict[str, str]:

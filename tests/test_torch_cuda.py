@@ -11,7 +11,10 @@ value, element by element (the bound of K float32 roundings).  DO-I training
 on the card is held to the CPU by the DO-I rule of ``tests/doi_rule.py``
 (exact where no stability check ties the threshold within the float32
 summation bound), and the serve daemon's scheduler on the card serves every
-request and counts every tick as on the CPU.
+request and counts every tick as on the CPU.  The dense LM on the card is
+held to the CPU by the LM rule of ``tests/lm_rule.py`` (logits under teacher
+forcing within its τ), and a served LM request equals ``make_generate`` of
+its batch bucket exactly.
 """
 
 from __future__ import annotations
@@ -688,3 +691,66 @@ def test_sharded_maxcut_and_compressed_on_card_equal_cpu(cuda):
         got = dyn.retrieve(cfg, dyn.make_params(cfg, w, device=cuda), sig0.to(cuda))
     for f in got._fields:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the dense LM: card against CPU by the LM rule (tests/lm_rule.py)
+# ---------------------------------------------------------------------------
+
+LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
+
+
+def _lm_tree(model, seed):
+    """Seeded weights with non-trivial biases and norm weights (CPU)."""
+    from repro_torch.models import params as PM
+
+    tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+        attn = tree["blocks"]["attn"]
+        if name in attn:
+            noise = 0.05 * torch.randn(attn[name].shape, generator=gen)
+            attn[name] = (attn[name].float() + noise).to(attn[name].dtype)
+    return tree
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_dense_lm_on_card_held_to_cpu(cuda, arch, dtype):
+    """Each reduced dense arch on the card against the same weights on the
+    CPU: the card's greedy stream (32-token prompts, 16 new tokens; the
+    ring buffer for h2o-danube) by the LM rule."""
+    from lm_rule import hold as lm_hold
+    from lm_rule import stream_logits
+    from repro_torch import configs as lm_configs
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import make_generate
+
+    cfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype=dtype)
+    model = get_model(cfg)
+    tree = _lm_tree(model, seed=LM_DENSE.index(arch))
+    cpu = model.build_params(tree)
+    card = model.build_params(PM.map_tree(lambda t: t.to(cuda), tree))
+    prompts = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(7))
+    stream, _ = make_generate(model)(card, {"tokens": prompts}, 16)
+    lm_hold(stream, stream_logits(model, card, prompts, stream),
+            stream_logits(model, cpu, prompts, stream), dtype, cfg.n_layers, f"{arch} {dtype}")
+
+
+@pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
+def test_served_lm_request_equals_make_generate_of_its_bucket_on_card(cuda, once):
+    from repro_torch.engine.adapters import LMEngineSolver
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.steps import make_generate
+
+    gen = torch.Generator().manual_seed(0)
+    lm = LMEngineSolver("qwen2-1.5b", gen, device=cuda)
+    assert lm.device.type == "cuda"
+    prompts = launch_serve.draw_prompts(lm.cfg.vocab, 3, 32, gen)
+    report, tokens = launch_serve.serve_prompts(lm, prompts, 16, gen, once=once)
+    assert report["engine"] == {"slabs": 1, "pad_fraction": 0.25}
+    padded = torch.cat([prompts, torch.zeros((1, 32), dtype=torch.int32)])
+    direct, _ = make_generate(lm.model)(lm.params, {"tokens": padded}, 16)
+    assert torch.equal(tokens, direct[:3])

@@ -288,14 +288,17 @@ def test_engine_key_split_per_request_decorrelates_maxcut():
 
 def test_registry_catalog_and_duplicates():
     cat = engine_lib.available_solvers()
-    assert set(cat) == {"retrieval", "maxcut"}
+    assert set(cat) == {"lm", "retrieval", "maxcut"}
     with pytest.raises(ValueError, match="already registered"):
         engine_lib.register_solver("retrieval", lambda **kw: None)
     with pytest.raises(KeyError, match="no solver"):
         engine_lib.solver_factory("nonexistent")
     eng = cpu_engine()
-    with pytest.raises(KeyError, match=r"known: maxcut, retrieval.*item 5"):
-        eng.install("lm")
+    with pytest.raises(KeyError, match=r"known: lm, maxcut, retrieval"):
+        eng.install("nonexistent")
+    lm = eng.install("lm", arch="qwen2-1.5b", generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    assert isinstance(lm, adapters.LMEngineSolver) and lm.device.type == "cpu"
     assert isinstance(eng.install("cuts", "maxcut", sweeps=4, device="cpu"),
                       adapters.MaxCutEngineSolver)
     solver = port_solver(hebbian_weights(8, seed=0))
