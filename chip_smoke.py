@@ -160,8 +160,8 @@ and prints one JSON line per phase:
    ``ServeDaemon`` under 1x2, every request equal to its solve.
    ``launcher``: ``launch.retrieve``'s serve under 1x4, equal to the
    unsharded serve, the report with ``mesh_devices`` 4 and ``shard_plan``.
-15. ``lm`` (four lines): the dense LM serving path (``repro_torch.models``,
-   the ``"lm"`` engine workload, ``repro_torch.launch.serve``), which runs
+15. ``lm`` (nine lines): the LM serving path (``repro_torch.models``, the
+   ``"lm"`` engine workload, ``repro_torch.launch.serve``), which runs
    plain PyTorch and none of the kernels above (``ported_kernel_launches``
    0).  ``serve``: qwen2-1.5b at full width (28 layers, 1.777 B parameters,
    bf16, random weights from ``--seed``) built as ``serve(...,
@@ -176,8 +176,23 @@ and prints one JSON line per phase:
    bucket), the same fields and equality.  ``cpu_check``: the ``serve``
    run's 4 streams held to a CPU copy of the card model by the LM rule
    (``tests/lm_rule.py``, bf16, all 28 layers), with the CPU seconds.
-   ``archs``: the four dense archs at their reduced sizes, card against CPU
-   on the same weights, float32 and bfloat16, by the rule.
+   ``serve_moe`` and ``serve_moe_batch128``: granite-moe-3b-a800m at full
+   width (32 layers, 40 experts, top-8, 3.37 B parameters) with the same
+   traffic, fields and equalities; TF32 must be off (the router is a
+   float32 product).  ``cpu_check_moe``: the ``serve_moe`` streams held to a
+   CPU copy by the MoE rule (``tests/moe_rule.py``, bf16, all 32 layers:
+   tie-bound routings, steps held), and one float32 prefill of the same
+   prompts on the same weights, card against CPU, every routing decided and
+   the logits within the LM rule's τ.  ``serve_vlm``: llama-3.2-vision-11b
+   at full width (40 layers, 8 of them gated cross-attention, 9.81 B
+   parameters), the ``serve`` traffic with each request's 1601 × 7680 bf16
+   vision rows.  ``cpu_check_vlm``: its streams held to a CPU copy by the
+   LM rule with the materialized (zero) gates, under which another vision
+   leaves the card's prefill logits bit-equal; then with the gates set
+   non-zero on both copies, under which it moves them, a new stream held
+   again.  ``archs``: the four dense archs, granite-moe, arctic and
+   llama-3.2-vision (gated) at their reduced sizes, card against CPU on the
+   same weights, float32 and bfloat16, by the LM rule or the MoE rule.
 
 Launch counts are set to 0 before each main-path phase (4-15) and read after
 it; every kernel must have launched on a main path, and each row of the
@@ -277,11 +292,14 @@ ENERGY_MIN_LANES, ENERGY_TRACE_LANES, ENERGY_TRACE_STEPS = 64, 8, 8
 #: Phase 14: the oscillator count of the wall-breaker solve (W row-sharded 8
 #: ways) and the launcher's requests.
 SHARDED_N, SHARDED_LAUNCH_REQUESTS = 4096, 256
-#: Phase 15, the dense LM: the arch served at full width; (requests, prompt
-#: tokens, new tokens) of the launcher's defaults and of the engine's widest
-#: batch bucket; the dense archs held card against CPU at their reduced sizes.
-LM_ARCH, LM_SERVE, LM_BATCH128 = "qwen2-1.5b", (4, 32, 16), (128, 512, 64)
+#: Phase 15, the LM: the dense, MoE and VLM archs served at full width;
+#: (requests, prompt tokens, new tokens) of the launcher's defaults and of the
+#: engine's widest batch bucket; the archs held card against CPU at their
+#: reduced sizes.
+LM_ARCH, LM_MOE_ARCH, LM_VLM_ARCH = "qwen2-1.5b", "granite-moe-3b-a800m", "llama-3.2-vision-11b"
+LM_SERVE, LM_BATCH128 = (4, 32, 16), (128, 512, 64)
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
+LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b")
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -406,7 +424,9 @@ def device_busy(fn) -> tuple:
     """Milliseconds during which the device ran anything in one call of
     ``fn`` (the union of the device-side events' intervals in a
     ``torch.profiler`` trace), and the device milliseconds by event name.
-    A trace with no device event (the profiler now and then records none) is
+    The trace's raw events are read as the profiler recorded them (building
+    its Python event tree costs minutes for a trace of 10⁵ launches).  A
+    trace with no device event (the profiler now and then records none) is
     taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -417,12 +437,13 @@ def device_busy(fn) -> tuple:
             fn()
             torch.cuda.synchronize()
         spans, per_name = [], {}
-        for evt in prof.events():
-            if evt.device_type != DeviceType.CUDA:
+        for evt in prof.profiler.kineto_results.events():
+            if evt.device_type() != DeviceType.CUDA:
                 continue
-            spans.append((evt.time_range.start, evt.time_range.end))
-            key = evt.name[:80]
-            per_name[key] = per_name.get(key, 0.0) + (evt.time_range.end - evt.time_range.start) / 1e3
+            start, length = evt.start_ns() / 1e3, evt.duration_ns() / 1e3  # µs
+            spans.append((start, start + length))
+            key = evt.name()[:80]
+            per_name[key] = per_name.get(key, 0.0) + length / 1e3
         if spans:
             break
     return union_length(spans) / 1e3, per_name
@@ -1572,10 +1593,60 @@ def sharded_lines(dev, seed, w_np, xi, probes, checked, rtl_rec, graphs, mc_res,
     return own
 
 
+def gate_vlm(lm, seed: int) -> None:
+    """Set a built ``VisionLM``'s zero-initialized gates (each cross block's
+    attention ``gate`` and ``mlp_gate``) to ±(0.5-1.5), drawn from a seeded
+    CPU generator, group by group, in place."""
+    gen = torch.Generator().manual_seed(seed)
+    n_groups = len(lm.cross_blocks)
+    values = [(0.5 + torch.rand((n_groups,), generator=gen))
+              * (torch.randint(0, 2, (n_groups,), generator=gen) * 2 - 1) for _ in range(2)]
+    with torch.no_grad():
+        for g, cp in enumerate(lm.cross_blocks):
+            cp["attn"]["gate"].fill_(float(values[0][g]))
+            cp["mlp_gate"].fill_(float(values[1][g]))
+
+
+def lm_decode_bound(model, batch: int, prompt_len: int, new: int) -> tuple:
+    """(ms, by): the least time of one decode step of ``model``'s config,
+    averaged over the steps of a run.  Bytes: every weight a step reads once
+    (all but the embedding table, of which B rows; a VLM's ``vision_proj``
+    and cross ``wk``/``wv`` are not read: their products sit in the cache;
+    every MoE expert computes its slots, so every expert's weights count),
+    the valid self-attention keys and values, and a VLM's cross keys and
+    values.  Operations: two per multiplied weight and lane, at the bf16
+    peak."""
+    from repro_torch.models import params as PM
+
+    cfg = model.cfg
+    skip = ("embed", "vision_proj", "cross_blocks.attn.wk", "cross_blocks.attn.wv")
+    weights = n_mult = 0
+    for path, spec in PM.leaves(model.param_specs):
+        if path in skip:
+            continue
+        n = int(np.prod(spec.shape))
+        weights += n * spec.dtype.itemsize
+        n_mult += n
+    weights += batch * cfg.d_model * 2
+    kv_row = 2 * batch * cfg.n_kv_heads * cfg.hd * 2  # k and v of one layer and position, bf16
+    n_self = cfg.n_layers
+    cross = 0
+    if cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.cross_every
+        n_self = n_groups * (cfg.cross_every - 1)
+        cross = n_groups * cfg.n_vision_tokens * kv_row
+    steps = range(prompt_len, prompt_len + new - 1)  # index + 1 keys valid
+    kv = sum(n_self * kv_row * (i + 1) for i in steps) / len(steps)
+    return bound(weights + kv + cross, 2 * n_mult * batch, BF16_FLOPS_PER_S)
+
+
 def lm_lines(dev, seed, drive) -> dict:
-    """Phase 15: the dense LM serving path on ``dev``, one JSON line per part;
-    returns the launches of these lines by kernel (none is expected: the
-    path is plain PyTorch).  ``drive``: main's launch-counting runner."""
+    """Phase 15: the LM serving path on ``dev``, one JSON line per part:
+    the dense family (qwen2-1.5b), the MoE (granite-moe-3b-a800m) and the
+    VLM (llama-3.2-vision-11b) at full width, then the reduced archs of the
+    three families card against CPU; returns the launches of these lines by
+    kernel (none is expected: the path is plain PyTorch).  ``drive``:
+    main's launch-counting runner."""
     import copy
 
     from repro_torch import configs as lm_configs
@@ -1586,7 +1657,8 @@ def lm_lines(dev, seed, drive) -> dict:
     from repro_torch.models.steps import make_generate
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from lm_rule import hold, stream_logits
+    import moe_rule
+    from lm_rule import hold
 
     own = {}
 
@@ -1594,56 +1666,56 @@ def lm_lines(dev, seed, drive) -> dict:
         res, seconds, path = drive(fn)
         for k, v in path.items():
             own[k] = own.get(k, 0) + v
-        return res, seconds, path
+        return res, seconds, sum(path.values())
 
     reduced_precision = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(seed)  # as ``launch.serve.serve`` draws
-    lm = LMEngineSolver(LM_ARCH, gen, reduced=False, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    cfg = lm.cfg
-    weight_bytes = PM.param_bytes(lm.model.param_specs)
-    n_params = PM.count_params(lm.model.param_specs)
-    require((cfg.n_layers, cfg.d_model, n_params) == (28, 1536, 1_777_088_000),
-            f"lm: {LM_ARCH} is not at full width")
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    require(tf32 == {"allow_tf32": False, "float32_matmul_precision": "highest"},
+            f"lm: TF32 would reach the float32 router's product: {tf32}")
 
-    def decode_bound(batch, prompt_len, new):
-        """(ms, by): the least time of one decode step, averaged over the
-        steps of a run: every weight but the embedding table read once (B of
-        its rows), the valid keys and values of every layer read once, the
-        step's products at the bf16 peak."""
-        embed = cfg.padded_vocab * cfg.d_model * 2
-        weights = weight_bytes - embed + batch * cfg.d_model * 2
-        per_pos = 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * 2
-        steps = range(prompt_len, prompt_len + new - 1)  # index + 1 keys valid
-        kv = sum(per_pos * (i + 1) for i in steps) / len(steps)
-        flops = 2 * (n_params - cfg.padded_vocab * cfg.d_model) * batch
-        return bound(weights + kv, flops, BF16_FLOPS_PER_S)
+    def build(arch, n_layers, d_model, n_params):
+        """The arch at full width as ``serve(..., reduced=False)`` builds it,
+        and the generator it drew from (it draws the prompts next)."""
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(seed)
+        lm = LMEngineSolver(arch, gen, reduced=False, device=dev)
+        torch.cuda.synchronize()
+        cfg = lm.cfg
+        count = PM.count_params(lm.model.param_specs)
+        require((cfg.n_layers, cfg.d_model, count) == (n_layers, d_model, n_params),
+                f"lm: {arch} is not at full width")
+        return lm, gen, time.perf_counter() - t0
 
-    def serve_part(part, batch, prompt_len, new, prompts):
+    def serve_part(lm, gen, part, batch, prompt_len, new, prompts, vision, build_s):
+        cfg = lm.cfg
         torch.cuda.reset_peak_memory_stats()
         t_part = time.perf_counter()
         lm.timings.clear()
-        (rep_d, tok_d), _, path_d = driven(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        (rep_d, tok_d), _, n_d = driven(
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
         lm.timings.clear()
-        (rep_o, tok_o), _, path_o = driven(lambda: launch_serve.serve_prompts(
-            lm, prompts, new, torch.Generator().manual_seed(seed), once=True))
+        (rep_o, tok_o), _, n_o = driven(lambda: launch_serve.serve_prompts(
+            lm, prompts, new, torch.Generator().manual_seed(seed), vision=vision, once=True))
         require(torch.equal(tok_d, tok_o), f"lm {part}: daemon and --once tokens differ")
-        direct, _ = make_generate(lm.model)(lm.params, {"tokens": prompts}, new)
+        batch_in = {"tokens": prompts}
+        if vision is not None:
+            batch_in["vision"] = vision
+        direct, _ = make_generate(lm.model)(lm.params, batch_in, new)
         require(torch.equal(tok_d, direct),
                 f"lm {part}: a served request differs from make_generate of its bucket")
         lm.timings.clear()
-        warm = solve_seconds(lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        warm = solve_seconds(
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
         timing = dict(lm.timings[-1])
-        busy_ms, per_name = device_busy(lambda: launch_serve.serve_prompts(lm, prompts, new, gen))
+        busy_ms, per_name = device_busy(
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
         step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
-        bound_ms, bound_by = decode_bound(batch, prompt_len, new)
-        launches = sum(path_d.values()) + sum(path_o.values())
-        emit({
-            "phase": "lm", "part": part, "arch": LM_ARCH, "layers": cfg.n_layers,
-            "d_model": cfg.d_model, "params": n_params, "param_bytes": weight_bytes,
+        bound_ms, bound_by = lm_decode_bound(lm.model, batch, prompt_len, new)
+        line = {
+            "phase": "lm", "part": part, "arch": lm.arch, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": PM.count_params(lm.model.param_specs),
+            "param_bytes": PM.param_bytes(lm.model.param_specs),
             "dtype": cfg.dtype, "requests": batch, "prompt_len": prompt_len, "new_tokens": new,
             "daemon": rep_d, "once": rep_o, "daemon_equals_once": True,
             "equal_to_make_generate_same_bucket": True,
@@ -1657,63 +1729,171 @@ def lm_lines(dev, seed, drive) -> dict:
             "decode_step_over_bound": step_ms / bound_ms,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "allow_bf16_reduced_precision_reduction": reduced_precision,
-            "ported_kernel_launches": launches, "build_s": build_s,
+            "ported_kernel_launches": n_d + n_o, "build_s": build_s,
             "part_s": time.perf_counter() - t_part,
-        })
+        }
+        if cfg.family == "moe":
+            line.update(experts=cfg.n_experts, top_k=cfg.top_k, tf32=tf32, capacity_prefill=int(
+                np.ceil(cfg.capacity_factor * cfg.top_k * prompt_len / cfg.n_experts)))
+        if vision is not None:
+            line["vision"] = list(vision.shape[1:])
+        emit(line)
         return tok_d
 
-    # serve: the launcher's defaults ---------------------------------------------
+    def held(what, fn):
+        try:
+            return fn()
+        except AssertionError as exc:
+            fail(f"{what}: {exc}")
+
+    # the dense family: qwen2-1.5b ------------------------------------------------
+    lm, gen, build_s = build(LM_ARCH, 28, 1536, 1_777_088_000)
+    cfg = lm.cfg
     batch, prompt_len, new = LM_SERVE
     prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
-    served = serve_part("serve", batch, prompt_len, new, prompts)
-
-    # serve_batch128: the widest batch bucket --------------------------------------
+    served = serve_part(lm, gen, "serve", batch, prompt_len, new, prompts, None, build_s)
     b128, p128, n128 = LM_BATCH128
-    serve_part("serve_batch128", b128, p128, n128,
-               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen))
+    serve_part(lm, gen, "serve_batch128", b128, p128, n128,
+               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
 
-    # cpu_check: the serve run's streams held to a CPU copy by the LM rule -----------
     t_part = time.perf_counter()
     cpu_lm = copy.deepcopy(lm.params).to("cpu")
     t_cpu = time.perf_counter()
-    cpu_logits = stream_logits(lm.model, cpu_lm, prompts, served)
+    rule = held("lm cpu_check", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check"))
     cpu_s = time.perf_counter() - t_cpu
-    card_logits = stream_logits(lm.model, lm.params, prompts, served)
-    try:
-        rule = hold(served, card_logits, cpu_logits, cfg.dtype, cfg.n_layers, "lm cpu_check")
-    except AssertionError as exc:
-        fail(str(exc))
-    del cpu_lm, cpu_logits, card_logits
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
     emit({"phase": "lm", "part": "cpu_check", "arch": LM_ARCH, "depth": cfg.n_layers,
           "depth_cut": None, "streams": batch, "steps": new, "rule": rule, "cpu_s": cpu_s,
+          "ported_kernel_launches": 0, "part_s": time.perf_counter() - t_part})
+
+    # the MoE: granite-moe-3b-a800m ----------------------------------------------
+    lm, gen, build_s = build(LM_MOE_ARCH, 32, 1536, 3_374_679_552)
+    cfg = lm.cfg
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    served = serve_part(lm, gen, "serve_moe", batch, prompt_len, new, prompts, None, build_s)
+    serve_part(lm, gen, "serve_moe_batch128", b128, p128, n128,
+               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+
+    t_part = time.perf_counter()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    t_cpu = time.perf_counter()
+    rule = held("lm cpu_check_moe", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check_moe"))
+    cpu_s = time.perf_counter() - t_cpu
+    # One float32 prefill of the same prompts on the bf16 weights (upcast
+    # exactly in every product): every routing decided, the logits within τ.
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    with torch.inference_mode():
+        with moe_rule.recording() as calls_card:
+            (card32, _), _, n32 = driven(lambda: model32.prefill_fn(
+                lm.params, {"tokens": prompts.to(dev)}))
+        with moe_rule.recording() as calls_cpu:
+            cpu32, _ = model32.prefill_fn(cpu_lm, {"tokens": prompts})
+    routes = held("lm cpu_check_moe float32", lambda: moe_rule.hold_calls(moe_rule.pair_calls(
+        calls_card, calls_cpu, [0] * cfg.n_layers), "lm cpu_check_moe float32"))
+    require(routes["route_bound"] == 0,
+            f"lm cpu_check_moe: {routes['route_bound']} float32 routings are tie-bound")
+    card32, cpu32 = card32.float().cpu().numpy()[:, None], cpu32.float().cpu().numpy()[:, None]
+    rule32 = held("lm cpu_check_moe float32", lambda: hold(
+        card32.argmax(-1), card32, cpu32, "float32", cfg.n_layers, "lm cpu_check_moe float32"))
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "part": "cpu_check_moe", "arch": LM_MOE_ARCH, "depth": cfg.n_layers,
+          "depth_cut": None, "streams": batch, "steps": new, "rule": rule,
+          "route_bound": rule["route_bound"], "routings": rule["routings"],
+          "positions_held": rule["steps_held"], "positions": rule["steps"],
+          "max_diff_over_tau": rule["max_diff_over_tau"], "cpu_s": cpu_s,
+          "float32_prefill": {"route_bound": routes["route_bound"],
+                              "routings": routes["routings"],
+                              "least_decided_gap_over_2delta":
+                                  routes["least_decided_gap_over_2delta"],
+                              "rule": rule32},
+          "tf32": tf32, "ported_kernel_launches": n32, "part_s": time.perf_counter() - t_part})
+
+    # the VLM: llama-3.2-vision-11b ----------------------------------------------
+    lm, gen, build_s = build(LM_VLM_ARCH, 40, 4096, 9_806_614_544)
+    cfg = lm.cfg
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    vision = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
+    served = serve_part(lm, gen, "serve_vlm", batch, prompt_len, new, prompts, vision, build_s)
+
+    t_part = time.perf_counter()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    vision2 = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch,
+                                       torch.Generator().manual_seed(seed + 1))
+
+    def prefill_logits(vis):
+        with torch.inference_mode():
+            (logits, _), _, n = driven(lambda: lm.model.prefill_fn(
+                lm.params, {"tokens": prompts.to(dev), "vision": vis.to(dev)}))
+        return logits.float().cpu(), n
+
+    t_cpu = time.perf_counter()
+    zero = held("lm cpu_check_vlm", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, served, vision=vision, what="lm cpu_check_vlm"))
+    cpu_s = time.perf_counter() - t_cpu
+    (base, n_a), (moved, n_b) = prefill_logits(vision), prefill_logits(vision2)
+    require(torch.equal(base, moved), "lm cpu_check_vlm: vision moved the logits at zero gates")
+    gate_vlm(lm.params, seed + 2)
+    gate_vlm(cpu_lm, seed + 2)
+    (gated_base, n_c), (gated_moved, n_d) = prefill_logits(vision), prefill_logits(vision2)
+    require(not torch.equal(gated_base, gated_moved),
+            "lm cpu_check_vlm: vision did not move the logits with non-zero gates")
+    (gated_stream, _), _, n_e = driven(lambda: make_generate(lm.model)(
+        lm.params, {"tokens": prompts, "vision": vision}, new))
+    t_cpu = time.perf_counter()
+    gated_rule = held("lm cpu_check_vlm gated", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, gated_stream, vision=vision,
+        what="lm cpu_check_vlm gated"))
+    cpu_gated_s = time.perf_counter() - t_cpu
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "part": "cpu_check_vlm", "arch": LM_VLM_ARCH, "depth": cfg.n_layers,
+          "cross_layers": cfg.n_layers // cfg.cross_every, "depth_cut": None, "streams": batch,
+          "steps": new, "rule": zero, "cpu_s": cpu_s,
+          "vision_moves_logits": {"zero_gates": False, "gated": True},
+          "gated": {"rule": gated_rule, "cpu_s": cpu_gated_s,
+                    "max_abs_logit_change_from_vision": float(
+                        (gated_base - gated_moved).abs().max())},
+          "ported_kernel_launches": n_a + n_b + n_c + n_d + n_e,
           "part_s": time.perf_counter() - t_part})
 
-    # archs: the four dense archs at reduced size, card against CPU ----------------
+    # archs: every dense, MoE and VLM arch at reduced size, card against CPU -------
     t_part = time.perf_counter()
-    rules = {}
-    for i, arch in enumerate(LM_DENSE):
+    rules, launches = {}, 0
+    archs = LM_DENSE + LM_FAMILIES
+    for i, arch in enumerate(archs):
         for dtype in ("float32", "bfloat16"):
             rcfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype=dtype)
             model = get_model(rcfg)
             tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed + i),
                                   device="cpu")
+            batch_in = {"tokens": torch.randint(
+                0, rcfg.vocab, (2, 32), dtype=torch.int32,
+                generator=torch.Generator().manual_seed(seed + 100 + i))}
             cpu_params = model.build_params(tree)
             card_params = model.build_params(PM.map_tree(lambda t: t.to(dev), tree))
-            toks = torch.randint(0, rcfg.vocab, (2, 32), dtype=torch.int32,
-                                 generator=torch.Generator().manual_seed(seed + 100 + i))
-            (stream, _), _, _ = driven(
-                lambda: make_generate(model)(card_params, {"tokens": toks}, 16))
-            try:
-                rules[f"{arch}:{dtype}"] = hold(
-                    stream, stream_logits(model, card_params, toks, stream),
-                    stream_logits(model, cpu_params, toks, stream), dtype, rcfg.n_layers,
-                    f"lm archs {arch} {dtype}")
-            except AssertionError as exc:
-                fail(str(exc))
-    emit({"phase": "lm", "part": "archs", "archs": list(LM_DENSE), "prompt_len": 32,
+            vis = None
+            if rcfg.family == "vlm":
+                gate_vlm(cpu_params, seed + i)
+                gate_vlm(card_params, seed + i)
+                vis = launch_serve.draw_vision(rcfg.n_vision_tokens, rcfg.vision_dim, 2,
+                                               torch.Generator().manual_seed(seed + 200 + i))
+                batch_in["vision"] = vis
+            (stream, _), _, n = driven(lambda: make_generate(model)(card_params, batch_in, 16))
+            launches += n
+            what = f"lm archs {arch} {dtype}"
+            rules[f"{arch}:{dtype}"] = held(what, lambda: moe_rule.hold_streams(
+                model, card_params, cpu_params, batch_in["tokens"], stream, vision=vis, what=what))
+            if rcfg.family == "moe" and dtype == "float32":
+                require(rules[f"{arch}:{dtype}"]["route_bound"] == 0,
+                        f"{what}: a float32 routing is tie-bound")
+    emit({"phase": "lm", "part": "archs", "archs": list(archs), "prompt_len": 32,
           "new_tokens": 16, "rules": rules, "ring_buffer": "h2o-danube-1.8b (window 32)",
+          "vlm_gated": True, "ported_kernel_launches": launches,
           "part_s": time.perf_counter() - t_part})
-    del lm
     torch.cuda.empty_cache()
     return own
 
@@ -2617,7 +2797,7 @@ def main() -> None:
                                      rtl["recurrent"], graphs, maxcut["kernel"], mc_kw, spans_k,
                                      mc_in, drive)
 
-    # 15. the dense LM serving path at qwen2-1.5b's full width ---------------------------
+    # 15. the LM serving path: dense, MoE and VLM at full width -------------------------
     lm_launches = lm_lines(dev, args.seed, drive)
 
     for name, row in rows.items():

@@ -69,18 +69,20 @@ def maxcut_solver_from_reference(obj_or_dict: Any, device=None):
 def _tensor_from_reference(a: np.ndarray) -> torch.Tensor:
     """A reference array as a CPU tensor; bf16 (``ml_dtypes``, detected by
     name) passes through its 16-bit pattern, so every bit is kept."""
-    a = np.asarray(a)
+    a = np.array(a)  # a contiguous copy that keeps a 0-d leaf 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def lm_params_from_reference(cfg, tree: Mapping[str, Any], device=None):
-    """The port's ``DenseLM`` on ``device`` (the GPU unless ``"cpu"``) holding
-    the reference's LM parameter tree (nested dicts of numpy arrays, layers
-    stacked on a leading axis, as ``repro.models.params.materialize`` makes
-    it): the layer axis is unstacked, the names stay.  Every leaf's path and
-    shape must match ``cfg``'s spec tree."""
+    """The port's LM module (``DenseLM``, or ``VisionLM`` for a VLM) on
+    ``device`` (the GPU unless ``"cpu"``) holding the reference's LM
+    parameter tree (nested dicts of numpy arrays, layers stacked on a leading
+    axis, the VLM's ``blocks`` on two, as ``repro.models.params.materialize``
+    makes it): the stacking axes are unstacked, the names and dtypes stay
+    (a MoE router is float32).  Every leaf's path and shape must match
+    ``cfg``'s spec tree."""
     from repro_torch.models import params as P
     from repro_torch.models.model import get_model
 

@@ -662,13 +662,15 @@ def _prompt_rows(payload: Dict[str, Any]) -> torch.Tensor:
 class LMEngineSolver:
     """Serves prompt → greedy-decode requests for one model instance.
 
-    Payload: ``{"tokens": (L,) or (B, L) int, "max_new_tokens": int}``.
+    Payload: ``{"tokens": (L,) or (B, L) int, "max_new_tokens": int}``,
+    plus ``"vision"`` ((Nv, vision_dim) or (B, Nv, vision_dim)) for the VLM.
     Buckets are (prompt_len, max_new_tokens, extras); lanes coalesce along
     batch, padded lanes decode zero prompts whose outputs are dropped (batch
     rows are independent, so real lanes are unaffected).  ``extras`` names
-    any other payload key; the dense family takes none, so a payload with
-    one (``vision``, ``frames``) is refused until its family is ported
-    (ROADMAP.md, section 1, item 5).
+    any other payload key; each extra is concatenated along the batch and
+    zero-padded for the padded lanes, as the tokens are.  A ``frames``
+    payload (enc-dec) is refused until its family is ported (ROADMAP.md,
+    section 1, item 5); a VLM payload without ``vision`` is refused.
 
     The weights are drawn by ``params.materialize`` from the CPU
     ``generator`` and placed on ``device`` (the GPU unless ``"cpu"``), or
@@ -716,11 +718,13 @@ class LMEngineSolver:
     def signature(self, payload: Dict[str, Any]) -> Hashable:
         toks = torch.as_tensor(payload["tokens"])
         extras = tuple(sorted(k for k in payload if k not in ("tokens", "max_new_tokens")))
-        if extras:
+        if "frames" in extras:
             raise ValueError(
-                f"{self.cfg.name}: payload keys {extras} belong to families not ported yet "
-                "(ROADMAP.md, section 1, item 5)"
+                f"{self.cfg.name}: payload key 'frames' belongs to the enc-dec family, not "
+                "ported yet (ROADMAP.md, section 1, item 5)"
             )
+        if self.cfg.family == "vlm" and "vision" not in extras:
+            raise ValueError(f"{self.cfg.name}: a vlm request requires vision embeddings")
         return (toks.shape[-1], int(payload["max_new_tokens"]), extras)
 
     def bucket(self, signature: Hashable, n_policy: bucketing.NBucketPolicy) -> Hashable:
@@ -733,14 +737,22 @@ class LMEngineSolver:
         keys: List[torch.Generator],
         batch_bucket: int,
     ) -> List[Any]:
-        prompt_len, max_new, _ = bucket_sig
+        prompt_len, max_new, extras = bucket_sig
         lanes = [_prompt_rows(p) for p in payloads]
         counts = [x.shape[0] for x in lanes]
         total = sum(counts)
         if total < batch_bucket:
             lanes.append(torch.zeros((batch_bucket - total, prompt_len), dtype=torch.int32))
-        tokens = _gather(lanes, self.device, stack=False)
-        out_tokens, self.last_timing = self._generate(self.params, {"tokens": tokens}, max_new)
+        batch_in = {"tokens": _gather(lanes, self.device, stack=False)}
+        for name in extras:
+            arrs = []
+            for p in payloads:
+                a = torch.as_tensor(p[name])
+                arrs.append(a[None] if torch.as_tensor(p["tokens"]).dim() == 1 else a)
+            if total < batch_bucket:
+                arrs.append(arrs[0].new_zeros((batch_bucket - total, *arrs[0].shape[1:])))
+            batch_in[name] = _gather(arrs, self.device, stack=False)
+        out_tokens, self.last_timing = self._generate(self.params, batch_in, max_new)
         self.timings.append(self.last_timing)
 
         results = []

@@ -1,5 +1,5 @@
 """LM serving CLI: prompts through the continuous serving daemon (the port of
-``repro.launch.serve``; the dense family).
+``repro.launch.serve``; the dense, MoE and VLM families).
 
 Each prompt is submitted as one engine request; the ``lm`` adapter runs
 prefill + the token-by-token decode loop
@@ -12,7 +12,9 @@ keeps the one-shot path: a plain engine ``drain()``.
 
 Randomness is explicit end to end: one CPU ``torch.Generator`` seeded by
 ``--seed`` draws the weights (``params.materialize``), then the prompts
-(:func:`draw_prompts`), then roots the engine (:func:`serve_prompts`).
+(:func:`draw_prompts`), then, for a VLM, every request's (n_vision_tokens,
+vision_dim) bf16 patch embeddings (:func:`draw_vision`), then roots the
+engine (:func:`serve_prompts`).
 Token accounting (see ``make_generate``): the returned stream always holds
 exactly ``max_new_tokens`` tokens — token 0 from the prefill logits, token
 i from the i-th decode step.  It runs on the card unless ``--device cpu``.
@@ -22,6 +24,8 @@ full width.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch qwen2-1.5b --tokens 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch granite-moe-3b-a800m
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch llama-3.2-vision-11b
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -47,26 +51,39 @@ def draw_prompts(
     return torch.randint(0, vocab, (batch, prompt_len), generator=generator, dtype=torch.int32)
 
 
+def draw_vision(n_vision_tokens: int, vision_dim: int, batch: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """(batch, n_vision_tokens, vision_dim) standard normal patch embeddings
+    in bf16 (a VLM request's ``vision``), drawn from the CPU ``generator``;
+    on the CPU."""
+    draw = torch.randn((batch, n_vision_tokens, vision_dim), generator=generator)
+    return draw.to(torch.bfloat16)
+
+
 def serve_prompts(
     lm: LMEngineSolver,
     prompts: torch.Tensor,
     max_new_tokens: int,
     generator: torch.Generator,
     *,
+    vision: Optional[torch.Tensor] = None,
     once: bool = False,
 ) -> Tuple[Dict[str, Any], torch.Tensor]:
-    """Serve each row of ``prompts`` as one request of ``lm`` on an engine
-    rooted at the CPU ``generator`` (a ``ServeDaemon`` over a
-    ``ContinuousEngine``, or with ``once`` one ``Engine.drain``).  Returns
-    (report, tokens): the reference's report plus ``device``, and every
-    request's (max_new_tokens,) result stacked, on the CPU."""
+    """Serve each row of ``prompts`` (with its row of ``vision`` for a VLM)
+    as one request of ``lm`` on an engine rooted at the CPU ``generator`` (a
+    ``ServeDaemon`` over a ``ContinuousEngine``, or with ``once`` one
+    ``Engine.drain``).  Returns (report, tokens): the reference's report
+    plus ``device``, and every request's (max_new_tokens,) result stacked,
+    on the CPU."""
     batch, prompt_len = prompts.shape
     eng = (Engine if once else ContinuousEngine)(generator, device=lm.device)
     eng.install("lm", lm)
-    futures = [
-        eng.submit(Request("lm", {"tokens": prompts[i], "max_new_tokens": max_new_tokens}))
-        for i in range(batch)
-    ]
+    futures = []
+    for i in range(batch):
+        payload: Dict[str, Any] = {"tokens": prompts[i], "max_new_tokens": max_new_tokens}
+        if vision is not None:
+            payload["vision"] = vision[i]
+        futures.append(eng.submit(Request("lm", payload)))
 
     t0 = time.perf_counter()
     if once:
@@ -124,8 +141,12 @@ def serve(
     :func:`serve_prompts`' report."""
     gen = torch.Generator().manual_seed(seed)
     lm = LMEngineSolver(arch, gen, reduced=reduced, device=device)
-    prompts = draw_prompts(lm.cfg.vocab, batch, prompt_len, gen)
-    return serve_prompts(lm, prompts, max_new_tokens, gen, once=once)[0]
+    cfg = lm.cfg
+    prompts = draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    vision = None
+    if cfg.family == "vlm":
+        vision = draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
+    return serve_prompts(lm, prompts, max_new_tokens, gen, vision=vision, once=once)[0]
 
 
 def main() -> None:

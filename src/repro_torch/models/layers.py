@@ -1,5 +1,6 @@
-"""Shared transformer layers of the dense family: RMSNorm, RoPE, blocked
-attention, SwiGLU (the port of ``repro.models.layers``, dense subset).
+"""Shared transformer layers: RMSNorm, RoPE, blocked attention, gated
+cross-attention, SwiGLU and the capacity-dispatch MoE (the port of
+``repro.models.layers``, all but enc-dec's ``layer_norm`` and ``gelu_mlp*``).
 
 Plain PyTorch on the tensors' own device, one function per reference
 function and with its rounding order:
@@ -12,20 +13,25 @@ function and with its rounding order:
 * ``apply_rope`` works in float32 and rounds back;
 * attention scores and the softmax are float32, and the probabilities are
   rounded to the values' dtype before the PV product, whose sum is float32;
-* ``swiglu`` applies SiLU in float32.
+* ``swiglu`` applies SiLU in float32;
+* the MoE router is float32 (weights and product; TF32 must stay off on the
+  card), the top-k gates are rounded to the activations' dtype before they
+  weight the expert outputs, and the sum over the k slots is in that dtype;
+* the cross-attention gates' ``tanh`` is float32, rounded before the
+  product.
 
 Attention is the reference's blocked online softmax over KV chunks, a Python
 loop in place of its ``lax.scan``, with the query blocking (``q_chunk``) and
 the static skip of fully masked KV ranges; no library attention call.  The
 reference's ``shard(...)`` annotations are dropped: one controller, no
-GSPMD.  ``layer_norm``, ``cross_attention*``, ``gelu_mlp*`` and ``moe_*``
-wait for their families (ROADMAP.md, section 1, item 5).
+GSPMD.  ``layer_norm`` and ``gelu_mlp*`` wait for the enc-dec family
+(ROADMAP.md, section 1, item 5).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -182,11 +188,11 @@ def flash_attention(
 
 
 # ---------------------------------------------------------------------------
-# Attention block (projections + optional bias / qk-norm / window)
+# Attention block (projections + optional bias / qk-norm / window / cross)
 # ---------------------------------------------------------------------------
 
 
-def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpec]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     specs: Dict[str, ParamSpec] = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", None)),
@@ -194,13 +200,15 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", None)),
         "wo": ParamSpec((h, hd, d), ("heads", None, "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         specs["bq"] = ParamSpec((h, hd), ("heads", None), init="zeros")
         specs["bk"] = ParamSpec((kv, hd), ("kv_heads", None), init="zeros")
         specs["bv"] = ParamSpec((kv, hd), ("kv_heads", None), init="zeros")
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec((hd,), (None,), init="ones")
         specs["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    if cross:
+        specs["gate"] = ParamSpec((), (), init="zeros")  # tanh-gated injection
     return specs
 
 
@@ -261,6 +269,35 @@ def decode_attention(
     return dot(out, params["wo"], contract=2), cache_k, cache_v
 
 
+def _gated(params, y: torch.Tensor) -> torch.Tensor:
+    if "gate" in params:
+        y = torch.tanh(params["gate"].float()).to(y.dtype) * y
+    return y
+
+
+def cross_attention(params, x: torch.Tensor, kv_feats: torch.Tensor, cfg: ModelConfig):
+    """Gated cross-attention of ``x`` (B, S, D) on ``kv_feats`` (B, Nv, D)
+    (the VLM's image layers), non-causal, with ``q_norm``/``k_norm`` when the
+    config has them."""
+    q = dot(x, params["wq"])
+    k = dot(kv_feats, params["wk"])
+    v = dot(kv_feats, params["wv"])
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, q_chunk=cfg.q_chunk)
+    return _gated(params, dot(out, params["wo"], contract=2))
+
+
+def cross_attention_cached(params, x_step: torch.Tensor, cross_k, cross_v, cfg: ModelConfig):
+    """Decode-time cross-attention against the prefill's (B, Nv, KV, hd)
+    K/V.  As in the reference, neither ``q_norm`` here nor ``k_norm`` in
+    the prefill's K is applied (reference fault 6, ROADMAP.md section 3)."""
+    q = dot(x_step, params["wq"])
+    out = flash_attention(q, cross_k, cross_v, causal=False, chunk=cfg.attn_chunk)
+    return _gated(params, dot(out, params["wo"], contract=2))
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -279,3 +316,93 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     u = dot(x, params["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
     return dot(h, params["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: capacity-based scatter dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    specs = {
+        "router": ParamSpec((d, e), ("embed", "experts"), dtype=torch.float32),
+        "wg": ParamSpec((e, d, f), ("experts", "expert_embed", "expert_mlp")),
+        "wu": ParamSpec((e, d, f), ("experts", "expert_embed", "expert_mlp")),
+        "wd": ParamSpec((e, f, d), ("experts", "expert_mlp", "expert_embed")),
+    }
+    if cfg.d_ff_dense:
+        specs["dense"] = swiglu_specs(d, cfg.d_ff_dense)
+    return specs
+
+
+class Routing(NamedTuple):
+    """One MoE call's dispatch: ``logits`` and ``probs`` (B, S, E) float32;
+    ``gates`` and ``idx`` (B, S, k), the top-k in descending order, the
+    lower expert first on ties; ``pos`` (B, S·k), each (token, slot) pair's
+    rank among its expert's pairs of the same sequence; ``keep`` = pos <
+    ``capacity``; ``dst`` the pair's slot in the (E·C + 1)-row dispatch
+    buffer, the last row a sink for the dropped pairs."""
+
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gates: torch.Tensor
+    idx: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    dst: torch.Tensor
+    capacity: int
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The router of :func:`moe_ffn` on ``x`` (B, S, D): float32 logits,
+    softmax, top-k and the per-example capacity C = ⌈cf·k·S/E⌉."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = torch.matmul(x.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: descending, the lower index first on ties.
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = order.values[..., :k], order.indices[..., :k]
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    capacity = int(math.ceil(cfg.capacity_factor * k * s / e))
+    e_flat = idx.reshape(b, s * k)
+    ranks = torch.cumsum(F.one_hot(e_flat, e), dim=1) - 1  # batch-local
+    pos = torch.gather(ranks, -1, e_flat[..., None])[..., 0]
+    keep = pos < capacity
+    dst = torch.where(keep, e_flat * capacity + pos, e * capacity)
+    return Routing(logits, probs, gates, idx, pos, keep, dst, capacity)
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-dispatch MoE on ``x`` (B, S, D); returns (output,
+    load-balance aux loss).  Dispatch is per example: each sequence fills
+    its own C slots per expert, in token order, and pairs past them are
+    dropped.  Every expert computes all of its C slots."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_route(params["router"], x, cfg)
+    capacity = r.capacity
+
+    # Load-balance aux (Switch): E · Σ_e fraction_e · prob_e.
+    me = r.probs.mean(dim=(0, 1))
+    ce = F.one_hot(r.idx, e).float().sum(dim=2).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    x_rep = torch.repeat_interleave(x, k, dim=1)  # (B, S·k, D)
+    bidx = torch.arange(b, device=x.device)[:, None]
+    buf = x.new_zeros((b, e * capacity + 1, d))
+    buf[bidx, r.dst] = x_rep  # duplicates only at the sink row, sliced off
+    h = buf[:, : e * capacity].reshape(b, e, capacity, d).transpose(0, 1)
+    h = h.reshape(e, b * capacity, d)  # (E, B·C, D): one product per expert
+    g = torch.bmm(h, params["wg"].to(x.dtype))
+    u = torch.bmm(h, params["wu"].to(x.dtype))
+    y = F.silu(g.float()).to(x.dtype) * u
+    y = torch.bmm(y, params["wd"].to(x.dtype))  # (E, B·C, D)
+    y = y.reshape(e, b, capacity, d).transpose(0, 1).reshape(b, e * capacity, d)
+    yf = torch.cat([y, y.new_zeros((b, 1, d))], dim=1)
+    weight = (r.gates.reshape(b, s * k, 1) * r.keep[..., None]).to(x.dtype)
+    out = (yf[bidx, r.dst] * weight).reshape(b, s, k, d).sum(dim=2)
+    if "dense" in params:
+        out = out + swiglu(params["dense"], x)
+    return out, aux

@@ -1,18 +1,21 @@
 """Model dispatch: one uniform interface over the architecture families (the
-port of ``repro.models.model``; the dense family so far).
+port of ``repro.models.model``; the dense, MoE and VLM families so far).
 
 ``get_model(cfg)`` returns a :class:`Model` whose members close over the
 config:
 
 * ``param_specs``      — ParamSpec tree (``materialize`` it, then
   ``build_params`` makes the module)
-* ``build_params``     — tree of tensors → ``transformer.DenseLM``
+* ``build_params``     — tree of tensors → ``transformer.DenseLM`` (dense,
+  MoE) or ``transformer.VisionLM`` (VLM)
 * ``loss_fn``          — (params, batch) → (scalar loss, metrics dict), forward only
 * ``prefill_fn``       — (params, batch) → (last logits, populated cache)
 * ``decode_fn``        — (params, cache, token, index) → (logits, cache)
 * ``cache_specs``      — (batch, seq_len) → ParamSpec tree for the decode cache
 
-``batch`` dicts carry ``tokens`` (and ``labels`` for the loss).
+``batch`` dicts carry ``tokens`` (and ``labels`` for the loss), and
+``vision`` (B, Nv, vision_dim) for the VLM.  The MoE loss adds
+``MOE_AUX_WEIGHT`` times the load-balance aux loss.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
+MOE_AUX_WEIGHT = 0.01
+
 #: Families of the reference that the port does not serve yet.
-NOT_PORTED_FAMILIES = ("moe", "vlm", "encdec", "zamba", "xlstm")
+NOT_PORTED_FAMILIES = ("encdec", "zamba", "xlstm")
 
 
 class Model(NamedTuple):
@@ -72,16 +77,17 @@ def get_model(cfg: ModelConfig) -> Model:
             f"{cfg.name}: the {family!r} family is not ported yet; it waits for the "
             "LM side (ROADMAP.md, section 1, item 5)"
         )
-    if family != "dense":
+    if family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {family!r}")
 
     def loss_fn(params, batch):
-        x, aux, _ = T.forward_hidden(params, batch["tokens"], cfg)
+        x, aux, _ = T.forward_hidden(params, batch["tokens"], cfg, vision=batch.get("vision"))
         ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
-        return ce, {"ce": ce, "moe_aux": aux}
+        loss = ce + MOE_AUX_WEIGHT * aux if family == "moe" else ce
+        return loss, {"ce": ce, "moe_aux": aux}
 
     def prefill_fn(params, batch):
-        return T.prefill(params, batch["tokens"], cfg)
+        return T.prefill(params, batch["tokens"], cfg, vision=batch.get("vision"))
 
     def decode_fn(params, cache, token, index):
         return T.decode_step(params, cache, token, index, cfg)
@@ -89,7 +95,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         param_specs=T.build_param_specs(cfg),
-        build_params=lambda tree: T.DenseLM(cfg, tree),
+        build_params=lambda tree: (T.VisionLM if family == "vlm" else T.DenseLM)(cfg, tree),
         loss_fn=loss_fn,
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,

@@ -68,7 +68,9 @@ def make_generate(model: Model):
       ``prompt_len + i − 1``;
     * ``max_new_tokens == 0`` returns a ``(batch, 0)`` tensor (prefill only).
 
-    ``timing`` holds ``prefill_s`` and ``decode_s`` on the host clock, each
+    Every entry of ``batch_in`` (``tokens``, and ``vision`` for the VLM) is
+    moved to the params' device before the prefill.  ``timing`` holds
+    ``prefill_s`` and ``decode_s`` on the host clock, each
     ending in a wait on the device.  Every token is read to the host as it
     is made (one read per decode step), as the reference does.
 
@@ -82,10 +84,10 @@ def make_generate(model: Model):
     @torch.inference_mode()
     def generate(params, batch_in: Dict[str, Any], max_new_tokens: int):
         device = params.device
-        tokens_in = torch.as_tensor(batch_in["tokens"]).to(device)
-        b, prompt_len = tokens_in.shape
+        batch = {name: torch.as_tensor(value).to(device) for name, value in batch_in.items()}
+        b, prompt_len = batch["tokens"].shape
         t0 = time.perf_counter()
-        logits, prefill_cache = prefill(params, {**batch_in, "tokens": tokens_in})
+        logits, prefill_cache = prefill(params, batch)
         _sync(device)
         timing = {"prefill_s": time.perf_counter() - t0}
         if max_new_tokens <= 0:

@@ -1,24 +1,32 @@
-"""Decoder-only LM assembly, dense branch (the port of
+"""Decoder-only LM assembly: the dense, MoE and VLM families (the port of
 ``repro.models.transformer``).
 
-One parameterized assembly covers codeqwen1.5-7b, qwen2-1.5b, h2o-danube
-and qwen3-4b.  The parameters live in a :class:`DenseLM`: an ``nn.Module``
-whose parameter names follow the reference's tree (``embed``,
-``final_norm``, ``lm_head``, ``blocks.{i}.attn.wq``, ``blocks.{i}.mlp.wg``,
+One parameterized assembly covers codeqwen1.5-7b, qwen2-1.5b, h2o-danube,
+qwen3-4b (dense), granite-moe and arctic-480b (MoE: ``moe`` in place of
+``mlp``) and llama-3.2-vision (VLM).  The parameters live in a
+:class:`DenseLM`: an ``nn.Module`` whose parameter names follow the
+reference's tree (``embed``, ``final_norm``, ``lm_head``,
+``blocks.{i}.attn.wq``, ``blocks.{i}.mlp.wg`` or ``blocks.{i}.moe.router``,
 …), one :class:`DenseBlock` per layer in an ``nn.ModuleList`` where the
-reference stacks the layers on a leading axis and scans them.  Each level
-reads like the reference's dict (``params["wq"]``, ``"bq" in params``), so
-the functions below keep the reference's bodies.
+reference stacks the layers on a leading axis and scans them.  The VLM's
+:class:`VisionLM` holds the reference's groups: each group is
+(``cross_every`` − 1 self blocks, one gated cross-attention block), named
+``blocks.{g}.{j}.…`` and ``cross_blocks.{g}.…``, with ``vision_proj``
+taking the (B, Nv, vision_dim) patch embeddings into the model width.
+Each level reads like the reference's dict (``params["wq"]``, ``"bq" in
+params``), so the functions below keep the reference's bodies.
 
 Decode keeps a KV cache ``{"k", "v"}`` of (L, B, S, KV, hd), written in
-place; sliding-window archs use a ring buffer of ``window`` slots.
-The VLM groups, the MoE blocks and the ``zero3_gather`` path wait for their
-families and the LM sharding rules (ROADMAP.md, section 1, item 5).
+place; sliding-window archs use a ring buffer of ``window`` slots.  The
+VLM's cache is (G, n_self, B, S, KV, hd) for the self layers and
+``cross_k``/``cross_v`` (G, B, Nv, KV, hd), the prefill's projections of
+the vision tokens.  The ``zero3_gather`` path waits for the LM sharding
+rules (ROADMAP.md, section 1, item 5).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,16 +52,32 @@ def _stack(tree, n: int, axis_name: str = "layers"):
 
 
 def self_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+    specs: Dict[str, Any] = {
         "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "attn": L.attention_specs(cfg),
         "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+    }
+    if cfg.family == "moe":
+        specs["moe"] = L.moe_specs(cfg)
+    else:
+        specs["mlp"] = L.swiglu_specs(cfg.d_model, cfg.d_ff)
+    return specs
+
+
+def cross_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": L.attention_specs(cfg, cross=True),
+        "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "mlp": L.swiglu_specs(cfg.d_model, cfg.d_ff),
+        "mlp_gate": ParamSpec((), (), init="zeros"),
     }
 
 
 def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's spec tree: ``blocks`` stacked on a leading layer axis."""
+    """The reference's spec tree: ``blocks`` stacked on a leading layer axis
+    (for the VLM, on (group, self layer) axes, beside ``cross_blocks``
+    stacked by group)."""
     d, v = cfg.d_model, cfg.padded_vocab
     specs: Dict[str, Any] = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), init="normal", scale=0.02),
@@ -61,7 +85,16 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
-    specs["blocks"] = _stack(self_block_specs(cfg), cfg.n_layers)
+    if cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.cross_every
+        n_self_per_group = cfg.cross_every - 1
+        specs["blocks"] = _stack(
+            _stack(self_block_specs(cfg), n_self_per_group, "stack"), n_groups
+        )
+        specs["cross_blocks"] = _stack(cross_block_specs(cfg), n_groups)
+        specs["vision_proj"] = ParamSpec((cfg.vision_dim, d), ("vision", "embed"))
+    else:
+        specs["blocks"] = _stack(self_block_specs(cfg), cfg.n_layers)
     return specs
 
 
@@ -90,33 +123,63 @@ class ParamTree(nn.Module):
 
 
 class DenseBlock(ParamTree):
-    """One pre-norm block's parameters: ``ln1``, ``attn``, ``ln2``, ``mlp``
-    (run by :func:`self_block_fwd` and :func:`_decode_self_block`)."""
+    """One pre-norm block's parameters: ``ln1``, ``attn``, ``ln2``, and
+    ``mlp`` or ``moe`` (run by :func:`self_block_fwd` and
+    :func:`_decode_self_block`)."""
+
+
+class CrossBlock(ParamTree):
+    """One VLM cross-attention block's parameters: ``ln1``, ``attn`` (with
+    its ``gate``), ``ln2``, ``mlp``, ``mlp_gate``."""
+
+
+#: The tree's keys stacked on leading axes (unstacked into lists of blocks).
+_STACKED = ("blocks", "cross_blocks")
+
+
+def _unstack(stacked, n: int, block=DenseBlock) -> nn.ModuleList:
+    """``n`` blocks holding views of the stacked tree's leading slices."""
+    return nn.ModuleList(block(map_tree(lambda t, i=i: t[i], stacked)) for i in range(n))
 
 
 class DenseLM(ParamTree):
-    """The dense decoder-only LM's parameters (``embed``, ``final_norm``,
-    ``lm_head``, ``blocks``); ``forward(tokens)`` gives every position's
-    logits."""
+    """The decoder-only LM's parameters (``embed``, ``final_norm``,
+    ``lm_head``, ``blocks``) for the dense and MoE families;
+    ``forward(tokens)`` gives every position's logits."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]) -> None:
         """``tree``: the reference's parameter tree as tensors, ``blocks``
         stacked on a leading layer axis (unstacked here into views)."""
-        top = {k: v for k, v in tree.items() if k != "blocks"}
-        super().__init__(top)
+        super().__init__({k: v for k, v in tree.items() if k not in _STACKED})
         self.cfg = cfg
-        stacked = tree["blocks"]
-        self.blocks = nn.ModuleList(
-            DenseBlock(map_tree(lambda t, i=i: t[i], stacked)) for i in range(cfg.n_layers)
-        )
+        self.blocks = _unstack(tree["blocks"], cfg.n_layers)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        hidden, _, _ = forward_hidden(self, tokens, self.cfg)
+    def forward(self, tokens: torch.Tensor, vision: Optional[torch.Tensor] = None):
+        hidden, _, _ = forward_hidden(self, tokens, self.cfg, vision=vision)
         return lm_head(self, hidden, self.cfg)
+
+
+class VisionLM(DenseLM):
+    """The VLM's parameters: ``blocks`` a list of groups, each a list of
+    ``cross_every`` − 1 :class:`DenseBlock`; ``cross_blocks`` one
+    :class:`CrossBlock` per group; ``vision_proj``.  ``forward(tokens,
+    vision)`` gives every position's logits."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]) -> None:
+        """``tree``: the reference's tree, ``blocks`` stacked on (group, self
+        layer) and ``cross_blocks`` on group (unstacked here into views)."""
+        ParamTree.__init__(self, {k: v for k, v in tree.items() if k not in _STACKED})
+        self.cfg = cfg
+        n_groups, n_self = cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
+        self.blocks = nn.ModuleList(
+            _unstack(map_tree(lambda t, g=g: t[g], tree["blocks"]), n_self)
+            for g in range(n_groups)
+        )
+        self.cross_blocks = _unstack(tree["cross_blocks"], n_groups, CrossBlock)
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +188,30 @@ class DenseLM(ParamTree):
 
 
 def self_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """(x', (k, v)): the block's output and its attention's k and v."""
+    """(x', aux, (k, v)): the block's output, its MoE aux loss (None for an
+    MLP block) and its attention's k and v."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     y, k, v = L.self_attention(p["attn"], h, cfg, positions)
     x = x + y
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h), (k, v)
+    if "moe" in p:
+        y, aux = L.moe_ffn(p["moe"], h, cfg)
+    else:
+        y, aux = L.swiglu(p["mlp"], h), None
+    return x + y, aux, (k, v)
+
+
+def _gated_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A cross block's second half: x + tanh(mlp_gate) · swiglu(rms_norm(x))."""
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    gate = torch.tanh(p["mlp_gate"].float()).to(x.dtype)
+    return x + gate * L.swiglu(p["mlp"], h)
+
+
+def cross_block_fwd(p, x: torch.Tensor, vis: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.cross_attention(p["attn"], h, vis, cfg)
+    return _gated_mlp(p, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -139,25 +220,60 @@ def self_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 
 
 def forward_hidden(
-    params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, collect_kv: bool = False
+    params: DenseLM,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    vision: Optional[torch.Tensor] = None,
+    collect_kv: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Token ids (B, S) → final hidden states.  Returns (hidden, moe_aux,
-    kv): the MoE auxiliary loss is 0 for the dense family; with
-    ``collect_kv`` kv is the per-layer (k, v) stacked to (L, B, S, KV, hd)
-    each (prefill), else None."""
+    kv): the MoE auxiliary loss summed over the layers in float32, in layer
+    order (0 without MoE blocks); with ``collect_kv`` kv is the per-layer
+    (k, v) stacked to (L, B, S, KV, hd) each (prefill), else None.  The VLM
+    takes ``vision`` (B, Nv, vision_dim) and stacks its kv as ((k, v) of
+    (G, n_self, B, S, KV, hd), (cross_k, cross_v) of (G, B, Nv, KV, hd))."""
     s = tokens.shape[1]
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for lp in params["blocks"]:
-        x, (k, v) = self_block_fwd(lp, x, cfg, positions)
+
+    def self_block(lp, x):
+        nonlocal aux
+        x, a, (k, v) = self_block_fwd(lp, x, cfg, positions)
+        if a is not None:
+            aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
+        return x
+
+    if cfg.family == "vlm":
+        if vision is None:
+            raise ValueError(f"{cfg.name}: the vlm forward requires vision embeddings")
+        vis = L.dot(vision.to(x.dtype), params["vision_proj"])
+        xks: List[torch.Tensor] = []
+        xvs: List[torch.Tensor] = []
+        for group, cp in zip(params["blocks"], params["cross_blocks"]):
+            for lp in group:
+                x = self_block(lp, x)
+            if collect_kv:
+                xks.append(L.dot(vis, cp["attn"]["wk"]))
+                xvs.append(L.dot(vis, cp["attn"]["wv"]))
+            x = cross_block_fwd(cp, x, vis, cfg)
+        kv = None
+        if collect_kv:
+            n_groups = len(params["blocks"])
+            kv = ((torch.stack(ks).unflatten(0, (n_groups, -1)),
+                   torch.stack(vs).unflatten(0, (n_groups, -1))),
+                  (torch.stack(xks), torch.stack(xvs)))
+    else:
+        for lp in params["blocks"]:
+            x = self_block(lp, x)
+        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), kv
+    return x, aux, kv
 
 
 def lm_head(params: DenseLM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -189,7 +305,22 @@ def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, An
         dtype=torch_dtype(cfg.dtype),
         init="zeros",
     )
-    return {"k": kv_spec, "v": kv_spec}
+    if cfg.family != "vlm":
+        return {"k": kv_spec, "v": kv_spec}
+    n_groups = cfg.n_layers // cfg.cross_every
+    self_spec = ParamSpec(
+        (n_groups, cfg.cross_every - 1, batch, s, kv, hd),
+        ("layers", "stack", "batch", "kv_seq", "kv_heads", None),
+        dtype=torch_dtype(cfg.dtype),
+        init="zeros",
+    )
+    cross_spec = ParamSpec(
+        (n_groups, batch, cfg.n_vision_tokens, kv, hd),
+        ("layers", "batch", None, "kv_heads", None),
+        dtype=torch_dtype(cfg.dtype),
+        init="zeros",
+    )
+    return {"k": self_spec, "v": self_spec, "cross_k": cross_spec, "cross_v": cross_spec}
 
 
 def _decode_self_block(lp, x_step, ck, cv, index: int, cfg: ModelConfig):
@@ -197,7 +328,11 @@ def _decode_self_block(lp, x_step, ck, cv, index: int, cfg: ModelConfig):
     y, ck, cv = L.decode_attention(lp["attn"], h, ck, cv, index, cfg)
     x_step = x_step + y
     h = L.rms_norm(x_step, lp["ln2"], cfg.norm_eps)
-    return x_step + L.swiglu(lp["mlp"], h), ck, cv
+    if "moe" in lp:
+        y, _ = L.moe_ffn(lp["moe"], h, cfg)
+    else:
+        y = L.swiglu(lp["mlp"], h)
+    return x_step + y, ck, cv
 
 
 def decode_step(
@@ -210,17 +345,32 @@ def decode_step(
     """One-token decode against the cache, which it updates in place (the
     reference donates it).  Returns (logits (B, V), cache)."""
     x = params["embed"][token].to(torch_dtype(cfg.dtype))  # (B, 1, D)
-    for i, lp in enumerate(params["blocks"]):
-        x, _, _ = _decode_self_block(lp, x, cache["k"][i], cache["v"][i], index, cfg)
+    if cfg.family == "vlm":
+        for g, (group, cp) in enumerate(zip(params["blocks"], params["cross_blocks"])):
+            for j, lp in enumerate(group):
+                x, _, _ = _decode_self_block(lp, x, cache["k"][g, j], cache["v"][g, j], index, cfg)
+            h = L.rms_norm(x, cp["ln1"], cfg.norm_eps)
+            x = x + L.cross_attention_cached(
+                cp["attn"], h, cache["cross_k"][g], cache["cross_v"][g], cfg)
+            x = _gated_mlp(cp, x, cfg)
+    else:
+        for i, lp in enumerate(params["blocks"]):
+            x, _, _ = _decode_self_block(lp, x, cache["k"][i], cache["v"][i], index, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(params, x, cfg)[:, 0]  # (B, V)
     return logits, cache
 
 
-def prefill(params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig):
+def prefill(
+    params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, vision: Optional[torch.Tensor] = None
+):
     """Full-sequence prefill: returns (last-position logits, populated cache)."""
-    x, _, (k_stack, v_stack) = forward_hidden(params, tokens, cfg, collect_kv=True)
+    x, _, kv = forward_hidden(params, tokens, cfg, vision=vision, collect_kv=True)
     logits = lm_head(params, x[:, -1:, :], cfg)[:, 0]
+    if cfg.family == "vlm":
+        (self_k, self_v), (cross_k, cross_v) = kv
+        return logits, {"k": self_k, "v": self_v, "cross_k": cross_k, "cross_v": cross_v}
+    k_stack, v_stack = kv
     if cfg.window and tokens.shape[1] > cfg.window:
         k_stack = k_stack[:, :, -cfg.window :]
         v_stack = v_stack[:, :, -cfg.window :]

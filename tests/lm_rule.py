@@ -14,7 +14,9 @@ token t − 1 at index prompt_len + t − 1), and at every step, for every row:
 * the tokens are equal (``==``) wherever the reference's top-2 margin
   exceeds 2τ.
 
-τ is relative to s = max_v |ℓ_ref[v]| of the row at that step:
+τ is relative to s = max_v |ℓ_ref[v]| of the row at that step, over the
+vocabulary's columns (a padded vocabulary's extra columns, masked to −1e30
+on both sides, are left out of s):
 
 * float32: τ = 8 · (L + 2) · 2⁻²³ · s — a few float32 ulps for each of the
   L layers and the embedding and head.  The products' float32 sums run in
@@ -30,7 +32,10 @@ token t − 1 at index prompt_len + t − 1), and at every step, for every row:
 
 Both are fixed before any comparison; a row that misses its τ is a port
 fault (ROADMAP.md, section 3), recorded with its inputs, never a reason to
-pick another seed.  Used by ``tests/test_torch_lm.py`` and
+pick another seed.  A MoE's routing can flip at a near-tie of its router
+logits, which moves a token by far more than τ: ``tests/moe_rule.py``
+holds MoE runs, applying this rule to each row's steps before its first
+tie-bound routing.  Used by ``tests/test_torch_lm.py`` and
 ``tests/test_torch_lm_serve.py`` (port against ``repro``), ``tests/
 test_torch_cuda.py`` and ``chip_smoke.py`` (card against CPU); imports
 numpy and torch only.
@@ -45,6 +50,10 @@ import numpy as np
 import torch
 
 
+#: Logits at or below this are a padded vocabulary's masked columns.
+MASKED = -1e29
+
+
 def tau(dtype: str, n_layers: int, scale: np.ndarray) -> np.ndarray:
     """The rule's bound for logits whose reference magnitude is ``scale``."""
     if dtype == "float32":
@@ -54,10 +63,11 @@ def tau(dtype: str, n_layers: int, scale: np.ndarray) -> np.ndarray:
     raise ValueError(f"no LM rule for dtype {dtype!r}")
 
 
-def stream_logits(model, params, prompts, stream) -> np.ndarray:
+def stream_logits(model, params, prompts, stream, vision=None) -> np.ndarray:
     """(B, T, V) float32 logits of a port ``Model`` on ``params`` teacher-
-    forced on ``stream`` (B, T) after ``prompts`` (B, L), on the params'
-    device, with the shapes ``make_generate`` uses for T new tokens."""
+    forced on ``stream`` (B, T) after ``prompts`` (B, L) (and a VLM's
+    ``vision`` (B, Nv, vision_dim)), on the params' device, with the shapes
+    ``make_generate`` uses for T new tokens."""
     from repro_torch.models import params as P
     from repro_torch.models.steps import graft_cache
 
@@ -66,8 +76,11 @@ def stream_logits(model, params, prompts, stream) -> np.ndarray:
     stream = torch.as_tensor(np.asarray(stream), dtype=torch.int32, device=dev)
     b, length = prompts.shape
     steps = stream.shape[1]
+    batch = {"tokens": prompts}
+    if vision is not None:
+        batch["vision"] = torch.as_tensor(vision).to(dev)
     with torch.inference_mode():
-        logits, prefill_cache = model.prefill_fn(params, {"tokens": prompts})
+        logits, prefill_cache = model.prefill_fn(params, batch)
         out = [logits.float().cpu()]
         cache = graft_cache(P.materialize(model.cache_specs(b, length + steps), None, dev),
                             prefill_cache)
@@ -90,7 +103,7 @@ def hold(
     ref = np.asarray(ref_logits, dtype=np.float32)
     if not (port.shape == ref.shape and port.shape[:2] == tokens.shape):
         raise AssertionError(f"{what}: shapes {tokens.shape}, {port.shape}, {ref.shape}")
-    scale = np.abs(ref).max(axis=-1)  # (B, T)
+    scale = np.where(ref > MASKED, np.abs(ref), 0.0).max(axis=-1)  # (B, T)
     bound = tau(dtype, n_layers, scale)
     diff = np.abs(port - ref).max(axis=-1)
     worst = np.unravel_index(np.argmax(diff / bound), diff.shape)

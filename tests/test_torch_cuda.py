@@ -13,8 +13,10 @@ on the card is held to the CPU by the DO-I rule of ``tests/doi_rule.py``
 summation bound), and the serve daemon's scheduler on the card serves every
 request and counts every tick as on the CPU.  The dense LM on the card is
 held to the CPU by the LM rule of ``tests/lm_rule.py`` (logits under teacher
-forcing within its τ), and a served LM request equals ``make_generate`` of
-its batch bucket exactly.
+forcing within its τ), the MoE by the MoE rule of ``tests/moe_rule.py``
+(the routings it calls decided equal, the LM rule before a sequence's first
+tie-bound routing), and a served LM request equals ``make_generate`` of its
+batch bucket exactly.
 """
 
 from __future__ import annotations
@@ -701,7 +703,8 @@ LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 
 
 def _lm_tree(model, seed):
-    """Seeded weights with non-trivial biases and norm weights (CPU)."""
+    """Seeded weights with non-trivial biases and norm weights (CPU), and a
+    VLM's gates (zero when materialized) set to ±(0.5-1.5)."""
     from repro_torch.models import params as PM
 
     tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed), device="cpu")
@@ -711,6 +714,12 @@ def _lm_tree(model, seed):
         if name in attn:
             noise = 0.05 * torch.randn(attn[name].shape, generator=gen)
             attn[name] = (attn[name].float() + noise).to(attn[name].dtype)
+    if "cross_blocks" in tree:
+        cross = tree["cross_blocks"]
+        for parent, name in ((cross["attn"], "gate"), (cross, "mlp_gate")):
+            size = 0.5 + torch.rand(parent[name].shape, generator=gen)
+            sign = torch.randint(0, 2, parent[name].shape, generator=gen) * 2 - 1
+            parent[name] = (size * sign).to(parent[name].dtype)
     return tree
 
 
@@ -754,3 +763,39 @@ def test_served_lm_request_equals_make_generate_of_its_bucket_on_card(cuda, once
     padded = torch.cat([prompts, torch.zeros((1, 32), dtype=torch.int32)])
     direct, _ = make_generate(lm.model)(lm.params, {"tokens": padded}, 16)
     assert torch.equal(tokens, direct[:3])
+
+
+LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_moe_and_vlm_on_card_held_to_cpu(cuda, arch, dtype):
+    """Each reduced MoE and VLM arch on the card against the same weights
+    on the CPU (the VLM gated, with seeded vision rows): the card's greedy
+    stream (32-token prompts, 16 new tokens) by the MoE rule or the LM rule;
+    in float32 every MoE routing is decided."""
+    import moe_rule
+    from repro_torch import configs as lm_configs
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import make_generate
+
+    cfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype=dtype)
+    model = get_model(cfg)
+    tree = _lm_tree(model, seed=10 + LM_FAMILIES.index(arch))
+    cpu = model.build_params(tree)
+    card = model.build_params(PM.map_tree(lambda t: t.to(cuda), tree))
+    prompts = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": prompts}
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.randn((2, cfg.n_vision_tokens, cfg.vision_dim),
+                             generator=torch.Generator().manual_seed(8)).to(torch.bfloat16)
+        batch["vision"] = vision
+    stream, _ = make_generate(model)(card, batch, 16)
+    summary = moe_rule.hold_streams(model, card, cpu, prompts, stream, vision=vision,
+                                    what=f"{arch} {dtype}")
+    if cfg.family == "moe" and dtype == "float32":
+        assert summary["route_bound"] == 0 and summary["steps_held"] == summary["steps"]

@@ -4,7 +4,9 @@
 The reference's prompts and weights (its key split in ``serve``) are carried
 across; the port serves them through the daemon and through ``--once``, and
 every served stream is held to the reference by the LM rule of
-``tests/lm_rule.py`` (bfloat16, τ stated there).  The serve cases of
+``tests/lm_rule.py`` (bfloat16, τ stated there), a MoE's by the MoE rule of
+``tests/moe_rule.py``.  A VLM's requests carry the reference's vision
+draws.  The serve cases of
 ``tests/test_launchers.py`` are mirrored on the port's own draws.
 """
 
@@ -21,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+import moe_rule
 from lm_rule import hold, stream_logits
 from repro.engine.adapters import LMEngineSolver as RefLMEngineSolver
 from repro.engine.bucketing import bucket_batch
+from repro import configs as ref_configs
 from repro.launch import serve as ref_serve
 from repro_torch import configs as port_configs
 from repro_torch import convert, engine
@@ -31,24 +35,50 @@ from repro_torch.engine.adapters import LMEngineSolver
 from repro_torch.launch import serve as port_serve
 from repro_torch.models.steps import make_generate
 from test_torch_lm import ref_stream_logits
+from test_torch_lm_families import gated, ref_recording
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
 def reference_draws(arch: str, batch: int, prompt_len: int, seed: int):
-    """The weights and prompts ``repro.launch.serve.serve`` draws for these
-    arguments (its five-way key split), as (reference adapter, prompts)."""
-    k_model, k_prompts, _, _, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
+    """The weights, prompts and (for a VLM) vision rows
+    ``repro.launch.serve.serve`` draws for these arguments (its five-way key
+    split), as (reference adapter, prompts, vision or None)."""
+    k_model, k_prompts, k_vision, _, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
     ref_lm = RefLMEngineSolver(arch, k_model, reduced=True)
-    prompts = jax.random.randint(k_prompts, (batch, prompt_len), 0, ref_lm.cfg.vocab,
-                                 dtype=jnp.int32)
-    return ref_lm, np.asarray(prompts)
+    cfg = ref_lm.cfg
+    prompts = jax.random.randint(k_prompts, (batch, prompt_len), 0, cfg.vocab, dtype=jnp.int32)
+    vision = None
+    if cfg.family == "vlm":
+        vision = np.stack([np.asarray(jax.random.normal(
+            key, (cfg.n_vision_tokens, cfg.vision_dim), jnp.bfloat16))
+            for key in jax.random.split(k_vision, batch)])
+    return ref_lm, np.asarray(prompts), vision
 
 
-def port_solver_on(ref_lm) -> LMEngineSolver:
+def port_solver_on(ref_lm, params=None) -> LMEngineSolver:
     params = convert.lm_params_from_reference(
-        port_configs.get_reduced(ref_lm.arch), jax.tree.map(np.asarray, ref_lm.params), "cpu")
+        port_configs.get_reduced(ref_lm.arch),
+        jax.tree.map(np.asarray, ref_lm.params if params is None else params), "cpu")
     return LMEngineSolver(ref_lm.arch, params=params)
+
+
+def held_stream(lm, ref_cfg, ref_params, prompts, tokens, vision=None, what=""):
+    """The port's served ``tokens`` held to the reference on the same
+    weights: by the MoE rule for a MoE (router inputs recorded on both
+    sides), else by the LM rule; returns the rule's summary."""
+    vis_t = None if vision is None else convert._tensor_from_reference(vision)
+    with moe_rule.recording() as port_calls, ref_recording() as ref_calls:
+        port = stream_logits(lm.model, lm.params, prompts, tokens, vision=vis_t)
+        ref = ref_stream_logits(ref_cfg, ref_params, prompts, tokens.numpy(), vision=vision)
+        jax.effects_barrier()
+    cfg = lm.cfg
+    if cfg.family != "moe":
+        return hold(tokens, port, ref, cfg.dtype, cfg.n_layers, what)
+    b, length = prompts.shape
+    calls = moe_rule.pair_calls(port_calls, ref_calls, moe_rule.stream_positions(
+        cfg.n_layers, length, tokens.shape[1]))
+    return moe_rule.hold(tokens, port, ref, cfg.dtype, cfg.n_layers, calls, length, what)
 
 
 @pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
@@ -56,7 +86,7 @@ def test_serve_matches_reference_by_the_rule(once):
     """The reference's serve at its defaults (4 × 32-token prompts, 16 new
     tokens, seed 0) and the port's serve of its prompts on its weights."""
     ref_report = ref_serve.serve("qwen2-1.5b", once=once)
-    ref_lm, prompts = reference_draws("qwen2-1.5b", 4, 32, seed=0)
+    ref_lm, prompts, _ = reference_draws("qwen2-1.5b", 4, 32, seed=0)
     lm = port_solver_on(ref_lm)
     report, tokens = port_serve.serve_prompts(
         lm, torch.as_tensor(np.array(prompts)), 16, torch.Generator().manual_seed(0), once=once)
@@ -90,6 +120,29 @@ def test_serve_loop(arch):
     assert out["new_tokens"] == 4
     assert len(out["sample"]) >= 4
     assert all(0 <= t < port_configs.get_reduced(arch).vocab for t in out["sample"])
+
+
+@pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b"])
+def test_family_serve_matches_reference_by_the_rules(arch, once):
+    """The reference's serve of a MoE or VLM arch at its defaults (4 ×
+    32-token prompts, 16 new tokens, seed 0; the VLM's requests with its
+    vision draws) and the port's serve of its prompts and vision rows on its
+    weights: the report's fields, and the streams by the MoE rule (MoE) or
+    the LM rule (VLM, its gates as materialized: zero)."""
+    ref_report = ref_serve.serve(arch, once=once)
+    ref_lm, prompts, vision = reference_draws(arch, 4, 32, seed=0)
+    lm = port_solver_on(ref_lm)
+    vis_t = None if vision is None else convert._tensor_from_reference(vision)
+    report, tokens = port_serve.serve_prompts(
+        lm, torch.as_tensor(np.array(prompts)), 16, torch.Generator().manual_seed(0),
+        vision=vis_t, once=once)
+    assert set(report) == set(ref_report) | {"device"} and report["device"] == "cpu"
+    for key in ("arch", "batch", "prompt_len", "new_tokens", "engine"):
+        assert report[key] == ref_report[key], key
+    rule = held_stream(lm, ref_lm.cfg, ref_lm.params, prompts, tokens, vision, f"{arch} serve")
+    if rule.get("steps_held", 64) == 64 and rule["tokens_not_ref_argmax"] == 0:
+        assert report["sample"] == ref_report["sample"]
 
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "whisper-large-v3"])
@@ -167,11 +220,11 @@ def test_lm_adapter_surface_equals_reference():
             assert port.cost_units(sig, bb) == ref.cost_units(sig, bb)
         assert port.fpga_seconds(sig) is None is ref.fpga_seconds(sig)
     with pytest.raises(ValueError, match="item 5"):
-        port.signature({"tokens": np.zeros(4, np.int32), "max_new_tokens": 1, "vision": 0})
+        port.signature({"tokens": np.zeros(4, np.int32), "max_new_tokens": 1, "frames": 0})
     with pytest.raises(ValueError, match="exactly one of"):
         LMEngineSolver("qwen2-1.5b", device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
-        LMEngineSolver("granite-moe-3b-a800m", torch.Generator(), device="cpu")
+        LMEngineSolver("whisper-large-v3", torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
@@ -186,3 +239,48 @@ def test_serve_cli(once):
     assert report["device"] == "cpu" and report["engine"] == {"slabs": 1, "pad_fraction": 0.0}
     want = port_serve.serve("qwen2-1.5b", max_new_tokens=5, device="cpu")
     assert report["sample"] == want["sample"]
+
+
+def test_lm_adapter_packs_vision_and_zero_pads_like_a_direct_generate():
+    """A gated VLM (non-zero gates, so that vision moves the logits) through
+    the registry: a 1-D request and a 2-lane request with their vision rows
+    share one 4-lane slab, the padded lane's tokens and vision zero; each
+    result is its rows of a direct generate of the bucket, and the signature
+    carries ``("vision",)`` as the reference's does.  A VLM request without
+    vision and a ``frames`` request are refused."""
+    cfg_ref = ref_configs.get_reduced("llama-3.2-vision-11b")
+    ref_lm = RefLMEngineSolver("llama-3.2-vision-11b", jax.random.PRNGKey(1))
+    lm = port_solver_on(ref_lm, gated(ref_lm.params, seed=3))
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, 256, (3, 9), generator=gen, dtype=torch.int32)
+    vis = port_serve.draw_vision(cfg_ref.n_vision_tokens, cfg_ref.vision_dim, 3, gen)
+    payloads = [{"tokens": toks[0], "vision": vis[0], "max_new_tokens": 5},
+                {"tokens": toks[1:], "vision": vis[1:], "max_new_tokens": 5}]
+    sig = lm.signature(payloads[0])
+    assert sig == (9, 5, ("vision",)) == ref_lm.signature(
+        {"tokens": toks[0].numpy(), "vision": vis[0].float().numpy(), "max_new_tokens": 5})
+    seen = []
+    generate = lm._generate
+    lm._generate = lambda params, batch_in, n: (seen.append(batch_in), generate(
+        params, batch_in, n))[1]
+    eng = engine.Engine(torch.Generator().manual_seed(0), device="cpu")
+    eng.install("lm", lm)
+    futs = [eng.submit(engine.Request("lm", p)) for p in payloads]
+    stats = eng.drain()
+    assert stats["slabs_per_bucket"] == {"lm:(9, 5, ('vision',)):batch4": 1}
+    batch = {"tokens": torch.cat([toks, torch.zeros((1, 9), dtype=torch.int32)]),
+             "vision": torch.cat([vis, torch.zeros_like(vis[:1])])}
+    assert len(seen) == 1 and seen[0].keys() == batch.keys()
+    for name in batch:  # packed in submission order, the padded lane zero
+        assert seen[0][name].dtype == batch[name].dtype and torch.equal(seen[0][name], batch[name])
+    direct, _ = make_generate(lm.model)(lm.params, batch, 5)
+    assert torch.equal(futs[0].result(), direct[0])
+    assert torch.equal(futs[1].result(), direct[1:3])
+    with torch.inference_mode():
+        moved = lm.params(batch["tokens"], batch["vision"].flip(-1))[:, -1]
+        base = lm.params(batch["tokens"], batch["vision"])[:, -1]
+    assert not torch.equal(moved, base)  # the vision rows reach the logits
+    with pytest.raises(ValueError, match="requires vision"):
+        lm.signature({"tokens": toks[0], "max_new_tokens": 5})
+    with pytest.raises(ValueError, match="item 5"):
+        lm.signature({**payloads[0], "frames": vis[0]})
