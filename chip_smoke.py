@@ -160,7 +160,7 @@ and prints one JSON line per phase:
    ``ServeDaemon`` under 1x2, every request equal to its solve.
    ``launcher``: ``launch.retrieve``'s serve under 1x4, equal to the
    unsharded serve, the report with ``mesh_devices`` 4 and ``shard_plan``.
-15. ``lm`` (nine lines): the LM serving path (``repro_torch.models``, the
+15. ``lm`` (fifteen lines): the LM serving path (``repro_torch.models``, the
    ``"lm"`` engine workload, ``repro_torch.launch.serve``), which runs
    plain PyTorch and none of the kernels above (``ported_kernel_launches``
    0).  ``serve``: qwen2-1.5b at full width (28 layers, 1.777 B parameters,
@@ -190,9 +190,28 @@ and prints one JSON line per phase:
    LM rule with the materialized (zero) gates, under which another vision
    leaves the card's prefill logits bit-equal; then with the gates set
    non-zero on both copies, under which it moves them, a new stream held
-   again.  ``archs``: the four dense archs, granite-moe, arctic and
-   llama-3.2-vision (gated) at their reduced sizes, card against CPU on the
-   same weights, float32 and bfloat16, by the LM rule or the MoE rule.
+   again (both fresh, cut streams: 2 requests × 8 tokens, and 1 × 4
+   gated).  ``serve_encdec``: whisper-large-v3 at full width (32 encoder and
+   32 decoder layers, 1.536 B parameters) with the ``serve`` traffic, each
+   request with 32 bf16 frames of 1280 drawn after the prompts (the
+   launcher's default; the decode's 1500 cross slots hold 32 real ones,
+   reference fault 7); ``serve_encdec_1500``: 32 requests of 1500 frames
+   (a 30 s window, no padded slot) and 16-token prompts, 64 new tokens;
+   ``cpu_check_encdec``: the ``serve_encdec`` streams and the first 30 s
+   request's own one-lane stream held to a CPU copy by the LM rule at depth
+   64.  ``serve_zamba`` and ``serve_zamba_batch128``: zamba2-2.7b at full
+   width (54 Mamba2 layers and 9 invocations of the shared block, 2.42 B
+   parameters), 4 requests of 256-token prompts (one SSD chunk) and 16 new
+   tokens, and 128 × 512 with 64 new; ``cpu_check_zamba`` at depth 63.
+   ``serve_xlstm``, ``serve_xlstm_batch128`` and ``cpu_check_xlstm``:
+   xlstm-1.3b at full width (42 mLSTM and 6 sLSTM blocks, 2.55 B
+   parameters), the same traffic; the LM rule's ratios at depth 48 are
+   reported and miss τ (the model compounds rounding from block to block,
+   ROADMAP.md section 3, port fault 5), so the line is held block by block:
+   every block, card against CPU, on identical inputs.  ``archs``: the ten archs at
+   their reduced sizes (llama-3.2-vision gated, whisper with 32 frames),
+   card against CPU on the same weights, float32 and bfloat16, by the LM
+   rule at ``lm_rule.depth`` or the MoE rule.
 
 Launch counts are set to 0 before each main-path phase (4-15) and read after
 it; every kernel must have launched on a main path, and each row of the
@@ -297,9 +316,21 @@ SHARDED_N, SHARDED_LAUNCH_REQUESTS = 4096, 256
 #: engine's widest batch bucket; the archs held card against CPU at their
 #: reduced sizes.
 LM_ARCH, LM_MOE_ARCH, LM_VLM_ARCH = "qwen2-1.5b", "granite-moe-3b-a800m", "llama-3.2-vision-11b"
+LM_ENCDEC_ARCH, LM_ZAMBA_ARCH, LM_XLSTM_ARCH = "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b"
 LM_SERVE, LM_BATCH128 = (4, 32, 16), (128, 512, 64)
+#: Whisper's 30 s windows: requests and new tokens, each request with
+#: ENCDEC_DECODE_MEMORY_LEN frames and ENCDEC_PREFILL_PROMPT_LEN prompt tokens.
+LM_ENCDEC_1500 = (32, 64)
+#: Zamba's and xLSTM's small batch: prompts of one SSD chunk (ssm_chunk 256).
+LM_SSM_SERVE = (4, 256, 16)
+#: The depth cut of an earlier LM line that keeps the script inside its time
+#: limit (listed in its line's ``depth_cut``): (streams, new tokens) of
+#: ``cpu_check_vlm``'s fresh zero-gate and gated streams (the served 4 × 16
+#: before).
+LM_VLM_ZERO_CUT, LM_VLM_GATED_CUT = (2, 8), (1, 4)
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
-LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b")
+LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b",
+               "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -1611,42 +1642,103 @@ def lm_decode_bound(model, batch: int, prompt_len: int, new: int) -> tuple:
     """(ms, by): the least time of one decode step of ``model``'s config,
     averaged over the steps of a run.  Bytes: every weight a step reads once
     (all but the embedding table, of which B rows; a VLM's ``vision_proj``
-    and cross ``wk``/``wv`` are not read: their products sit in the cache;
-    every MoE expert computes its slots, so every expert's weights count),
-    the valid self-attention keys and values, and a VLM's cross keys and
-    values.  Operations: two per multiplied weight and lane, at the bf16
-    peak."""
+    and the cross ``wk``/``wv`` of the VLM and the enc-dec decoder are not
+    read: their products sit in the cache; an enc-dec model's encoder is not
+    read, and its tied ``embed`` is read whole as the head; Zamba's shared
+    block is read once per invocation, its weights far past the L2; every
+    MoE expert computes its slots, so every expert's weights count), the
+    valid self-attention keys and values, the cross keys and values (a
+    VLM's vision tokens; all ENCDEC_DECODE_MEMORY_LEN slots of the enc-dec
+    cache), and a recurrent cache's state and conv buffers (Zamba, xLSTM),
+    read and written.  Operations: two per multiplied weight and lane, at
+    the bf16 peak."""
     from repro_torch.models import params as PM
+    from repro_torch.models.model import ENCDEC_DECODE_MEMORY_LEN, ENCDEC_PREFILL_PROMPT_LEN
 
     cfg = model.cfg
-    skip = ("embed", "vision_proj", "cross_blocks.attn.wk", "cross_blocks.attn.wv")
+    skip = ("embed", "vision_proj", "cross_blocks.attn.wk", "cross_blocks.attn.wv",
+            "dec_blocks.cross_attn.wk", "dec_blocks.cross_attn.wv")
+    invocations = cfg.n_layers // cfg.shared_attn_every if cfg.family == "zamba" else 1
     weights = n_mult = 0
     for path, spec in PM.leaves(model.param_specs):
-        if path in skip:
+        if path in skip or path.startswith(("enc_blocks.", "enc_norm.")):
             continue
-        n = int(np.prod(spec.shape))
+        n = int(np.prod(spec.shape)) * (invocations if path.startswith("shared.") else 1)
         weights += n * spec.dtype.itemsize
         n_mult += n
+    if cfg.family == "encdec":  # the tied head
+        weights += cfg.padded_vocab * cfg.d_model * 2
+        n_mult += cfg.padded_vocab * cfg.d_model
     weights += batch * cfg.d_model * 2
     kv_row = 2 * batch * cfg.n_kv_heads * cfg.hd * 2  # k and v of one layer and position, bf16
-    n_self = cfg.n_layers
-    cross = 0
+    n_self = {"vlm": cfg.n_layers // max(cfg.cross_every, 1) * (cfg.cross_every - 1),
+              "zamba": invocations, "xlstm": 0}.get(cfg.family, cfg.n_layers)
+    cache = 0
     if cfg.family == "vlm":
-        n_groups = cfg.n_layers // cfg.cross_every
-        n_self = n_groups * (cfg.cross_every - 1)
-        cross = n_groups * cfg.n_vision_tokens * kv_row
+        cache = cfg.n_layers // cfg.cross_every * cfg.n_vision_tokens * kv_row
+    elif cfg.family == "encdec":
+        cache = cfg.n_layers * ENCDEC_DECODE_MEMORY_LEN * kv_row
+    elif cfg.family in ("zamba", "xlstm"):  # the recurrent leaves, read and written
+        cache = 2 * PM.param_bytes({k: v for k, v in model.cache_specs(batch, 1).items()
+                                    if k not in ("k", "v")})
     steps = range(prompt_len, prompt_len + new - 1)  # index + 1 keys valid
     kv = sum(n_self * kv_row * (i + 1) for i in steps) / len(steps)
-    return bound(weights + kv + cross, 2 * n_mult * batch, BF16_FLOPS_PER_S)
+    return bound(weights + kv + cache, 2 * n_mult * batch, BF16_FLOPS_PER_S)
+
+
+def xlstm_blocks_held(card, cpu, prompt, token, dev) -> dict:
+    """Every block of an xLSTM on the card against its CPU copy on identical
+    inputs (the CPU's hidden states): over ``prompt`` (1, T), then one decode
+    step of ``token`` (1, 1) from the CPU's caches.  Each block's output
+    must lie within 2⁻⁶ (bf16; float32: 2⁻¹⁸) of its largest magnitude, the
+    single-block tolerance of the CPU tests.  Returns the largest |Δ| over
+    that tolerance, for the prefill and the step, and the block count."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.params import torch_dtype
+
+    cfg = cpu.cfg
+    tol = 2.0**-6 if cfg.dtype == "bfloat16" else 2.0**-18
+    worst = {"prefill": 0.0, "decode_step": 0.0}
+
+    def held(part, got, want):
+        err = float((got.float().cpu() - want.float()).abs().max())
+        worst[part] = max(worst[part], err / (tol * float(want.float().abs().max())))
+
+    def to_dev(cache):  # a copy: each side's decode step writes its cache in place
+        if isinstance(cache, X.MLSTMCache):
+            return X.MLSTMCache(*(t.to(dev, copy=True) for t in cache))
+        return cache[0].to(dev, copy=True), X.SLSTMCache(*(t.to(dev, copy=True) for t in cache[1]))
+
+    blocks = []
+    for g_cpu, g_card, s_cpu, s_card in zip(cpu.mblocks, card.mblocks, cpu.sblocks, card.sblocks):
+        blocks += [("mlstm", c, d) for c, d in zip(g_cpu, g_card)] + [("slstm", s_cpu, s_card)]
+    with torch.inference_mode():
+        x = cpu["embed"][prompt].to(torch_dtype(cfg.dtype))
+        x_step = cpu["embed"][token].to(torch_dtype(cfg.dtype))
+        for kind, c, d in blocks:
+            forward = X.mlstm_forward if kind == "mlstm" else X.slstm_forward
+            step = X.mlstm_decode_step if kind == "mlstm" else X.slstm_decode_step
+            h = L.rms_norm(x, c["ln"], cfg.norm_eps)
+            y, cache = forward(c[kind], h, cfg, return_cache=True)
+            held("prefill", forward(d[kind], h.to(dev), cfg), y)
+            card_cache = to_dev(cache)
+            h = L.rms_norm(x_step, c["ln"], cfg.norm_eps)
+            y_step, _ = step(c[kind], h, cache, cfg)
+            held("decode_step", step(d[kind], h.to(dev), card_cache, cfg)[0], y_step)
+            x, x_step = x + y, x_step + y_step
+    return {"max_err_over_tol": max(worst.values()), "tolerance": tol, "blocks": len(blocks),
+            **{f"{k}_max_err_over_tol": v for k, v in worst.items()}}
 
 
 def lm_lines(dev, seed, drive) -> dict:
     """Phase 15: the LM serving path on ``dev``, one JSON line per part:
-    the dense family (qwen2-1.5b), the MoE (granite-moe-3b-a800m) and the
-    VLM (llama-3.2-vision-11b) at full width, then the reduced archs of the
-    three families card against CPU; returns the launches of these lines by
-    kernel (none is expected: the path is plain PyTorch).  ``drive``:
-    main's launch-counting runner."""
+    the dense family (qwen2-1.5b), the MoE (granite-moe-3b-a800m), the VLM
+    (llama-3.2-vision-11b), the enc-dec (whisper-large-v3), Zamba
+    (zamba2-2.7b) and xLSTM (xlstm-1.3b) at full width, then the reduced
+    archs of the six families card against CPU; returns the launches of
+    these lines by kernel (none is expected: the path is plain PyTorch).
+    ``drive``: main's launch-counting runner."""
     import copy
 
     from repro_torch import configs as lm_configs
@@ -1658,7 +1750,7 @@ def lm_lines(dev, seed, drive) -> dict:
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import moe_rule
-    from lm_rule import hold
+    from lm_rule import depth, hold, ratios
 
     own = {}
 
@@ -1687,29 +1779,29 @@ def lm_lines(dev, seed, drive) -> dict:
                 f"lm: {arch} is not at full width")
         return lm, gen, time.perf_counter() - t0
 
-    def serve_part(lm, gen, part, batch, prompt_len, new, prompts, vision, build_s):
+    def serve_part(lm, gen, part, batch, prompt_len, new, prompts, vision, build_s, frames=None):
         cfg = lm.cfg
         torch.cuda.reset_peak_memory_stats()
         t_part = time.perf_counter()
+        extras = {"vision": vision, "frames": frames}
         lm.timings.clear()
         (rep_d, tok_d), _, n_d = driven(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         lm.timings.clear()
         (rep_o, tok_o), _, n_o = driven(lambda: launch_serve.serve_prompts(
-            lm, prompts, new, torch.Generator().manual_seed(seed), vision=vision, once=True))
+            lm, prompts, new, torch.Generator().manual_seed(seed), once=True, **extras))
         require(torch.equal(tok_d, tok_o), f"lm {part}: daemon and --once tokens differ")
-        batch_in = {"tokens": prompts}
-        if vision is not None:
-            batch_in["vision"] = vision
+        batch_in = {"tokens": prompts, **{k: v for k, v in extras.items() if v is not None}}
         direct, _ = make_generate(lm.model)(lm.params, batch_in, new)
         require(torch.equal(tok_d, direct),
                 f"lm {part}: a served request differs from make_generate of its bucket")
+        del direct
         lm.timings.clear()
         warm = solve_seconds(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         timing = dict(lm.timings[-1])
         busy_ms, per_name = device_busy(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, vision=vision))
+            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
         bound_ms, bound_by = lm_decode_bound(lm.model, batch, prompt_len, new)
         line = {
@@ -1737,6 +1829,10 @@ def lm_lines(dev, seed, drive) -> dict:
                 np.ceil(cfg.capacity_factor * cfg.top_k * prompt_len / cfg.n_experts)))
         if vision is not None:
             line["vision"] = list(vision.shape[1:])
+        if frames is not None:
+            line["frames"] = list(frames.shape[1:])
+        if cfg.family in ("zamba", "xlstm"):
+            line["ssm_chunk"] = cfg.ssm_chunk
         emit(line)
         return tok_d
 
@@ -1830,9 +1926,18 @@ def lm_lines(dev, seed, drive) -> dict:
                 lm.params, {"tokens": prompts.to(dev), "vision": vis.to(dev)}))
         return logits.float().cpu(), n
 
+    def cut_stream(streams, steps):
+        """A fresh card stream of the first ``streams`` requests (the depth
+        cut of this line), and its batch."""
+        batch_cut = {"tokens": prompts[:streams], "vision": vision[:streams]}
+        (stream, _), _, n = driven(lambda: make_generate(lm.model)(lm.params, batch_cut, steps))
+        return stream, batch_cut, n
+
+    zero_stream, zero_batch, n_z = cut_stream(*LM_VLM_ZERO_CUT)
     t_cpu = time.perf_counter()
     zero = held("lm cpu_check_vlm", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, prompts, served, vision=vision, what="lm cpu_check_vlm"))
+        lm.model, lm.params, cpu_lm, zero_batch["tokens"], zero_stream,
+        vision=zero_batch["vision"], what="lm cpu_check_vlm"))
     cpu_s = time.perf_counter() - t_cpu
     (base, n_a), (moved, n_b) = prefill_logits(vision), prefill_logits(vision2)
     require(torch.equal(base, moved), "lm cpu_check_vlm: vision moved the logits at zero gates")
@@ -1841,26 +1946,144 @@ def lm_lines(dev, seed, drive) -> dict:
     (gated_base, n_c), (gated_moved, n_d) = prefill_logits(vision), prefill_logits(vision2)
     require(not torch.equal(gated_base, gated_moved),
             "lm cpu_check_vlm: vision did not move the logits with non-zero gates")
-    (gated_stream, _), _, n_e = driven(lambda: make_generate(lm.model)(
-        lm.params, {"tokens": prompts, "vision": vision}, new))
+    gated_stream, gated_batch, n_e = cut_stream(*LM_VLM_GATED_CUT)
     t_cpu = time.perf_counter()
     gated_rule = held("lm cpu_check_vlm gated", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, prompts, gated_stream, vision=vision,
-        what="lm cpu_check_vlm gated"))
+        lm.model, lm.params, cpu_lm, gated_batch["tokens"], gated_stream,
+        vision=gated_batch["vision"], what="lm cpu_check_vlm gated"))
     cpu_gated_s = time.perf_counter() - t_cpu
     del cpu_lm, lm
     torch.cuda.empty_cache()
     emit({"phase": "lm", "part": "cpu_check_vlm", "arch": LM_VLM_ARCH, "depth": cfg.n_layers,
-          "cross_layers": cfg.n_layers // cfg.cross_every, "depth_cut": None, "streams": batch,
-          "steps": new, "rule": zero, "cpu_s": cpu_s,
+          "cross_layers": cfg.n_layers // cfg.cross_every,
+          "depth_cut": {"zero_gates": {"streams": [batch, LM_VLM_ZERO_CUT[0]],
+                                       "steps": [new, LM_VLM_ZERO_CUT[1]]},
+                        "gated": {"streams": [batch, LM_VLM_GATED_CUT[0]],
+                                  "steps": [new, LM_VLM_GATED_CUT[1]]}},
+          "streams": LM_VLM_ZERO_CUT[0], "steps": LM_VLM_ZERO_CUT[1], "rule": zero,
+          "cpu_s": cpu_s,
           "vision_moves_logits": {"zero_gates": False, "gated": True},
           "gated": {"rule": gated_rule, "cpu_s": cpu_gated_s,
                     "max_abs_logit_change_from_vision": float(
                         (gated_base - gated_moved).abs().max())},
-          "ported_kernel_launches": n_a + n_b + n_c + n_d + n_e,
+          "ported_kernel_launches": n_z + n_a + n_b + n_c + n_d + n_e,
           "part_s": time.perf_counter() - t_part})
 
-    # archs: every dense, MoE and VLM arch at reduced size, card against CPU -------
+    def cpu_check(part, arch, lm, held_runs, t_part):
+        """Hold each (what, prompts, stream, frames) of ``held_runs`` made on
+        the card to a CPU copy of ``lm`` by the LM rule at ``depth(cfg)``,
+        emit the part's line, and free the model."""
+        cfg = lm.cfg
+        cpu_lm = copy.deepcopy(lm.params).to("cpu")
+        rules, cpu_s = {}, {}
+        for what, prompts_h, stream_h, frames_h in held_runs:
+            t_cpu = time.perf_counter()
+            rules[what] = held(f"lm {part} {what}", lambda: moe_rule.hold_streams(
+                lm.model, lm.params, cpu_lm, prompts_h, stream_h, frames=frames_h,
+                what=f"lm {part} {what}"))
+            cpu_s[what] = time.perf_counter() - t_cpu
+        del cpu_lm
+        first = next(iter(rules))
+        emit({"phase": "lm", "part": part, "arch": arch, "depth": depth(cfg),
+              "layers": cfg.n_layers, "depth_cut": None,
+              "streams": {what: list(stream.shape) for what, _, stream, _ in held_runs},
+              "rule": rules[first], "max_diff_over_tau": max(
+                  r["max_diff_over_tau"] for r in rules.values()),
+              "rules": rules, "cpu_s": cpu_s, "ported_kernel_launches": 0,
+              "part_s": time.perf_counter() - t_part})
+
+    def xlstm_cpu_check(lm, prompts, served, t_part):
+        """``cpu_check_xlstm``: the LM rule at depth 48 is measured and
+        reported, but xlstm-1.3b's random weights compound rounding
+        differences from block to block (port fault 5, ROADMAP.md section
+        3), so the line is held by ``xlstm_blocks_held``: every block, card
+        against CPU, on identical inputs.  Beside it, the model's own
+        sensitivity: the card's bf16 stream against a float32 run of the same
+        weights, in the rule's τ."""
+        from lm_rule import stream_logits
+
+        cfg = lm.cfg
+        cpu_lm = copy.deepcopy(lm.params).to("cpu")
+        t_cpu = time.perf_counter()
+        card_logits = stream_logits(lm.model, lm.params, prompts, served)
+        cpu_logits = stream_logits(lm.model, cpu_lm, prompts, served)
+        cpu_s = time.perf_counter() - t_cpu
+        measured = ratios(card_logits, cpu_logits, cfg.dtype, depth(cfg))
+        try:
+            rule = hold(served, card_logits, cpu_logits, cfg.dtype, depth(cfg), "cpu_check_xlstm")
+        except AssertionError as exc:
+            rule = {"held": False, "first_miss": str(exc)}
+        rule.update(max_diff_over_tau=float(measured.max()),
+                    min_diff_over_tau=float(measured.min()),
+                    steps_over_tau=int((measured > 1).sum()), steps=int(measured.size))
+        model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+        card32 = stream_logits(model32, lm.params, prompts, served)
+        sensitivity = ratios(card_logits, card32, cfg.dtype, depth(cfg))
+        t_blocks = time.perf_counter()
+        blocks = xlstm_blocks_held(lm.params, cpu_lm, prompts[:1], served[:1, :1], dev)
+        blocks["cpu_s"] = time.perf_counter() - t_blocks
+        require(blocks["max_err_over_tol"] <= 1.0,
+                f"lm cpu_check_xlstm: a block differs between the card and the CPU on identical "
+                f"inputs: {blocks}")
+        del cpu_lm
+        emit({"phase": "lm", "part": "cpu_check_xlstm", "arch": LM_XLSTM_ARCH,
+              "depth": depth(cfg), "layers": cfg.n_layers, "depth_cut": None,
+              "streams": {"serve_xlstm": list(served.shape)}, "rule": rule,
+              "max_diff_over_tau": rule["max_diff_over_tau"], "port_fault": 5,
+              "held_by": "blocks", "blocks": blocks,
+              "sensitivity_bf16_vs_float32_over_tau": {
+                  "max": float(sensitivity.max()), "min": float(sensitivity.min())},
+              "cpu_s": cpu_s, "ported_kernel_launches": 0,
+              "part_s": time.perf_counter() - t_part})
+
+    # the enc-dec: whisper-large-v3 -----------------------------------------------
+    from repro_torch.models.model import ENCDEC_DECODE_MEMORY_LEN, ENCDEC_PREFILL_PROMPT_LEN
+
+    lm, gen, build_s = build(LM_ENCDEC_ARCH, 32, 1280, 1_535_595_520)
+    cfg = lm.cfg
+    require(cfg.n_encoder_layers == 32, "lm: whisper-large-v3 has 32 encoder layers")
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    frames = launch_serve.draw_frames(prompt_len, cfg.d_model, batch, gen)
+    served = serve_part(lm, gen, "serve_encdec", batch, prompt_len, new, prompts, None, build_s,
+                        frames=frames)
+    (b1500, n1500), p1500 = LM_ENCDEC_1500, ENCDEC_PREFILL_PROMPT_LEN
+    prompts_1500 = launch_serve.draw_prompts(cfg.vocab, b1500, p1500, gen)
+    frames_1500 = launch_serve.draw_frames(ENCDEC_DECODE_MEMORY_LEN, cfg.d_model, b1500, gen)
+    served_1500 = serve_part(lm, gen, "serve_encdec_1500", b1500, p1500, n1500, prompts_1500,
+                             None, build_s, frames=frames_1500)
+    t_part = time.perf_counter()
+    # The first 30 s request alone: its own one-lane stream on the card (a
+    # stream is held at the batch it was made at).
+    (first_1500, _), _, n_first = driven(lambda: make_generate(lm.model)(
+        lm.params, {"tokens": prompts_1500[:1], "frames": frames_1500[:1]}, new))
+    require(n_first == 0, "lm cpu_check_encdec: a ported kernel launched")
+    cpu_check("cpu_check_encdec", LM_ENCDEC_ARCH, lm, [
+        ("serve_encdec", prompts, served, frames),
+        ("serve_encdec_1500_first", prompts_1500[:1], first_1500, frames_1500[:1])], t_part)
+    del lm, served_1500, frames_1500
+    torch.cuda.empty_cache()
+
+    # Zamba and xLSTM: zamba2-2.7b, xlstm-1.3b -----------------------------------
+    for arch, short, shape in ((LM_ZAMBA_ARCH, "zamba", (54, 2560, 2_422_711_200)),
+                               (LM_XLSTM_ARCH, "xlstm", (48, 2048, 2_552_244_560))):
+        lm, gen, build_s = build(arch, *shape)
+        cfg = lm.cfg
+        s_batch, s_prompt, s_new = LM_SSM_SERVE
+        prompts = launch_serve.draw_prompts(cfg.vocab, s_batch, s_prompt, gen)
+        served = serve_part(lm, gen, f"serve_{short}", s_batch, s_prompt, s_new, prompts, None,
+                            build_s)
+        serve_part(lm, gen, f"serve_{short}_batch128", b128, p128, n128,
+                   launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+        t_part = time.perf_counter()
+        if short == "zamba":
+            cpu_check("cpu_check_zamba", arch, lm, [("serve_zamba", prompts, served, None)],
+                      t_part)
+        else:
+            xlstm_cpu_check(lm, prompts, served, t_part)
+        del lm
+        torch.cuda.empty_cache()
+
+    # archs: every arch at reduced size, card against CPU --------------------------
     t_part = time.perf_counter()
     rules, launches = {}, 0
     archs = LM_DENSE + LM_FAMILIES
@@ -1875,24 +2098,31 @@ def lm_lines(dev, seed, drive) -> dict:
                 generator=torch.Generator().manual_seed(seed + 100 + i))}
             cpu_params = model.build_params(tree)
             card_params = model.build_params(PM.map_tree(lambda t: t.to(dev), tree))
-            vis = None
+            vis = fr = None
             if rcfg.family == "vlm":
                 gate_vlm(cpu_params, seed + i)
                 gate_vlm(card_params, seed + i)
                 vis = launch_serve.draw_vision(rcfg.n_vision_tokens, rcfg.vision_dim, 2,
                                                torch.Generator().manual_seed(seed + 200 + i))
                 batch_in["vision"] = vis
+            if rcfg.family == "encdec":
+                fr = launch_serve.draw_frames(32, rcfg.d_model, 2,
+                                              torch.Generator().manual_seed(seed + 300 + i))
+                batch_in["frames"] = fr
             (stream, _), _, n = driven(lambda: make_generate(model)(card_params, batch_in, 16))
             launches += n
             what = f"lm archs {arch} {dtype}"
             rules[f"{arch}:{dtype}"] = held(what, lambda: moe_rule.hold_streams(
-                model, card_params, cpu_params, batch_in["tokens"], stream, vision=vis, what=what))
+                model, card_params, cpu_params, batch_in["tokens"], stream, vision=vis,
+                frames=fr, what=what))
             if rcfg.family == "moe" and dtype == "float32":
                 require(rules[f"{arch}:{dtype}"]["route_bound"] == 0,
                         f"{what}: a float32 routing is tie-bound")
     emit({"phase": "lm", "part": "archs", "archs": list(archs), "prompt_len": 32,
           "new_tokens": 16, "rules": rules, "ring_buffer": "h2o-danube-1.8b (window 32)",
-          "vlm_gated": True, "ported_kernel_launches": launches,
+          "vlm_gated": True, "encdec_frames": 32,
+          "depths": {arch: depth(lm_configs.get_reduced(arch)) for arch in archs},
+          "ported_kernel_launches": launches,
           "part_s": time.perf_counter() - t_part})
     torch.cuda.empty_cache()
     return own

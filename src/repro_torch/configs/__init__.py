@@ -3,8 +3,7 @@
 
 ``--arch <id>`` everywhere resolves through :func:`get_config`; every
 config, reduced config, shape and cell equals the reference's.  The port
-serves the dense family (``repro_torch.models.model.get_model``); the other
-families' configs are data here until their models are ported.
+serves every one (``repro_torch.models.model.get_model``).
 """
 
 from __future__ import annotations

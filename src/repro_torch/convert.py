@@ -76,13 +76,16 @@ def _tensor_from_reference(a: np.ndarray) -> torch.Tensor:
 
 
 def lm_params_from_reference(cfg, tree: Mapping[str, Any], device=None):
-    """The port's LM module (``DenseLM``, or ``VisionLM`` for a VLM) on
-    ``device`` (the GPU unless ``"cpu"``) holding the reference's LM
+    """The port's LM module (``DenseLM``, ``VisionLM``, ``EncDecLM``,
+    ``ZambaLM`` or ``XLSTMLM``, as ``get_model(cfg).build_params`` builds
+    it) on ``device`` (the GPU unless ``"cpu"``) holding the reference's LM
     parameter tree (nested dicts of numpy arrays, layers stacked on a leading
-    axis, the VLM's ``blocks`` on two, as ``repro.models.params.materialize``
-    makes it): the stacking axes are unstacked, the names and dtypes stay
-    (a MoE router is float32).  Every leaf's path and shape must match
-    ``cfg``'s spec tree."""
+    axis — the VLM's ``blocks``, Zamba's ``blocks`` and xLSTM's ``mblocks``
+    on two — as ``repro.models.params.materialize`` makes it): the stacking
+    axes are unstacked, the names and dtypes stay (a MoE router, the SSM's
+    ``a_log``, ``d_skip`` and ``dt_bias`` and the mLSTM's gate weights are
+    float32).  Every leaf's path and shape must match ``cfg``'s spec
+    tree."""
     from repro_torch.models import params as P
     from repro_torch.models.model import get_model
 

@@ -663,14 +663,17 @@ class LMEngineSolver:
     """Serves prompt → greedy-decode requests for one model instance.
 
     Payload: ``{"tokens": (L,) or (B, L) int, "max_new_tokens": int}``,
-    plus ``"vision"`` ((Nv, vision_dim) or (B, Nv, vision_dim)) for the VLM.
+    plus ``"vision"`` ((Nv, vision_dim) or (B, Nv, vision_dim)) for the VLM
+    and ``"frames"`` ((T_enc, d_model) or (B, T_enc, d_model)) for the
+    enc-dec family.
     Buckets are (prompt_len, max_new_tokens, extras); lanes coalesce along
     batch, padded lanes decode zero prompts whose outputs are dropped (batch
     rows are independent, so real lanes are unaffected).  ``extras`` names
     any other payload key; each extra is concatenated along the batch and
-    zero-padded for the padded lanes, as the tokens are.  A ``frames``
-    payload (enc-dec) is refused until its family is ported (ROADMAP.md,
-    section 1, item 5); a VLM payload without ``vision`` is refused.
+    zero-padded for the padded lanes, as the tokens are.  A VLM request
+    without ``vision``, an enc-dec request without ``frames``, a ``frames``
+    payload to any other family, and a Zamba or xLSTM prompt that is not a
+    whole number of SSD chunks (``ssm_chunk``) are refused.
 
     The weights are drawn by ``params.materialize`` from the CPU
     ``generator`` and placed on ``device`` (the GPU unless ``"cpu"``), or
@@ -718,13 +721,18 @@ class LMEngineSolver:
     def signature(self, payload: Dict[str, Any]) -> Hashable:
         toks = torch.as_tensor(payload["tokens"])
         extras = tuple(sorted(k for k in payload if k not in ("tokens", "max_new_tokens")))
-        if "frames" in extras:
-            raise ValueError(
-                f"{self.cfg.name}: payload key 'frames' belongs to the enc-dec family, not "
-                "ported yet (ROADMAP.md, section 1, item 5)"
-            )
-        if self.cfg.family == "vlm" and "vision" not in extras:
+        family = self.cfg.family
+        if "frames" in extras and family != "encdec":
+            raise ValueError(f"{self.cfg.name}: payload key 'frames' belongs to the enc-dec "
+                             f"family, not to the {family!r} family")
+        if family == "vlm" and "vision" not in extras:
             raise ValueError(f"{self.cfg.name}: a vlm request requires vision embeddings")
+        if family == "encdec" and "frames" not in extras:
+            raise ValueError(f"{self.cfg.name}: an encdec request requires frames")
+        if family in ("zamba", "xlstm"):
+            from repro_torch.models.ssm import check_chunks
+
+            check_chunks(toks.shape[-1], self.cfg)
         return (toks.shape[-1], int(payload["max_new_tokens"]), extras)
 
     def bucket(self, signature: Hashable, n_policy: bucketing.NBucketPolicy) -> Hashable:

@@ -1,5 +1,6 @@
 """LM serving CLI: prompts through the continuous serving daemon (the port of
-``repro.launch.serve``; the dense, MoE and VLM families).
+``repro.launch.serve``; every family: dense, MoE, VLM, enc-dec, Zamba and
+xLSTM).
 
 Each prompt is submitted as one engine request; the ``lm`` adapter runs
 prefill + the token-by-token decode loop
@@ -13,8 +14,12 @@ keeps the one-shot path: a plain engine ``drain()``.
 Randomness is explicit end to end: one CPU ``torch.Generator`` seeded by
 ``--seed`` draws the weights (``params.materialize``), then the prompts
 (:func:`draw_prompts`), then, for a VLM, every request's (n_vision_tokens,
-vision_dim) bf16 patch embeddings (:func:`draw_vision`), then roots the
-engine (:func:`serve_prompts`).
+vision_dim) bf16 patch embeddings (:func:`draw_vision`), or for the enc-dec
+family every request's (prompt_len, d_model) bf16 frame embeddings
+(:func:`draw_frames`), then roots the engine (:func:`serve_prompts`).
+Zamba and xLSTM take prompts of whole SSD chunks: ``--prompt`` a multiple of
+``ssm_chunk`` (16 reduced, 256 at full width), else the launcher raises
+before drawing anything.
 Token accounting (see ``make_generate``): the returned stream always holds
 exactly ``max_new_tokens`` tokens — token 0 from the prefill logits, token
 i from the i-th decode step.  It runs on the card unless ``--device cpu``.
@@ -26,6 +31,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch qwen2-1.5b --tokens 5
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch llama-3.2-vision-11b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch whisper-large-v3
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch zamba2-2.7b --prompt 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch xlstm-1.3b --prompt 16
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 from repro_torch import configs
 from repro_torch.engine import Engine, Request
 from repro_torch.engine.adapters import LMEngineSolver
+from repro_torch.models.ssm import check_chunks
 from repro_torch.serving import ContinuousEngine, ServeDaemon
 
 
@@ -60,6 +69,14 @@ def draw_vision(n_vision_tokens: int, vision_dim: int, batch: int,
     return draw.to(torch.bfloat16)
 
 
+def draw_frames(prompt_len: int, d_model: int, batch: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """(batch, prompt_len, d_model) standard normal frame embeddings in bf16
+    (an enc-dec request's ``frames``: as many frames as prompt tokens, as the
+    reference draws them), from the CPU ``generator``; on the CPU."""
+    return torch.randn((batch, prompt_len, d_model), generator=generator).to(torch.bfloat16)
+
+
 def serve_prompts(
     lm: LMEngineSolver,
     prompts: torch.Tensor,
@@ -67,14 +84,15 @@ def serve_prompts(
     generator: torch.Generator,
     *,
     vision: Optional[torch.Tensor] = None,
+    frames: Optional[torch.Tensor] = None,
     once: bool = False,
 ) -> Tuple[Dict[str, Any], torch.Tensor]:
-    """Serve each row of ``prompts`` (with its row of ``vision`` for a VLM)
-    as one request of ``lm`` on an engine rooted at the CPU ``generator`` (a
-    ``ServeDaemon`` over a ``ContinuousEngine``, or with ``once`` one
-    ``Engine.drain``).  Returns (report, tokens): the reference's report
-    plus ``device``, and every request's (max_new_tokens,) result stacked,
-    on the CPU."""
+    """Serve each row of ``prompts`` (with its row of ``vision`` for a VLM,
+    of ``frames`` for an enc-dec model) as one request of ``lm`` on an
+    engine rooted at the CPU ``generator`` (a ``ServeDaemon`` over a
+    ``ContinuousEngine``, or with ``once`` one ``Engine.drain``).  Returns
+    (report, tokens): the reference's report plus ``device``, and every
+    request's (max_new_tokens,) result stacked, on the CPU."""
     batch, prompt_len = prompts.shape
     eng = (Engine if once else ContinuousEngine)(generator, device=lm.device)
     eng.install("lm", lm)
@@ -83,6 +101,8 @@ def serve_prompts(
         payload: Dict[str, Any] = {"tokens": prompts[i], "max_new_tokens": max_new_tokens}
         if vision is not None:
             payload["vision"] = vision[i]
+        if frames is not None:
+            payload["frames"] = frames[i]
         futures.append(eng.submit(Request("lm", payload)))
 
     t0 = time.perf_counter()
@@ -138,15 +158,21 @@ def serve(
     """Serve ``batch`` random prompts of ``arch`` (its reduced config unless
     ``reduced=False``) with random weights, all drawn from one CPU generator
     seeded by ``seed``, on ``device`` (the GPU unless ``"cpu"``); returns
-    :func:`serve_prompts`' report."""
+    :func:`serve_prompts`' report.  A Zamba or xLSTM ``prompt_len`` that is
+    not a multiple of ``ssm_chunk`` raises ``ValueError`` first."""
+    cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
+    if cfg.family in ("zamba", "xlstm"):
+        check_chunks(prompt_len, cfg)
     gen = torch.Generator().manual_seed(seed)
     lm = LMEngineSolver(arch, gen, reduced=reduced, device=device)
-    cfg = lm.cfg
     prompts = draw_prompts(cfg.vocab, batch, prompt_len, gen)
-    vision = None
+    vision = frames = None
     if cfg.family == "vlm":
         vision = draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
-    return serve_prompts(lm, prompts, max_new_tokens, gen, vision=vision, once=once)[0]
+    if cfg.family == "encdec":
+        frames = draw_frames(prompt_len, cfg.d_model, batch, gen)
+    return serve_prompts(lm, prompts, max_new_tokens, gen, vision=vision, frames=frames,
+                         once=once)[0]
 
 
 def main() -> None:

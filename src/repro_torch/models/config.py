@@ -5,7 +5,7 @@ port imports nothing of ``repro``).
 One dataclass covers all five families (dense / moe / vlm / encdec / ssm /
 hybrid); family-specific fields are ignored where inapplicable.  Every
 assigned architecture instantiates this from ``repro_torch/configs/<id>.py``.
-The port serves the dense family; the fields of the others are kept so that
+The port serves every family (``repro_torch.models.model.get_model``), and
 every config equals the reference's.
 """
 

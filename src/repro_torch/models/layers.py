@@ -1,6 +1,6 @@
-"""Shared transformer layers: RMSNorm, RoPE, blocked attention, gated
-cross-attention, SwiGLU and the capacity-dispatch MoE (the port of
-``repro.models.layers``, all but enc-dec's ``layer_norm`` and ``gelu_mlp*``).
+"""Shared transformer layers: RMSNorm, LayerNorm, RoPE, blocked attention,
+gated cross-attention, SwiGLU, the GELU MLP and the capacity-dispatch MoE
+(the port of ``repro.models.layers``).
 
 Plain PyTorch on the tensors' own device, one function per reference
 function and with its rounding order:
@@ -10,10 +10,15 @@ function and with its rounding order:
   einsum; torch wants one dtype, and the upcast is exact);
 * ``rms_norm`` sums squares in float32, rounds the scale to the activations'
   dtype, then multiplies in that dtype;
+* ``layer_norm`` takes the mean and the mean square in float32, rounds the
+  mean and the rsqrt to the activations' dtype, then normalizes in that
+  dtype (``F.layer_norm`` rounds otherwise in bf16);
 * ``apply_rope`` works in float32 and rounds back;
 * attention scores and the softmax are float32, and the probabilities are
   rounded to the values' dtype before the PV product, whose sum is float32;
-* ``swiglu`` applies SiLU in float32;
+* ``swiglu`` applies SiLU in float32, ``gelu_mlp`` the tanh-approximated
+  GELU (``jax.nn.gelu``'s default; torch's default is the exact erf) in
+  float32;
 * the MoE router is float32 (weights and product; TF32 must stay off on the
   card), the top-k gates are rounded to the activations' dtype before they
   weight the expert outputs, and the sum over the k slots is in that dtype;
@@ -24,8 +29,7 @@ Attention is the reference's blocked online softmax over KV chunks, a Python
 loop in place of its ``lax.scan``, with the query blocking (``q_chunk``) and
 the static skip of fully masked KV ranges; no library attention call.  The
 reference's ``shard(...)`` annotations are dropped: one controller, no
-GSPMD.  ``layer_norm`` and ``gelu_mlp*`` wait for the enc-dec family
-(ROADMAP.md, section 1, item 5).
+GSPMD.
 """
 
 from __future__ import annotations
@@ -65,6 +69,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     ss = (xf * xf).sum(dim=-1)
     scale = torch.rsqrt(ss / d + eps)[..., None].to(x.dtype)
     return x * scale * weight.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm: μ and E[x²] summed in float32, the variance max(E[x²] −
+    μ², 0); μ and the rsqrt (taken in float32) rounded to ``x``'s dtype,
+    then ``(x − μ) · rsqrt · weight + bias`` in that dtype."""
+    d = x.shape[-1]
+    xf = x.float()
+    mu = (xf.sum(dim=-1) / d)[..., None]
+    ss = (xf * xf).sum(dim=-1)
+    var = torch.clamp(ss / d - mu[..., 0] ** 2, min=0.0)
+    inv = torch.rsqrt(var + eps)[..., None]
+    out = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return out * weight.to(x.dtype) + bias.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +231,10 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpe
     return specs
 
 
-def project_qkv(params, x, cfg: ModelConfig, positions: torch.Tensor):
-    """Shared q/k/v projection path (bias, qk-norm, RoPE)."""
+def project_qkv(params, x, cfg: ModelConfig, positions: Optional[torch.Tensor],
+                rope: bool = True):
+    """Shared q/k/v projection path (bias, qk-norm, and RoPE when ``rope``
+    and ``positions`` is given)."""
     q = dot(x, params["wq"])
     k = dot(x, params["wk"])
     v = dot(x, params["wv"])
@@ -224,17 +245,21 @@ def project_qkv(params, x, cfg: ModelConfig, positions: torch.Tensor):
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def self_attention(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """Causal self-attention of ``x`` (B, S, D): (y, k, v), the layer's k and
-    v being what prefill keeps as its cache (the reference recomputes them
-    from the same input: the same values)."""
-    q, k, v = project_qkv(params, x, cfg, positions)
-    out = flash_attention(q, k, v, window=cfg.window, chunk=cfg.attn_chunk, q_chunk=cfg.q_chunk)
+def self_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                   positions: Optional[torch.Tensor], *, causal: bool = True,
+                   rope: bool = True):
+    """Self-attention of ``x`` (B, S, D), causal unless ``causal=False``:
+    (y, k, v), the layer's k and v being what prefill keeps as its cache
+    (the reference recomputes them from the same input: the same values)."""
+    q, k, v = project_qkv(params, x, cfg, positions, rope=rope)
+    out = flash_attention(q, k, v, causal=causal, window=cfg.window, chunk=cfg.attn_chunk,
+                          q_chunk=cfg.q_chunk)
     return dot(out, params["wo"], contract=2), k, v
 
 
@@ -245,6 +270,8 @@ def decode_attention(
     cache_v: torch.Tensor,
     index: int,  # tokens already in cache
     cfg: ModelConfig,
+    *,
+    rope: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against a KV cache; returns (out, cache_k,
     cache_v), the caches written in place at ``index`` (a ring slot for a
@@ -252,7 +279,7 @@ def decode_attention(
     linear cache raises ``IndexError`` where the reference's update would
     clamp."""
     pos = torch.full((1,), index, dtype=torch.int32, device=x_step.device)
-    q, k_new, v_new = project_qkv(params, x_step, cfg, pos)
+    q, k_new, v_new = project_qkv(params, x_step, cfg, pos, rope=rope)
     s_ctx, window = cache_k.shape[1], cfg.window
     if window is not None and s_ctx == window:
         # Ring-buffer cache for sliding-window attention: positions rotate;
@@ -277,8 +304,8 @@ def _gated(params, y: torch.Tensor) -> torch.Tensor:
 
 def cross_attention(params, x: torch.Tensor, kv_feats: torch.Tensor, cfg: ModelConfig):
     """Gated cross-attention of ``x`` (B, S, D) on ``kv_feats`` (B, Nv, D)
-    (the VLM's image layers), non-causal, with ``q_norm``/``k_norm`` when the
-    config has them."""
+    (the VLM's image layers, ungated in the enc-dec decoder), non-causal,
+    with ``q_norm``/``k_norm`` when the config has them."""
     q = dot(x, params["wq"])
     k = dot(kv_feats, params["wk"])
     v = dot(kv_feats, params["wv"])
@@ -316,6 +343,22 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     u = dot(x, params["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
     return dot(h, params["wd"])
+
+
+def gelu_mlp_specs(d: int, f: int) -> Dict[str, ParamSpec]:
+    return {
+        "w1": ParamSpec((d, f), ("embed", "mlp")),
+        "b1": ParamSpec((f,), ("mlp",), init="zeros"),
+        "w2": ParamSpec((f, d), ("mlp", "embed")),
+        "b2": ParamSpec((d,), ("embed",), init="zeros"),
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """Biased two-layer MLP with the tanh-approximated GELU in float32."""
+    h = dot(x, params["w1"]) + params["b1"].to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dot(h, params["w2"]) + params["b2"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

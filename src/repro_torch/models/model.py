@@ -1,5 +1,6 @@
-"""Model dispatch: one uniform interface over the architecture families (the
-port of ``repro.models.model``; the dense, MoE and VLM families so far).
+"""Model dispatch: one uniform interface over the six architecture families
+(the port of ``repro.models.model``): dense, MoE, VLM, enc-dec, Zamba and
+xLSTM.
 
 ``get_model(cfg)`` returns a :class:`Model` whose members close over the
 config:
@@ -7,15 +8,20 @@ config:
 * ``param_specs``      — ParamSpec tree (``materialize`` it, then
   ``build_params`` makes the module)
 * ``build_params``     — tree of tensors → ``transformer.DenseLM`` (dense,
-  MoE) or ``transformer.VisionLM`` (VLM)
+  MoE), ``transformer.VisionLM`` (VLM), ``encdec.EncDecLM``,
+  ``hybrid.ZambaLM`` or ``hybrid.XLSTMLM``
 * ``loss_fn``          — (params, batch) → (scalar loss, metrics dict), forward only
 * ``prefill_fn``       — (params, batch) → (last logits, populated cache)
 * ``decode_fn``        — (params, cache, token, index) → (logits, cache)
 * ``cache_specs``      — (batch, seq_len) → ParamSpec tree for the decode cache
 
-``batch`` dicts carry ``tokens`` (and ``labels`` for the loss), and
-``vision`` (B, Nv, vision_dim) for the VLM.  The MoE loss adds
-``MOE_AUX_WEIGHT`` times the load-balance aux loss.
+``batch`` dicts carry ``tokens`` (and ``labels`` for the loss), ``vision``
+(B, Nv, vision_dim) for the VLM and ``frames`` (B, T_enc, d_model) for the
+enc-dec family.  The MoE loss adds ``MOE_AUX_WEIGHT`` times the
+load-balance aux loss.  The enc-dec decode cache holds
+``ENCDEC_DECODE_MEMORY_LEN`` cross-attention slots whatever T_enc (reference
+fault 7, ROADMAP.md section 3); Zamba and xLSTM take prompts of whole SSD
+chunks (``ssm_chunk``).
 """
 
 from __future__ import annotations
@@ -24,13 +30,18 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
+from repro_torch.models import encdec as E
+from repro_torch.models import hybrid as H
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 MOE_AUX_WEIGHT = 0.01
 
-#: Families of the reference that the port does not serve yet.
-NOT_PORTED_FAMILIES = ("encdec", "zamba", "xlstm")
+#: Encoder memory length of the enc-dec decode cache: Whisper's 30 s window
+#: (1500 frames); the decode length applies to the decoder's self cache.
+ENCDEC_DECODE_MEMORY_LEN = 1500
+#: Decoder prompt length of the enc-dec prefill cells (task/prompt tokens).
+ENCDEC_PREFILL_PROMPT_LEN = 16
 
 
 class Model(NamedTuple):
@@ -66,17 +77,22 @@ def chunked_cross_entropy(
 
 
 def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.family == "encdec" or cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def _no_aux(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def get_model(cfg: ModelConfig) -> Model:
     cfg.validate()
     family = cfg.family
-    if family in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {family!r} family is not ported yet; it waits for the "
-            "LM side (ROADMAP.md, section 1, item 5)"
-        )
+    if family == "encdec":
+        return _encdec_model(cfg)
+    if family in ("zamba", "xlstm"):
+        return _recurrent_model(cfg)
     if family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {family!r}")
 
@@ -100,4 +116,46 @@ def get_model(cfg: ModelConfig) -> Model:
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         cache_specs=lambda b, s: T.init_cache_specs(cfg, b, s),
+    )
+
+
+def _encdec_model(cfg: ModelConfig) -> Model:
+    def loss_fn(params, batch):
+        memory = E.encode(params, batch["frames"], cfg)
+        x, _ = E.decode_sequence(params, memory, batch["tokens"], cfg)
+        ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
+        return ce, {"ce": ce, "moe_aux": _no_aux(ce.device)}
+
+    return Model(
+        cfg=cfg,
+        param_specs=E.build_param_specs(cfg),
+        build_params=lambda tree: E.EncDecLM(cfg, tree),
+        loss_fn=loss_fn,
+        prefill_fn=lambda p, b: E.prefill(p, b["frames"], b["tokens"], cfg),
+        decode_fn=lambda p, c, t, i: E.decode_step(p, c, t, i, cfg),
+        cache_specs=lambda b, s: E.init_cache_specs(cfg, b, s, ENCDEC_DECODE_MEMORY_LEN),
+    )
+
+
+def _recurrent_model(cfg: ModelConfig) -> Model:
+    """Zamba or xLSTM: the same five members over their own assembly."""
+    zamba = cfg.family == "zamba"
+    forward_hidden = H.zamba_forward_hidden if zamba else H.xlstm_forward_hidden
+    prefill = H.zamba_prefill if zamba else H.xlstm_prefill
+    decode = H.zamba_decode_step if zamba else H.xlstm_decode_step
+    cache_specs = H.zamba_cache_specs if zamba else H.xlstm_cache_specs
+
+    def loss_fn(params, batch):
+        x, _ = forward_hidden(params, batch["tokens"], cfg)
+        ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
+        return ce, {"ce": ce, "moe_aux": _no_aux(ce.device)}
+
+    return Model(
+        cfg=cfg,
+        param_specs=(H.zamba_param_specs if zamba else H.xlstm_param_specs)(cfg),
+        build_params=lambda tree: (H.ZambaLM if zamba else H.XLSTMLM)(cfg, tree),
+        loss_fn=loss_fn,
+        prefill_fn=lambda p, b: prefill(p, b["tokens"], cfg),
+        decode_fn=lambda p, c, t, i: decode(p, c, t, i, cfg),
+        cache_specs=lambda b, s: cache_specs(cfg, b, s),
     )

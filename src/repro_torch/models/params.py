@@ -6,10 +6,11 @@ gives the materialized parameters or a zeroed buffer such as the decode
 cache (:func:`materialize`) and the parameter count and bytes.
 
 Randomness: :func:`materialize` draws from one CPU ``torch.Generator``,
-one ``torch.randn`` per normal leaf, in the reference's flatten order
-(dict keys sorted), and only then moves each leaf to its device, so a seed
-gives the same weights on the CPU and on the card; zeros and ones are made
-on the device.  The reference's threefry draws are not reimplemented:
+one float32 ``torch.randn`` per normal leaf, in the reference's flatten
+order (dict keys sorted), moves the draw to its device and there scales
+and rounds it (one IEEE product and one round-to-nearest cast, the same
+bits on the CPU and on the card), so a seed gives the same weights on
+both; zeros and ones are made on the device.  The reference's threefry draws are not reimplemented:
 tests carry its weights across
 (``repro_torch.convert.lm_params_from_reference``).
 
@@ -80,14 +81,15 @@ def _init_one(
     if generator is None:
         raise ValueError("a normal-init ParamSpec needs a torch.Generator to draw from")
     std = spec.scale if spec.init == "normal" else 1.0
-    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-    return (draw * std).to(spec.dtype).to(device)
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32).to(device)
+    return draw.mul_(std).to(spec.dtype)  # the same IEEE product and rounding on any device
 
 
 def materialize(tree, generator: Optional[torch.Generator], device=None):
     """Every ParamSpec in ``tree`` as a tensor on ``device`` (the GPU unless
     ``"cpu"``): normal leaves drawn from the CPU ``generator`` in flatten
-    order (float32 normals times the scale, rounded to the spec's dtype),
+    order (float32 normals times the scale, rounded to the spec's dtype on
+    ``device``),
     zeros and ones filled.  ``generator`` may be None for a tree without
     normal leaves."""
     if generator is not None and generator.device.type != "cpu":

@@ -1,0 +1,179 @@
+"""Mamba2 (SSD) blocks for the zamba2 hybrid (the port of
+``repro.models.ssm``).
+
+The full-sequence forward is the chunked SSD (Dao & Gu 2024): within a chunk
+of ``ssm_chunk`` steps the recurrence is a masked attention-like contraction;
+across chunks a (B, H, P, N) float32 state is carried, here by a Python loop
+in place of the reference's ``lax.scan``.  Decode is the exact O(1)
+recurrence, updating the cache's conv buffer and state in place.
+
+Rounding order as in the reference: the conv and its SiLU in float32,
+rounded to the activations' dtype; ``dt``, the decays and the state in
+float32, the products of model-dtype operands exact in float32 (their
+``preferred_element_type``); each chunk's output rounded to the activations'
+dtype before the skip connection; ``_gated_norm`` in float32.  The
+intra-chunk decays are one (B, H, Q, Q) buffer, made in place and masked by
+a select (above the diagonal ``exp`` may overflow to inf, which a product
+with a 0/1 mask would turn into NaN).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamSpec
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor  # (B, conv_w − 1, d_conv_channels): the pre-conv inputs
+    state: torch.Tensor  # (B, H, P, N) float32
+
+
+def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * n  # conv over [x, B, C]
+    proj_out = 2 * di + 2 * n + h  # z, x, B, C, dt
+    return {
+        "in_proj": ParamSpec((d, proj_out), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_ch), (None, "mlp")),
+        "conv_b": ParamSpec((conv_ch,), ("mlp",), init="zeros"),
+        "a_log": ParamSpec((h,), (None,), dtype=torch.float32, init="zeros"),
+        "d_skip": ParamSpec((h,), (None,), dtype=torch.float32, init="ones"),
+        "dt_bias": ParamSpec((h,), (None,), dtype=torch.float32, init="zeros"),
+        "norm": ParamSpec((di,), ("mlp",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("mlp", "embed")),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    di, n = cfg.d_inner, cfg.ssm_state
+    return zxbcdt[..., :di], zxbcdt[..., di : 2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n :]
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time with SiLU: xbc (B, T, C), w (K, C);
+    the taps summed in float32 in order, the result rounded to xbc's
+    dtype."""
+    k, t = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    for i in range(k):
+        out = out + pad[:, i : i + t].float() * w[i].float()
+    return F.silu(out + b.float()).to(xbc.dtype)
+
+
+def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The causal conv with SiLU at the last step of ``window`` (B, K, C),
+    in float32: (B, 1, C) rounded to ``dtype``."""
+    out = (window.float() * w.float()).sum(dim=1) + b.float()
+    return F.silu(out).to(dtype)[:, None]
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    gated = y.float() * F.silu(z.float())
+    var = torch.mean(gated * gated, dim=-1, keepdim=True)
+    return (gated * torch.rsqrt(var + eps) * w.float()).to(y.dtype)
+
+
+def _decays(cum: torch.Tensor, above: torch.Tensor) -> torch.Tensor:
+    """exp(cum_t − cum_s) for s ≤ t, else 0: cum (B, Q, H) → (B, H, Qt, Qs)
+    float32, made in place."""
+    cum_h = cum.transpose(1, 2)
+    return (cum_h[..., :, None] - cum_h[..., None, :]).exp_().masked_fill_(above, 0.0)
+
+
+def check_chunks(t: int, cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` unless ``t`` is a whole number of SSD chunks."""
+    if t % cfg.ssm_chunk:
+        raise ValueError(f"T={t} must be a multiple of ssm_chunk={cfg.ssm_chunk}")
+
+
+def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
+    """Full-sequence SSD forward of x (B, T, D), T a multiple of
+    ``ssm_chunk`` (else ``ValueError``).  With ``return_cache`` also the
+    :class:`MambaCache` after the last token: the final state and the conv's
+    last K − 1 pre-conv inputs."""
+    b, t, _ = x.shape
+    di, n, h, p, q = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_chunk
+    check_chunks(t, cfg)
+
+    zxbcdt = L.dot(x, params["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    conv_tail = xbc[:, t - (cfg.ssm_conv - 1) :]  # pre-conv inputs for decode
+    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xs = xbc[..., :di].reshape(b, t, h, p)
+    bmat = xbc[..., di : di + n].float()  # (B, T, N): exact upcasts
+    cmat = xbc[..., di + n :].float()
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, T, H)
+    a_log_step = dt * -torch.exp(params["a_log"])  # ≤ 0: per-step log decay
+    xdt = xs.float() * dt[..., None]  # (B, T, H, P)
+
+    above = torch.ones((q, q), dtype=torch.bool, device=x.device).triu(1)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(t // q):
+        sl = slice(c * q, (c + 1) * q)
+        b_k, c_k, xdt_k = bmat[:, sl], cmat[:, sl], xdt[:, sl]
+        cum = torch.cumsum(a_log_step[:, sl], dim=1)  # (B, Q, H) inclusive
+        # intra-chunk: y_t += C_t · Σ_{s≤t} exp(cum_t − cum_s) dt_s B_s x_s
+        scores = _decays(cum, above)  # (B, H, Qt, Qs)
+        scores.mul_(torch.matmul(c_k, b_k.transpose(1, 2))[:, None])  # · C_t B_s
+        y_intra = torch.matmul(scores, xdt_k.transpose(1, 2)).transpose(1, 2)  # (B, Qt, H, P)
+        # inter-chunk: y_t += C_t · exp(cum_t) · h_prev
+        y_inter = torch.einsum("bqn,bhpn->bqhp", c_k, state) * torch.exp(cum)[..., None]
+        # state: h' = exp(cum_Q) h + Σ_s exp(cum_Q − cum_s) dt_s B_s x_s
+        decay_end = torch.exp(cum[:, -1:, :] - cum)  # (B, Q, H)
+        state = state * torch.exp(cum[:, -1])[:, :, None, None] + torch.einsum(
+            "bsn,bshp->bhpn", b_k, xdt_k * decay_end[..., None])
+        ys.append((y_intra + y_inter).to(x.dtype))
+    y = torch.cat(ys, dim=1)  # (B, T, H, P)
+    y = y + xs * params["d_skip"].to(y.dtype)[None, None, :, None]
+    y = _gated_norm(y.reshape(b, t, di), z, params["norm"], cfg.norm_eps)
+    out = L.dot(y, params["out_proj"])
+    if return_cache:
+        return out, MambaCache(conv=conv_tail, state=state)
+    return out
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) -> MambaCache:
+    di, n = cfg.d_inner, cfg.ssm_state
+    return MambaCache(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * n), dtype=dtype, device=device),
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, n), dtype=torch.float32,
+                          device=device),
+    )
+
+
+def mamba_decode_step(
+    params, x_step: torch.Tensor, cache: MambaCache, cfg: ModelConfig
+) -> Tuple[torch.Tensor, MambaCache]:
+    """The exact O(1) recurrence for one token x_step (B, 1, D).  Updates
+    ``cache.conv`` (shifted by one) and ``cache.state`` in place and returns
+    (out, cache)."""
+    b = x_step.shape[0]
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    zxbcdt = L.dot(x_step, params["in_proj"])
+    z, xbc_new, dt_raw = _split_proj(cfg, zxbcdt)
+    window = torch.cat([cache.conv, xbc_new], dim=1)  # (B, K, C)
+    xbc = _conv_step(window, params["conv_w"], params["conv_b"], x_step.dtype)
+    cache.conv.copy_(window[:, 1:])
+
+    xs = xbc[..., :di].reshape(b, h, p)
+    bvec = xbc[..., di : di + n].reshape(b, n).float()
+    cvec = xbc[..., di + n :].reshape(b, n).float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B, H)
+    decay = torch.exp(dt * -torch.exp(params["a_log"]))
+    xdt = xs.float() * dt[..., None]  # (B, H, P)
+    state = cache.state
+    state.mul_(decay[..., None, None]).add_(xdt[..., None] * bvec[:, None, None, :])
+    y = torch.matmul(state, cvec[:, None, :, None])[..., 0]  # (B, H, P)
+    y = y + xs.float() * params["d_skip"][None, :, None]
+    y = y.reshape(b, 1, di).to(x_step.dtype)
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
+    return L.dot(y, params["out_proj"]), cache

@@ -37,16 +37,34 @@ def make_serve_step(model: Model):
 
 
 def graft_cache(cache: Dict[str, torch.Tensor], prefill_cache: Dict[str, torch.Tensor]):
-    """Copy the prefill KV into a (longer) zeroed decode cache, in place.
+    """Copy the prefill caches into a (longer) decode cache, in place.
 
-    Each prefill leaf lands at the start of its decode leaf (the rest stays
-    zero), so the decode cache never aliases the prefill cache.  Returns
-    ``cache``.
+    Each prefill leaf lands at the start of its decode leaf: a KV leaf along
+    its sequence axis (the rest stays zero; an enc-dec model's cross K/V
+    fills the first T_enc of its memory slots), a recurrent state or conv
+    buffer of the same shape whole.  The decode cache never aliases the
+    prefill cache.  Returns ``cache``.
     """
     for name, dst in cache.items():
         src = prefill_cache[name]
         dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
     return cache
+
+
+def decode_cache(model: Model, prefill_cache: Dict[str, torch.Tensor], batch: int, total: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """The decode cache for ``total`` positions from the prefill's: a leaf
+    of the decode cache's shape and dtype (a recurrent state, a conv buffer,
+    a cross K/V of every memory slot) is the prefill's tensor itself, the
+    value a copy would hold; every other leaf is allocated zeroed and the
+    prefill's leaf grafted into its start (:func:`graft_cache`)."""
+    specs = model.cache_specs(batch, total)
+    kept = {name: prefill_cache[name] for name, spec in specs.items()
+            if (tuple(prefill_cache[name].shape), prefill_cache[name].dtype)
+            == (spec.shape, spec.dtype)}
+    grown = {name: spec for name, spec in specs.items() if name not in kept}
+    cache = graft_cache(P.materialize(grown, None, device), prefill_cache)
+    return {name: cache[name] if name in cache else kept[name] for name in specs}
 
 
 def _sync(device: torch.device) -> None:
@@ -68,15 +86,17 @@ def make_generate(model: Model):
       ``prompt_len + i − 1``;
     * ``max_new_tokens == 0`` returns a ``(batch, 0)`` tensor (prefill only).
 
-    Every entry of ``batch_in`` (``tokens``, and ``vision`` for the VLM) is
+    Every entry of ``batch_in`` (``tokens``, ``vision`` for the VLM,
+    ``frames`` for the enc-dec family) is
     moved to the params' device before the prefill.  ``timing`` holds
     ``prefill_s`` and ``decode_s`` on the host clock, each
     ending in a wait on the device.  Every token is read to the host as it
     is made (one read per decode step), as the reference does.
 
-    The reference materializes the decode cache from an explicit key and
-    then zeroes it; the port allocates it zeroed on the params' device, so it
-    needs no generator.
+    The reference materializes the decode cache from an explicit key, zeroes
+    it and grafts the prefill's into it; the port allocates only the leaves
+    that grow (:func:`decode_cache`) zeroed on the params' device, so it
+    needs no generator and never holds a recurrent state twice.
     """
     prefill = make_prefill_step(model)
     decode = make_serve_step(model)
@@ -94,9 +114,7 @@ def make_generate(model: Model):
             timing["decode_s"] = 0.0
             return torch.zeros((b, 0), dtype=torch.int32), timing
 
-        total = prompt_len + max_new_tokens
-        cache = graft_cache(P.materialize(model.cache_specs(b, total), None, device),
-                            prefill_cache)
+        cache = decode_cache(model, prefill_cache, b, prompt_len + max_new_tokens, device)
         del prefill_cache
 
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -30,13 +30,18 @@ on both sides, are left out of s):
   fused ops, and cuBLAS on the card may reduce split-K partial sums in
   bf16 (``allow_bf16_reduced_precision_reduction``, True by default).
 
+L is :func:`depth` of the config: the layers a token passes through (an
+enc-dec model's encoder and decoder layers; Zamba's Mamba layers and its
+shared block's invocations; every other family's ``n_layers``).
+
 Both are fixed before any comparison; a row that misses its τ is a port
 fault (ROADMAP.md, section 3), recorded with its inputs, never a reason to
 pick another seed.  A MoE's routing can flip at a near-tie of its router
 logits, which moves a token by far more than τ: ``tests/moe_rule.py``
 holds MoE runs, applying this rule to each row's steps before its first
-tie-bound routing.  Used by ``tests/test_torch_lm.py`` and
-``tests/test_torch_lm_serve.py`` (port against ``repro``), ``tests/
+tie-bound routing.  Used by ``tests/test_torch_lm.py``, ``tests/
+test_torch_lm_encdec.py``, ``tests/test_torch_lm_ssm.py`` and ``tests/
+test_torch_lm_serve.py`` (port against ``repro``), ``tests/
 test_torch_cuda.py`` and ``chip_smoke.py`` (card against CPU); imports
 numpy and torch only.
 """
@@ -54,6 +59,18 @@ import torch
 MASKED = -1e29
 
 
+def depth(cfg) -> int:
+    """The L the rule uses for ``cfg``: ``n_encoder_layers + n_layers`` for
+    enc-dec (64 at whisper-large-v3's full width), ``n_layers + n_layers //
+    shared_attn_every`` for Zamba (63: 54 Mamba layers and 9 shared
+    invocations), ``n_layers`` for every other family."""
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + cfg.n_layers
+    if cfg.family == "zamba":
+        return cfg.n_layers + cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
 def tau(dtype: str, n_layers: int, scale: np.ndarray) -> np.ndarray:
     """The rule's bound for logits whose reference magnitude is ``scale``."""
     if dtype == "float32":
@@ -63,11 +80,22 @@ def tau(dtype: str, n_layers: int, scale: np.ndarray) -> np.ndarray:
     raise ValueError(f"no LM rule for dtype {dtype!r}")
 
 
-def stream_logits(model, params, prompts, stream, vision=None) -> np.ndarray:
+def ratios(logits_a, logits_b, dtype: str, n_layers: int) -> np.ndarray:
+    """|Δlogits|∞ / τ per (row, step) of two (B, T, V) logits, ``logits_b``
+    (the reference) setting the scale: the rule's first condition, as a
+    measurement."""
+    a = np.asarray(logits_a, dtype=np.float32)
+    b = np.asarray(logits_b, dtype=np.float32)
+    scale = np.where(b > MASKED, np.abs(b), 0.0).max(axis=-1)
+    return np.abs(a - b).max(axis=-1) / tau(dtype, n_layers, scale)
+
+
+def stream_logits(model, params, prompts, stream, vision=None, frames=None) -> np.ndarray:
     """(B, T, V) float32 logits of a port ``Model`` on ``params`` teacher-
     forced on ``stream`` (B, T) after ``prompts`` (B, L) (and a VLM's
-    ``vision`` (B, Nv, vision_dim)), on the params' device, with the shapes
-    ``make_generate`` uses for T new tokens."""
+    ``vision`` (B, Nv, vision_dim), an enc-dec model's ``frames`` (B, T_enc,
+    d_model)), on the params' device, with the shapes ``make_generate`` uses
+    for T new tokens."""
     from repro_torch.models import params as P
     from repro_torch.models.steps import graft_cache
 
@@ -79,6 +107,8 @@ def stream_logits(model, params, prompts, stream, vision=None) -> np.ndarray:
     batch = {"tokens": prompts}
     if vision is not None:
         batch["vision"] = torch.as_tensor(vision).to(dev)
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames).to(dev)
     with torch.inference_mode():
         logits, prefill_cache = model.prefill_fn(params, batch)
         out = [logits.float().cpu()]

@@ -268,21 +268,22 @@ def stream_positions(n_moe_layers: int, prompt_len: int, steps: int) -> List[int
     return out
 
 
-def hold_streams(model, params_a, params_b, prompts, stream, vision=None,
+def hold_streams(model, params_a, params_b, prompts, stream, vision=None, frames=None,
                  what: str = "") -> Dict[str, Any]:
     """Two port models on the same weights (the card's ``params_a``, the
     CPU's ``params_b``) teacher-forced on ``stream`` (``lm_rule.
     stream_logits``), their MoE calls recorded: held by this rule for a MoE,
-    by the LM rule otherwise.  Returns the rule's summary."""
-    from lm_rule import stream_logits
+    by the LM rule at ``lm_rule.depth`` otherwise.  Returns the rule's
+    summary."""
+    from lm_rule import depth, stream_logits
 
     with recording() as calls_a:
-        logits_a = stream_logits(model, params_a, prompts, stream, vision=vision)
+        logits_a = stream_logits(model, params_a, prompts, stream, vision=vision, frames=frames)
     with recording() as calls_b:
-        logits_b = stream_logits(model, params_b, prompts, stream, vision=vision)
+        logits_b = stream_logits(model, params_b, prompts, stream, vision=vision, frames=frames)
     cfg = model.cfg
     if cfg.family != "moe":
-        return lm_hold(stream, logits_a, logits_b, cfg.dtype, cfg.n_layers, what)
+        return lm_hold(stream, logits_a, logits_b, cfg.dtype, depth(cfg), what)
     length, steps = np.shape(prompts)[1], np.shape(stream)[1]
     calls = pair_calls(calls_a, calls_b, stream_positions(cfg.n_layers, length, steps))
     return hold(stream, logits_a, logits_b, cfg.dtype, cfg.n_layers, calls, length, what)

@@ -15,8 +15,9 @@ request and counts every tick as on the CPU.  The dense LM on the card is
 held to the CPU by the LM rule of ``tests/lm_rule.py`` (logits under teacher
 forcing within its τ), the MoE by the MoE rule of ``tests/moe_rule.py``
 (the routings it calls decided equal, the LM rule before a sequence's first
-tie-bound routing), and a served LM request equals ``make_generate`` of its
-batch bucket exactly.
+tie-bound routing), the enc-dec, Zamba and xLSTM families by the LM rule at
+``lm_rule.depth``, and a served LM request (a whisper request with its
+frames) equals ``make_generate`` of its batch bucket exactly.
 """
 
 from __future__ import annotations
@@ -799,3 +800,94 @@ def test_moe_and_vlm_on_card_held_to_cpu(cuda, arch, dtype):
                                     what=f"{arch} {dtype}")
     if cfg.family == "moe" and dtype == "float32":
         assert summary["route_bound"] == 0 and summary["steps_held"] == summary["steps"]
+
+
+LM_LAST_FAMILIES = ("whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
+
+
+def _seeded_lm_tree(model, seed):
+    """Seeded weights (CPU) with every zeros- or ones-initialized leaf (norms,
+    biases, ``a_log``, ``d_skip``, ``dt_bias``, gate biases) moved by 0.1 ·
+    N(0, 1)."""
+    from repro_torch.models import params as PM
+
+    tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def seed_leaves(level, specs):
+        for name, leaf in level.items():
+            if isinstance(leaf, dict):
+                seed_leaves(leaf, specs[name])
+            elif specs[name].init != "normal":
+                noise = 0.1 * torch.randn(leaf.shape, generator=gen)
+                level[name] = (leaf.float() + noise).to(leaf.dtype)
+
+    seed_leaves(tree, model.param_specs)
+    return tree
+
+
+def test_materialize_on_card_equals_cpu_bit_for_bit(cuda):
+    """The draws are scaled and rounded on the device they land on: every
+    leaf (bf16 and float32) of a tree materialized on the card has the CPU
+    tree's bits."""
+    from repro_torch import configs as lm_configs
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+
+    specs = get_model(lm_configs.get_reduced("xlstm-1.3b")).param_specs
+    on_card = PM.materialize(specs, torch.Generator().manual_seed(3), device=cuda)
+    on_cpu = PM.materialize(specs, torch.Generator().manual_seed(3), device="cpu")
+    for (path, a), (_, b) in zip(PM.leaves(on_card), PM.leaves(on_cpu)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, path
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), path
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_LAST_FAMILIES)
+def test_encdec_zamba_and_xlstm_on_card_held_to_cpu(cuda, arch, dtype):
+    """Each reduced enc-dec, Zamba and xLSTM arch on the card against the
+    same weights on the CPU (whisper with 32 seeded frames): the card's greedy
+    stream (32-token prompts, two SSD chunks; 16 new tokens) by the LM rule
+    at ``depth(cfg)``."""
+    import moe_rule
+    from repro_torch import configs as lm_configs
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import make_generate
+
+    cfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype=dtype)
+    model = get_model(cfg)
+    tree = _seeded_lm_tree(model, seed=20 + LM_LAST_FAMILIES.index(arch))
+    cpu = model.build_params(tree)
+    card = model.build_params(PM.map_tree(lambda t: t.to(cuda), tree))
+    prompts = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": prompts}
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.randn((2, 32, cfg.d_model),
+                             generator=torch.Generator().manual_seed(8)).to(torch.bfloat16)
+        batch["frames"] = frames
+    stream, _ = make_generate(model)(card, batch, 16)
+    moe_rule.hold_streams(model, card, cpu, prompts, stream, frames=frames, what=f"{arch} {dtype}")
+
+
+@pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
+def test_served_encdec_request_equals_make_generate_of_its_bucket_on_card(cuda, once):
+    """Three whisper requests with their frames in one 4-lane slab, the
+    padded lane's tokens and frames zero: each equals its rows of a direct
+    ``make_generate`` of the bucket."""
+    from repro_torch.engine.adapters import LMEngineSolver
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.steps import make_generate
+
+    gen = torch.Generator().manual_seed(0)
+    lm = LMEngineSolver("whisper-large-v3", gen, device=cuda)
+    prompts = launch_serve.draw_prompts(lm.cfg.vocab, 3, 32, gen)
+    frames = launch_serve.draw_frames(32, lm.cfg.d_model, 3, gen)
+    report, tokens = launch_serve.serve_prompts(lm, prompts, 16, gen, frames=frames, once=once)
+    assert report["engine"] == {"slabs": 1, "pad_fraction": 0.25}
+    batch = {"tokens": torch.cat([prompts, torch.zeros((1, 32), dtype=torch.int32)]),
+             "frames": torch.cat([frames, torch.zeros_like(frames[:1])])}
+    direct, _ = make_generate(lm.model)(lm.params, batch, 16)
+    assert torch.equal(tokens, direct[:3])

@@ -31,7 +31,7 @@ from repro_torch import convert
 from repro_torch.models import layers as PL
 from repro_torch.models import params as PP
 from repro_torch.models import transformer as PT
-from repro_torch.models.model import NOT_PORTED_FAMILIES, get_model
+from repro_torch.models.model import get_model
 from repro_torch.models.steps import make_generate
 
 DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
@@ -86,9 +86,10 @@ def carried(cfg_ref, cfg_port, seed: int):
     return params, lm
 
 
-def ref_stream_logits(cfg, params, prompts, stream, vision=None) -> np.ndarray:
+def ref_stream_logits(cfg, params, prompts, stream, vision=None, frames=None) -> np.ndarray:
     """The reference's (B, T, V) logits teacher-forced on ``stream`` after
-    ``prompts`` (and a VLM's ``vision``): its jitted prefill, then its
+    ``prompts`` (and a VLM's ``vision``, an enc-dec model's ``frames``): its
+    jitted prefill, then its
     jitted decode step on the zeroed and grafted cache, as
     ``repro.models.steps.make_generate`` runs them."""
     model = ref_get_model(cfg)
@@ -99,6 +100,8 @@ def ref_stream_logits(cfg, params, prompts, stream, vision=None) -> np.ndarray:
     batch = {"tokens": jnp.asarray(prompts)}
     if vision is not None:
         batch["vision"] = jnp.asarray(vision)
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames)
     logits, prefill_cache = prefill(params, batch)
     cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
                          RP.abstract(model.cache_specs(b, length + steps)))
@@ -417,7 +420,19 @@ def test_padded_vocab_columns_are_masked_like_reference():
 @pytest.mark.parametrize("arch", [a for a in ref_configs.ARCH_IDS
                                   if ref_configs.get_reduced(a).family in ("encdec", "zamba", "xlstm")])
 def test_other_families_raise_with_roadmap_pointer(arch):
+    """The enc-dec, Zamba and xLSTM archs build (they raised
+    ``NotImplementedError`` until they were ported); what they refuse still
+    raises: a prompt of part of an SSD chunk (Zamba, xLSTM: ``ValueError``
+    naming ``ssm_chunk``, at the length where the reference asserts) and a
+    batch without ``frames`` (enc-dec)."""
     cfg = port_configs.get_reduced(arch)
-    assert cfg.family in NOT_PORTED_FAMILIES
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1, item 5"):
-        get_model(cfg)
+    model = get_model(cfg)
+    lm = model.build_params(PP.materialize(model.param_specs, torch.Generator().manual_seed(0),
+                                           device="cpu"))
+    tokens = torch.zeros((1, cfg.ssm_chunk + 1), dtype=torch.int32)
+    if cfg.family == "encdec":
+        with pytest.raises(KeyError, match="frames"):
+            model.prefill_fn(lm, {"tokens": tokens})
+    else:
+        with pytest.raises(ValueError, match=f"multiple of ssm_chunk={cfg.ssm_chunk}"):
+            model.prefill_fn(lm, {"tokens": tokens})

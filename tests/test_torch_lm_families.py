@@ -39,7 +39,7 @@ from repro_torch import convert
 from repro_torch.models import layers as PL
 from repro_torch.models import params as PP
 from repro_torch.models import transformer as PT
-from repro_torch.models.model import MOE_AUX_WEIGHT, NOT_PORTED_FAMILIES, get_model
+from repro_torch.models.model import MOE_AUX_WEIGHT, get_model
 from repro_torch.models.steps import make_generate
 from test_torch_lm import TORCH_DTYPE, both, close, configs_pair, ref_stream_logits, ref_tree, to_np
 
@@ -191,23 +191,28 @@ def test_converter_keeps_names_dtypes_and_bits(arch):
 
 
 def test_get_model_serves_every_ported_family_and_raises_for_the_rest():
-    """Every reduced dense, MoE and VLM arch builds, prefills and decodes;
-    only enc-dec, Zamba and xLSTM raise, naming ROADMAP item 5."""
-    assert NOT_PORTED_FAMILIES == ("encdec", "zamba", "xlstm")
+    """Every reduced arch of ``ARCH_IDS`` builds, prefills and decodes (the
+    enc-dec arch with frames, Zamba and xLSTM on a prompt of one SSD chunk);
+    no family raises ``NotImplementedError`` any more."""
+    from repro_torch.models import encdec as PE
+    from repro_torch.models import hybrid as PH
+
+    kinds = {"dense": PT.DenseLM, "moe": PT.DenseLM, "vlm": PT.VisionLM,
+             "encdec": PE.EncDecLM, "zamba": PH.ZambaLM, "xlstm": PH.XLSTMLM}
+    assert {port_configs.get_reduced(a).family for a in port_configs.ARCH_IDS} == set(kinds)
     for arch in port_configs.ARCH_IDS:
         cfg = port_configs.get_reduced(arch)
-        if cfg.family in NOT_PORTED_FAMILIES:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1, item 5"):
-                get_model(cfg)
-            continue
         model = get_model(cfg)
         lm = model.build_params(PP.materialize(model.param_specs, torch.Generator().manual_seed(0),
                                                device="cpu"))
-        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8),
+        assert type(lm) is kinds[cfg.family], arch
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16),
                                          generator=torch.Generator().manual_seed(1))}
         if cfg.family == "vlm":
             batch["vision"] = vision_pair(cfg, 2, seed=1)[1]
-            assert isinstance(lm, PT.VisionLM)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((2, 16, cfg.d_model),
+                                          generator=torch.Generator().manual_seed(1))
         out, _ = make_generate(model)(lm, batch, 3)
         assert out.shape == (2, 3) and bool(((out >= 0) & (out < cfg.vocab)).all()), arch
 

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import moe_rule
-from lm_rule import hold, stream_logits
+from lm_rule import depth, hold, stream_logits
 from repro.engine.adapters import LMEngineSolver as RefLMEngineSolver
 from repro.engine.bucketing import bucket_batch
 from repro import configs as ref_configs
@@ -63,18 +63,22 @@ def port_solver_on(ref_lm, params=None) -> LMEngineSolver:
     return LMEngineSolver(ref_lm.arch, params=params)
 
 
-def held_stream(lm, ref_cfg, ref_params, prompts, tokens, vision=None, what=""):
+def held_stream(lm, ref_cfg, ref_params, prompts, tokens, vision=None, what="", frames=None):
     """The port's served ``tokens`` held to the reference on the same
-    weights: by the MoE rule for a MoE (router inputs recorded on both
-    sides), else by the LM rule; returns the rule's summary."""
+    weights (and a VLM's ``vision``, an enc-dec model's ``frames``, as
+    reference arrays): by the MoE rule for a MoE (router inputs recorded on
+    both sides), else by the LM rule at ``depth(cfg)``; returns the rule's
+    summary."""
     vis_t = None if vision is None else convert._tensor_from_reference(vision)
+    frames_t = None if frames is None else convert._tensor_from_reference(frames)
     with moe_rule.recording() as port_calls, ref_recording() as ref_calls:
-        port = stream_logits(lm.model, lm.params, prompts, tokens, vision=vis_t)
-        ref = ref_stream_logits(ref_cfg, ref_params, prompts, tokens.numpy(), vision=vision)
+        port = stream_logits(lm.model, lm.params, prompts, tokens, vision=vis_t, frames=frames_t)
+        ref = ref_stream_logits(ref_cfg, ref_params, prompts, tokens.numpy(), vision=vision,
+                                frames=frames)
         jax.effects_barrier()
     cfg = lm.cfg
     if cfg.family != "moe":
-        return hold(tokens, port, ref, cfg.dtype, cfg.n_layers, what)
+        return hold(tokens, port, ref, cfg.dtype, depth(cfg), what)
     b, length = prompts.shape
     calls = moe_rule.pair_calls(port_calls, ref_calls, moe_rule.stream_positions(
         cfg.n_layers, length, tokens.shape[1]))
@@ -147,8 +151,22 @@ def test_family_serve_matches_reference_by_the_rules(arch, once):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "whisper-large-v3"])
 def test_serve_of_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1, item 5"):
-        port_serve.serve(arch, batch=2, prompt_len=16, max_new_tokens=4, device="cpu")
+    """The last three families ported serve (they raised
+    ``NotImplementedError`` until then); what they refuse raises: a Zamba or
+    xLSTM prompt of part of an SSD chunk (``ValueError`` naming
+    ``ssm_chunk``, at full width before any weight is drawn) and an enc-dec
+    request without ``frames``."""
+    out = port_serve.serve(arch, batch=2, prompt_len=16, max_new_tokens=4, device="cpu")
+    assert out["new_tokens"] == 4 and out["engine"]["slabs"] == 1
+    if port_configs.get_reduced(arch).family == "encdec":
+        lm = LMEngineSolver(arch, torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(ValueError, match="requires frames"):
+            lm.signature({"tokens": np.zeros(16, np.int32), "max_new_tokens": 1})
+    else:
+        with pytest.raises(ValueError, match="multiple of ssm_chunk=256"):
+            port_serve.serve(arch, reduced=False, device="cpu")
+        with pytest.raises(ValueError, match="multiple of ssm_chunk=16"):
+            port_serve.serve(arch, batch=2, prompt_len=8, max_new_tokens=4, device="cpu")
 
 
 @pytest.mark.parametrize("tokens", [1, 5])
@@ -219,12 +237,15 @@ def test_lm_adapter_surface_equals_reference():
         for bb in (1, 4, bucket_batch(3)):
             assert port.cost_units(sig, bb) == ref.cost_units(sig, bb)
         assert port.fpga_seconds(sig) is None is ref.fpga_seconds(sig)
-    with pytest.raises(ValueError, match="item 5"):
+    with pytest.raises(ValueError, match="belongs to the enc-dec family"):
         port.signature({"tokens": np.zeros(4, np.int32), "max_new_tokens": 1, "frames": 0})
     with pytest.raises(ValueError, match="exactly one of"):
         LMEngineSolver("qwen2-1.5b", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        LMEngineSolver("whisper-large-v3", torch.Generator(), device="cpu")
+    whisper = LMEngineSolver("whisper-large-v3", torch.Generator(), device="cpu")
+    payload = {"tokens": np.zeros(9, np.int32), "frames": np.zeros((9, 64), np.float32),
+               "max_new_tokens": 7}
+    assert whisper.signature(payload) == RefLMEngineSolver(
+        "whisper-large-v3", jax.random.PRNGKey(0)).signature(payload) == (9, 7, ("frames",))
 
 
 @pytest.mark.parametrize("once", [False, True], ids=["daemon", "once"])
@@ -247,7 +268,8 @@ def test_lm_adapter_packs_vision_and_zero_pads_like_a_direct_generate():
     share one 4-lane slab, the padded lane's tokens and vision zero; each
     result is its rows of a direct generate of the bucket, and the signature
     carries ``("vision",)`` as the reference's does.  A VLM request without
-    vision and a ``frames`` request are refused."""
+    vision and a ``frames`` request (frames belong to the enc-dec family)
+    are refused."""
     cfg_ref = ref_configs.get_reduced("llama-3.2-vision-11b")
     ref_lm = RefLMEngineSolver("llama-3.2-vision-11b", jax.random.PRNGKey(1))
     lm = port_solver_on(ref_lm, gated(ref_lm.params, seed=3))
@@ -282,5 +304,5 @@ def test_lm_adapter_packs_vision_and_zero_pads_like_a_direct_generate():
     assert not torch.equal(moved, base)  # the vision rows reach the logits
     with pytest.raises(ValueError, match="requires vision"):
         lm.signature({"tokens": toks[0], "max_new_tokens": 5})
-    with pytest.raises(ValueError, match="item 5"):
+    with pytest.raises(ValueError, match="belongs to the enc-dec family"):
         lm.signature({**payloads[0], "frames": vis[0]})
