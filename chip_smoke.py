@@ -213,11 +213,37 @@ and prints one JSON line per phase:
    card against CPU on the same weights, float32 and bfloat16, by the LM
    rule at ``lm_rule.depth`` or the MoE rule.
 
-Launch counts are set to 0 before each main-path phase (4-15) and read after
+16. ``train`` (four lines): LM training (``repro_torch.launch.train``,
+   ``models/steps.py`` ``make_train_step``, ``repro_torch.optim``,
+   ``repro_torch.checkpoint``), plain PyTorch that runs none of the kernels
+   above.  ``train_full``: qwen2-1.5b at full width (bf16, ``remat``)
+   trained through ``launch.train.train(..., reduced=False)`` on train_4k's
+   sequence length (4096) at one card's share of its global batch (8 of
+   256, ``reduced``), in ``auto_microbatches`` (2) microbatches, AdamW, one
+   warm-up and five timed steps: losses finite and falling, step ms
+   (median), tokens/s, the model FLOPs (6 · non-embedding parameters ·
+   tokens, and the causal attention's) against their time at 989 TFLOP/s,
+   the AdamW update's ms (CUDA events) against its bytes, peak memory, and
+   the idle share of one warm step (profiler: its busy time over its own
+   wall time) with its top device ops; no checkpoint at this size.
+   ``train_check``: the same width cut to 2 layers (``depth_cut``),
+   float32, TF32 off, one 2 × 256 batch: the loss
+   and every gradient leaf card against CPU by ``tests/train_rule.py``, and
+   AdamW's update on identical gradients by its optimizer rule.
+   ``train_archs``: the ten reduced archs, float32, card against CPU by the
+   same rule, and one ``make_train_step`` each (Adafactor for the MoE
+   family).  ``train_resume``: reduced qwen2 through the launcher on the
+   card, 6 steps uninterrupted, and 6 steps preempted (SIGTERM) after step
+   3 and resumed from the checkpoint: the losses within the float32 loss
+   rule; the checkpoint, and a state held on the card saved by the async
+   writer, restore on the CPU bit for bit.
+
+Launch counts are set to 0 before each main-path phase (4-16) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
-phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded`` and
-of phase 15 as ``launches_lm``.
+phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
+phase 15 as ``launches_lm`` and of phase 16 as ``launches_train`` (which
+must be 0).
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -228,8 +254,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -328,6 +356,13 @@ LM_SSM_SERVE = (4, 256, 16)
 #: ``cpu_check_vlm``'s fresh zero-gate and gated streams (the served 4 × 16
 #: before).
 LM_VLM_ZERO_CUT, LM_VLM_GATED_CUT = (2, 8), (1, 4)
+#: Phase 16, LM training: qwen2-1.5b trained at full width on train_4k's
+#: sequence length at one card's share of its global batch (steps: one
+#: warm-up, then timed); ``train_check``'s cut (layers, batch, sequence);
+#: ``train_resume``'s steps and the step whose end brings the preemption.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_GLOBAL_BATCH, TRAIN_STEPS = 4096, 8, 256, 6
+TRAIN_CHECK = (2, 2, 256)
+TRAIN_RESUME_STEPS, TRAIN_PREEMPT_AFTER = 6, 3
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b",
                "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
@@ -431,7 +466,7 @@ def warm_metrics(solve, repeats: int = 5, per_solve: int = B, unit: str = "reque
     ``repeats`` warm solves, and the device's busy time, idle share and
     device time by name in one more (profiler trace)."""
     warm = sorted(solve_seconds(solve) for _ in range(repeats))[repeats // 2]
-    busy_ms, per_name = device_busy(solve)
+    busy_ms, per_name, _ = device_busy(solve)
     return {
         "warm_solve_s": warm, f"{unit}_per_s": per_solve / warm, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (warm * 1e3),
@@ -454,19 +489,23 @@ def require_equal(got, want, what: str, lanes=None) -> None:
 def device_busy(fn) -> tuple:
     """Milliseconds during which the device ran anything in one call of
     ``fn`` (the union of the device-side events' intervals in a
-    ``torch.profiler`` trace), and the device milliseconds by event name.
-    The trace's raw events are read as the profiler recorded them (building
-    its Python event tree costs minutes for a trace of 10⁵ launches).  A
-    trace with no device event (the profiler now and then records none) is
-    taken again, up to three times."""
+    ``torch.profiler`` trace of the device alone, so that a call of 10⁵
+    launches runs near its own speed), the device milliseconds by event
+    name, and the traced call's own wall milliseconds.  The trace's raw
+    events are read as the profiler recorded them (building its Python event
+    tree costs minutes for a trace of 10⁵ launches).  A trace with no device
+    event (the profiler now and then records none) is taken again, up to
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         spans, per_name = [], {}
         for evt in prof.profiler.kineto_results.events():
             if evt.device_type() != DeviceType.CUDA:
@@ -477,7 +516,7 @@ def device_busy(fn) -> tuple:
             per_name[key] = per_name.get(key, 0.0) + length / 1e3
         if spans:
             break
-    return union_length(spans) / 1e3, per_name
+    return union_length(spans) / 1e3, per_name, wall_ms
 
 
 def union_length(spans) -> float:
@@ -833,7 +872,7 @@ def daemon_lines(dev, seed, cfg_mem, w_np, w2, xi, probes, checked, spans, mc, m
     warm.sort(key=lambda x: x[0])
     seconds, report_w, ticks, occ = warm[len(warm) // 2]
     traced = []
-    busy_ms, per_name = device_busy(lambda: traced.append(closed()))
+    busy_ms, per_name, _ = device_busy(lambda: traced.append(closed()))
     check(traced[0][1], "daemon closed (traced)")
     closed_rps = len(order) / seconds
     emit({
@@ -1800,7 +1839,7 @@ def lm_lines(dev, seed, drive) -> dict:
         warm = solve_seconds(
             lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         timing = dict(lm.timings[-1])
-        busy_ms, per_name = device_busy(
+        busy_ms, per_name, _ = device_busy(
             lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
         bound_ms, bound_by = lm_decode_bound(lm.model, batch, prompt_len, new)
@@ -2125,6 +2164,309 @@ def lm_lines(dev, seed, drive) -> dict:
           "ported_kernel_launches": launches,
           "part_s": time.perf_counter() - t_part})
     torch.cuda.empty_cache()
+    return own
+
+
+def seeded_lm_tree(model, seed: int, device="cpu"):
+    """Weights drawn by ``materialize`` from a seeded CPU generator, with
+    every zeros- or ones-initialized leaf (norms, biases, the SSM's and the
+    mLSTM's gate parameters, the VLM's gates) moved by 0.1 · N(0, 1), so
+    that every term of the layers has a gradient."""
+    from repro_torch.models import params as PM
+
+    tree = PM.materialize(model.param_specs, torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def seed_leaves(level, specs):
+        for name, leaf in level.items():
+            if isinstance(leaf, dict):
+                seed_leaves(leaf, specs[name])
+            elif specs[name].init != "normal":
+                level[name] = (leaf.float() + 0.1 * torch.randn(leaf.shape, generator=gen)).to(
+                    leaf.dtype)
+
+    seed_leaves(tree, model.param_specs)
+    return PM.map_tree(lambda t: t.to(device), tree)
+
+
+def device_lm_tree(specs, seed: int, dev):
+    """A parameter tree of ``specs`` drawn on the card (normal leaves at
+    their scale, zeros and ones filled): the timing state of
+    ``train_full``, whose values do not change its work."""
+    from repro_torch.models import params as PM
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def one(spec):
+        if spec.init in ("zeros", "ones"):
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            return fill(spec.shape, dtype=spec.dtype, device=dev)
+        std = spec.scale if spec.init == "normal" else 1.0
+        return (torch.randn(spec.shape, generator=gen, device=dev) * std).to(spec.dtype)
+
+    return PM.map_tree(one, specs)
+
+
+def preempted_at(step: int):
+    """A context in which the launcher's step monitor delivers SIGTERM to
+    this process as step index ``step`` ends (a preemption notice)."""
+    import contextlib
+
+    from repro_torch.distributed import ft
+
+    @contextlib.contextmanager
+    def scope():
+        stop = ft.StepMonitor.stop
+
+        def stop_and_signal(self, i):
+            if i == step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return stop(self, i)
+
+        ft.StepMonitor.stop = stop_and_signal
+        try:
+            yield
+        finally:
+            ft.StepMonitor.stop = stop
+
+    return scope()
+
+
+def train_flops(model, batch: int, seq: int) -> dict:
+    """Model FLOPs of one training step: 6 · non-embedding parameters ·
+    tokens for the products (the head included), and the causal attention's
+    QKᵀ and PV, forward and backward (3 · 2 · 2 · B · H · S² · hd / 2 a
+    layer)."""
+    from repro_torch.models import params as PM
+
+    cfg = model.cfg
+    params = PM.count_params(model.param_specs)
+    embed = PM.count_params({"embed": model.param_specs["embed"]})
+    gemm = 6 * (params - embed) * batch * seq
+    attention = 6 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    return {"gemm": float(gemm), "attention": float(attention),
+            "total": float(gemm + attention), "non_embedding_params": params - embed}
+
+
+def train_lines(dev, seed, drive) -> dict:
+    """Phase 16: LM training on ``dev`` (``repro_torch.launch.train``,
+    ``make_train_step``, the optimizers and the checkpointer), one JSON line
+    per part: ``train_full`` (qwen2-1.5b at full width), ``train_check``
+    (its full width cut to 2 layers, card against CPU), ``train_archs`` (the
+    ten reduced archs, card against CPU) and ``train_resume`` (a preempted
+    and resumed run on the card, its checkpoint restored on the CPU);
+    returns the launches of these lines by kernel (none is expected: the
+    path is plain PyTorch).  ``drive``: main's launch-counting runner."""
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch import configs as lm_configs
+    from repro_torch import optim
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import params as PM
+    from repro_torch.models import steps
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.model import get_model
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import train_rule
+
+    own = {}
+    smi = nvidia_smi_line()
+
+    def driven(fn):
+        res, seconds, path = drive(fn)
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        return res, seconds, sum(path.values())
+
+    def held(what, fn):
+        try:
+            return fn()
+        except AssertionError as exc:
+            fail(f"{what}: {exc}")
+
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+    # train_full: qwen2-1.5b at full width through the launcher ------------------
+    t_part = time.perf_counter()
+    cfg = lm_configs.get_config(LM_ARCH)
+    model = get_model(cfg)
+    n_params = PM.count_params(model.param_specs)
+    require((cfg.n_layers, cfg.d_model, n_params, cfg.remat, cfg.dtype)
+            == (28, 1536, 1_777_088_000, True, "bfloat16"),
+            f"train_full: {LM_ARCH} is not at full width with remat")
+    shape = SHAPES["train_4k"]
+    require((shape.seq_len, shape.global_batch) == (TRAIN_SEQ, TRAIN_GLOBAL_BATCH),
+            "train_full: train_4k's shape changed")
+    microbatches = steps.auto_microbatches(shape, TRAIN_GLOBAL_BATCH // TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, run_s, n_full = driven(lambda: launch_train.train(
+        LM_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        microbatches=microbatches, seed=seed, log_every=0, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+            f"train_full: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"train_full: the loss did not fall: {losses}")
+    timed = sorted(out["step_s"][1:])
+    step_s = timed[len(timed) // 2]
+    flops = train_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    bound_s = flops["total"] / BF16_FLOPS_PER_S
+    # One warm step traced (the device's events only; its idle share from
+    # its own wall time), and the optimizer's update alone, on a state of
+    # the same shapes drawn on the card (the launcher keeps its own).
+    opt = optim.adamw(optim.cosine_warmup(3e-4, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+    step_fn = steps.make_train_step(model, opt, microbatches=microbatches)
+    params = device_lm_tree(model.param_specs, seed, dev)
+    state = steps.TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
+                             opt.init(params))
+    del params
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    batch = stream.next()
+    stream.close()
+    # warm: the launcher's run made the same step at the same shapes
+    busy_ms, per_name, traced_ms = device_busy(lambda: step_fn(state, batch))
+    grads = PM.map_tree(lambda p: (torch.randn(p.shape, device=dev) * 1e-3).to(p.dtype),
+                        state.params)
+    update_ms = cuda_ms(lambda: opt.update(grads, state.opt, state.params), iters=3, warmup=1)
+    # the update's least bytes: g, p, m, v read once, p, m, v written once
+    update_bytes = sum(t.numel() * (2 * t.element_size() + 16) for _, t in PM.leaves(grads))
+    del grads, state
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "part": "train_full", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype, "remat": cfg.remat,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "global_batch": TRAIN_GLOBAL_BATCH,
+          "reduced": {"global_batch": f"{TRAIN_GLOBAL_BATCH} -> {TRAIN_BATCH}"},
+          "microbatches": microbatches, "optimizer": "adamw",
+          "schedule": f"cosine_warmup(3e-4, {max(TRAIN_STEPS // 10, 1)}, {TRAIN_STEPS})",
+          "steps": TRAIN_STEPS, "timed_steps": len(timed), "losses": losses,
+          "first_loss": losses[0], "last_loss": losses[-1], "step_ms": step_s * 1e3,
+          "step_ms_each": [x * 1e3 for x in out["step_s"]],
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "model_flops": flops,
+          "bound_ms": bound_s * 1e3,
+          "bound_by": "operations: the model FLOPs at 989 TFLOP/s dense bf16",
+          "bound_over_step": bound_s / step_s, "optimizer_update_ms": update_ms,
+          "optimizer_update_bound_ms": update_bytes / HBM_BYTES_PER_S * 1e3,
+          "max_memory_allocated": peak, "device_busy_ms": busy_ms, "traced_step_ms": traced_ms,
+          "device_idle_share": 1.0 - busy_ms / traced_ms,
+          "top_device_ms": dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:6]),
+          "checkpoint": None, "run_s": run_s, "nvidia_smi": smi,
+          "ported_kernel_launches": n_full, "part_s": time.perf_counter() - t_part})
+
+    # train_check: the full width cut to 2 layers, float32, card against CPU -----
+    t_part = time.perf_counter()
+    require(not tf32["allow_tf32"] and tf32["float32_matmul_precision"] == "highest",
+            f"train_check: TF32 would reach the float32 products: {tf32}")
+    layers, b_check, s_check = TRAIN_CHECK
+    cfg2 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+    model2 = get_model(cfg2)
+    cpu_tree = seeded_lm_tree(model2, seed)
+    card_tree = PM.map_tree(lambda t: t.to(dev), cpu_tree)
+    stream = TokenStream(cfg2.vocab, b_check, s_check, seed=seed)
+    batch = {k: torch.as_tensor(v) for k, v in stream.next().items()}
+    stream.close()
+    (summary, _, g_cpu), check_s, n_check = driven(lambda: held("train_check", lambda: (
+        train_rule.hold_step(model2, card_tree, cpu_tree, batch, "train_check"))))
+    counts = held("train_check adamw", lambda: train_rule.hold_adamw_identical(
+        card_tree, cpu_tree, g_cpu, "train_check adamw"))
+    del cpu_tree, card_tree, g_cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "part": "train_check", "arch": LM_ARCH, "layers": layers,
+          "d_model": cfg2.d_model, "params": PM.count_params(model2.param_specs),
+          "depth_cut": {"layers": [cfg.n_layers, layers]}, "dtype": "float32", "tf32": tf32,
+          "batch": b_check, "seq_len": s_check, "rule": summary,
+          "adamw_identical_grads_differing": counts, "adamw_held": True, "check_s": check_s,
+          "ported_kernel_launches": n_check, "part_s": time.perf_counter() - t_part})
+
+    # train_archs: the ten reduced archs, card against CPU --------------------------
+    t_part = time.perf_counter()
+    rules, launches = {}, 0
+    archs = LM_DENSE + LM_FAMILIES
+    for i, arch in enumerate(archs):
+        cfg_a = dataclasses.replace(lm_configs.get_reduced(arch), dtype="float32")
+        model_a = get_model(cfg_a)
+        cpu_tree = seeded_lm_tree(model_a, seed + 300 + i)
+        card_tree = PM.map_tree(lambda t: t.to(dev), cpu_tree)
+        gen = torch.Generator().manual_seed(seed + 400 + i)
+        tokens = torch.randint(0, cfg_a.vocab, (2, 32), dtype=torch.int32, generator=gen)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        if cfg_a.family == "vlm":
+            batch["vision"] = torch.randn((2, cfg_a.n_vision_tokens, cfg_a.vision_dim),
+                                          generator=gen)
+        if cfg_a.family == "encdec":
+            batch["frames"] = torch.randn((2, 32, cfg_a.d_model), generator=gen)
+        what = f"train_archs {arch}"
+        name = "adafactor" if cfg_a.family == "moe" else "adamw"
+        opt_a = optim.get_optimizer(name, optim.cosine_warmup(3e-4, 2000, 100_000))
+
+        def one_arch():
+            summary, _, _ = train_rule.hold_step(model_a, card_tree, cpu_tree, batch, what)
+            state = steps.TrainState(torch.zeros((), dtype=torch.int32, device=dev), card_tree,
+                                     opt_a.init(card_tree))
+            new, metrics = steps.make_train_step(model_a, opt_a)(state, batch)
+            train_rule.hold_loss(float(metrics["loss"]), summary["loss_card"], "float32",
+                                 0, f"{what} make_train_step")
+            require(all(bool(torch.isfinite(v).all()) for _, v in PM.leaves(new.params)),
+                    f"{what}: make_train_step's params are not finite")
+            return dict(summary, optimizer=name)
+
+        rules[arch], _, n = driven(lambda: held(what, one_arch))
+        launches += n
+    emit({"phase": "train", "part": "train_archs", "archs": list(archs), "dtype": "float32",
+          "batch": [2, 32], "rules": rules, "ported_kernel_launches": launches,
+          "part_s": time.perf_counter() - t_part})
+
+    # train_resume: preempted at step 3 and resumed, against an uninterrupted run --
+    t_part = time.perf_counter()
+    dirs = [tempfile.mkdtemp(prefix="train_resume_") for _ in range(2)]
+    try:
+        kw = dict(reduced=True, steps=TRAIN_RESUME_STEPS, batch=4, seq_len=64, lr=1e-3,
+                  seed=seed, log_every=0, ckpt_every=TRAIN_PREEMPT_AFTER, device=dev)
+        whole, _, n_a = driven(lambda: launch_train.train(LM_ARCH, ckpt_dir=dirs[0], **kw))
+        with preempted_at(TRAIN_PREEMPT_AFTER - 1):
+            first, _, n_b = driven(lambda: launch_train.train(LM_ARCH, ckpt_dir=dirs[1], **kw))
+        require(first["status"] == "preempted" and first["final_step"] == TRAIN_PREEMPT_AFTER,
+                f"train_resume: the preempted run: {first}")
+        second, _, n_c = driven(lambda: launch_train.train(LM_ARCH, ckpt_dir=dirs[1], **kw))
+        resumed = first["losses"] + second["losses"]
+        require(len(resumed) == TRAIN_RESUME_STEPS and second["final_step"] == TRAIN_RESUME_STEPS,
+                f"train_resume: the resumed run: {second}")
+        ratios = [held("train_resume", lambda a=a, b=b: train_rule.hold_loss(
+            a, b, "float32", 0, "train_resume")) for a, b in zip(resumed, whole["losses"])]
+        # The checkpoint the card wrote, restored on the CPU and on the card.
+        model_r = get_model(lm_configs.get_reduced(LM_ARCH))
+        opt_r = optim.adamw(optim.constant(1e-3))
+        target = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(0), "cpu")
+        step_w = ckpt_lib.latest_step(dirs[1])
+        on_cpu = ckpt_lib.restore(dirs[1], step_w, target, device="cpu")
+        on_card = ckpt_lib.restore(dirs[1], step_w, target, device=dev)
+        bits = all(torch.equal(a, b.cpu()) for (_, a), (_, b) in zip(
+            PM.leaves(on_cpu._asdict()), PM.leaves(on_card._asdict())))
+        # And a state held on the card, saved and restored on the CPU.
+        state = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(1), dev)
+        stream = TokenStream(model_r.cfg.vocab, 4, 64, seed=seed)
+        state, _ = steps.make_train_step(model_r, opt_r)(state, stream.next())
+        stream.close()
+        saver = ckpt_lib.AsyncCheckpointer(dirs[0], keep=10)
+        saver.save(100, state, extra_meta={"data_state": {"cursor": 1, "seed": seed}})
+        saver.wait()
+        back = ckpt_lib.restore(dirs[0], 100, target, device="cpu")
+        held_bits = all(torch.equal(a, b.cpu()) for (_, a), (_, b) in zip(
+            PM.leaves(back._asdict()), PM.leaves(state._asdict())))
+        require(bits and held_bits, "train_resume: a checkpoint did not restore bit for bit")
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "train", "part": "train_resume", "arch": f"{LM_ARCH} (reduced)",
+          "steps": TRAIN_RESUME_STEPS, "preempted_at": TRAIN_PREEMPT_AFTER,
+          "checkpoint_every": TRAIN_PREEMPT_AFTER, "losses_uninterrupted": whole["losses"],
+          "losses_resumed": resumed, "max_loss_diff_over_bound": max(ratios),
+          "restored_on_cpu_bit_for_bit": True, "card_state_restored_on_cpu_bit_for_bit": True,
+          "checkpoint_step": step_w, "ported_kernel_launches": n_a + n_b + n_c,
+          "part_s": time.perf_counter() - t_part})
     return own
 
 
@@ -3030,13 +3372,18 @@ def main() -> None:
     # 15. the LM serving path: dense, MoE and VLM at full width -------------------------
     lm_launches = lm_lines(dev, args.seed, drive)
 
+    # 16. LM training: qwen2-1.5b at full width, card against CPU, resume -------------
+    train_launches = train_lines(dev, args.seed, drive)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_daemon"] = daemon_launches.get(name, 0)
         row["launches_launchers"] = launcher_launches.get(name, 0)
         row["launches_sharded"] = sharded_launches.get(name, 0)
         row["launches_lm"] = lm_launches.get(name, 0)
+        row["launches_train"] = train_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
+        require(row["launches_train"] == 0, f"{name} launched on the LM training path")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -364,11 +364,15 @@ class RetrievalEngineSolver:
         )
         self._settle_obs += 1
 
-    def expected_cycles(self) -> float:
+    def expected_cycles(self, block: bool = False) -> float:
         """Quoted oscillation cycles per solve: worst-case ``max_cycles``
         blended toward the measured settle-cycle EMA as slabs are observed
         (the early-exit batched solve really does stop at the EMA, so the
-        quote converges on executed work instead of the cycle bound)."""
+        quote converges on executed work instead of the cycle bound).
+        ``block`` is accepted as the reference takes it, and changes
+        nothing: each slab's mean is folded as it is observed, so nothing
+        is pending."""
+        del block
         mc = float(self.config.max_cycles)
         if self._settle_ema is None:
             return mc

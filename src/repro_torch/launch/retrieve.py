@@ -47,7 +47,7 @@ import torch
 from repro_torch.api import RetrievalSolver
 from repro_torch.core.dynamics import ONNResult
 from repro_torch.data import patterns as pat
-from repro_torch.distributed import Mesh, ShardPlan, plan_of_legacy_shard_batch
+from repro_torch.distributed import Mesh, ShardPlan, make_mesh, plan_of_legacy_shard_batch
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.distributed.plan import local_device_count
 from repro_torch.engine import DEFAULT_BATCH_BUCKETS, Engine, Request
@@ -99,6 +99,22 @@ def draw_requests(
         [pat.corrupt(patterns[int(w)], corruption, generator=generator) for w in which]
     )
     return which, corrupted
+
+
+def batch_mesh() -> Optional[Mesh]:
+    """Deprecated: a ``("data", "model")`` mesh over all local cards,
+    data-major ``(n, 1)``.
+
+    The old per-launcher sharded-retrieve recipe (lanes over every device,
+    coupling matrix replicated).  Superseded by
+    :class:`repro_torch.distributed.ShardPlan` — ``plan_of_legacy_shard_batch()``
+    is the equivalent plan, and ``--mesh BxM`` composes data- and
+    model-parallelism.  Returns None on fewer than two devices.
+    """
+    n = local_device_count()
+    if n < 2:
+        return None
+    return make_mesh((n, 1))
 
 
 def plan_mesh(plan: Optional[ShardPlan], mesh: Optional[Mesh], device) -> Optional[Mesh]:

@@ -123,12 +123,16 @@ def encode(params: EncDecLM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Te
     _, s, d = frames.shape
     dtype = torch_dtype(cfg.dtype)
     x = frames.to(dtype) + sinusoid(s, d, device=frames.device).to(dtype)[None]
-    for lp in params["enc_blocks"]:
+
+    def body(lp, x):
         h = _ln(x, lp["ln1"])
         y, _, _ = L.self_attention(lp["attn"], h, cfg, None, causal=False, rope=False)
         x = x + y
         h = _ln(x, lp["ln2"])
-        x = x + L.gelu_mlp(lp["mlp"], h)
+        return x + L.gelu_mlp(lp["mlp"], h)
+
+    for lp in params["enc_blocks"]:
+        x = L.remat(body, lp, x, enabled=cfg.remat)
     return _ln(x, params["enc_norm"])
 
 
@@ -151,9 +155,11 @@ def decode_sequence(
     s = tokens.shape[1]
     d = cfg.d_model
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype) + sinusoid(s, d, device=memory.device).to(dtype)[None]
+    pos = sinusoid(s, d, device=memory.device).to(dtype)[None]
+    x = L.embed(params["embed"], tokens, dtype) + pos
     kv = ([], [], [], [])
-    for lp in params["dec_blocks"]:
+
+    def body(lp, x, memory):
         h = _ln(x, lp["ln1"])
         y, k, v = L.self_attention(lp["self_attn"], h, cfg, None, causal=True, rope=False)
         if collect_kv:
@@ -164,7 +170,10 @@ def decode_sequence(
         h = _ln(x, lp["ln_x"])
         x = x + L.cross_attention(lp["cross_attn"], h, memory, cfg)
         h = _ln(x, lp["ln2"])
-        x = x + L.gelu_mlp(lp["mlp"], h)
+        return x + L.gelu_mlp(lp["mlp"], h)
+
+    for lp in params["dec_blocks"]:
+        x = L.remat(body, lp, x, memory, enabled=cfg.remat and not collect_kv)
     x = _ln(x, params["dec_norm"])
     return x, (tuple(torch.stack(t) for t in kv) if collect_kv else None)
 

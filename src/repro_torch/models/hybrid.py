@@ -117,7 +117,7 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
     states, caches): with ``collect_cache`` caches is (MambaCache of
     (G, E, B, …) tensors, (k, v) of (G, B, S, KV, hd)), else None."""
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     shared = params["shared"]
     groups, per_group = len(params["blocks"]), cfg.shared_attn_every
@@ -131,7 +131,7 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
                 convs.add(mc.conv)
                 states.add(mc.state)
             else:
-                y = S.mamba_forward(lp["mamba"], h, cfg)
+                y = L.remat(S.mamba_forward, lp["mamba"], h, cfg, enabled=cfg.remat)
             x = x + y
         # the shared attention block, with this invocation's norms
         h = L.rms_norm(x, params["shared_ln1"][g], cfg.norm_eps)
@@ -244,7 +244,7 @@ def xlstm_forward_hidden(params: XLSTMLM, tokens: torch.Tensor, cfg: ModelConfig
     caches): with ``collect_cache`` caches is (MLSTMCache of (G, M, B, …)
     tensors, (s_conv (G, B, K − 1, D), SLSTMCache of (G, B, H, hd))), else
     None."""
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     g, m = _xlstm_groups(cfg)
     m_convs, m_states, s_convs, s_cells = _Stacked(g, m), _Stacked(g, m), [], []
     for group, sp in zip(params["mblocks"], params["sblocks"]):
@@ -255,7 +255,7 @@ def xlstm_forward_hidden(params: XLSTMLM, tokens: torch.Tensor, cfg: ModelConfig
                 m_convs.add(mc.conv)
                 m_states.add(mc.state)
             else:
-                y = X.mlstm_forward(lp["mlstm"], h, cfg)
+                y = L.remat(X.mlstm_forward, lp["mlstm"], h, cfg, enabled=cfg.remat)
             x = x + y
         h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
         if collect_cache:

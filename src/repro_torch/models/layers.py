@@ -30,15 +30,23 @@ loop in place of its ``lax.scan``, with the query blocking (``q_chunk``) and
 the static skip of fully masked KV ranges; no library attention call.  The
 reference's ``shard(...)`` annotations are dropped: one controller, no
 GSPMD.
+
+Under autograd, :func:`remat` recomputes in the backward pass what the
+reference wraps in ``jax.checkpoint``: each query block and each KV chunk's
+step of the attention here, each layer body when ``cfg.remat`` in the
+assemblies, each chunk of the loss.  Without autograd (serving) it is a
+plain call.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -54,6 +62,25 @@ def dot(x: torch.Tensor, w: torch.Tensor, contract: int = 1) -> torch.Tensor:
     k = math.prod(w.shape[:contract])
     out = torch.matmul(x.reshape(*x.shape[: x.dim() - contract], k), w.reshape(k, -1).to(x.dtype))
     return out.reshape(*x.shape[: x.dim() - contract], *w.shape[contract:])
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) when ``enabled`` and autograd records
+    the forward; otherwise a plain call."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens`` in ``dtype`` (an exact cast).
+    Under autograd the table is cast before the lookup, as the reference
+    does, so that a token's gradients are summed in ``dtype`` and rounded to
+    the table's dtype once; otherwise only the looked-up rows are cast."""
+    if torch.is_grad_enabled():
+        return table.to(dtype)[tokens]
+    return table[tokens].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,13 +181,11 @@ def flash_attention(
                 hi = min(sk, _ceil_to(q_offset + qs + q_chunk, chunk))
             if window is not None:
                 lo = max(0, ((q_offset + qs - window) // chunk) * chunk)
-            outs.append(
-                flash_attention(
-                    q[:, qs : qs + q_chunk], k[:, lo:hi], v[:, lo:hi],
-                    causal=causal, window=window, q_offset=q_offset + qs,
-                    kv_valid_len=kv_valid_len, chunk=chunk, kv_pos_offset=lo,
-                )
+            blk = functools.partial(
+                flash_attention, causal=causal, window=window, q_offset=q_offset + qs,
+                kv_valid_len=kv_valid_len, chunk=chunk, kv_pos_offset=lo,
             )
+            outs.append(remat(blk, q[:, qs : qs + q_chunk], k[:, lo:hi], v[:, lo:hi]))
         return torch.cat(outs, dim=1)
 
     _, sk, kv, _ = k.shape
@@ -178,13 +203,7 @@ def flash_attention(
     q_pos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)
     valid_len = (sk + kv_pos_offset) if kv_valid_len is None else kv_valid_len
 
-    m = torch.full((b, kv, g, sq), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=dev)  # noqa: E741
-    acc = torch.zeros((b, kv, g, sq, hd), dtype=torch.float32, device=dev)
-    for c in range(n_chunks):
-        k_blk = k[:, c * chunk : (c + 1) * chunk]  # (B, C, KV, hd)
-        v_blk = v[:, c * chunk : (c + 1) * chunk]
-        k_pos = kv_pos_offset + c * chunk + torch.arange(chunk, dtype=torch.int32, device=dev)
+    def body(m, l, acc, k_blk, v_blk, k_pos):  # noqa: E741
         kt = k_blk.permute(0, 2, 3, 1)[:, :, None].float()  # (B, KV, 1, hd, C)
         s = torch.matmul(qg, kt) * scale  # (B, KV, G, Sq, C)
         mask = k_pos[None, :] < valid_len  # (1, C): padded/unwritten keys
@@ -199,8 +218,15 @@ def flash_attention(
         l = l * corr + p.sum(dim=-1)  # noqa: E741
         vt = v_blk.permute(0, 2, 1, 3)[:, :, None].float()  # (B, KV, 1, C, hd)
         pv = torch.matmul(p.to(v.dtype).float(), vt)
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l, acc * corr[..., None] + pv
+
+    m = torch.full((b, kv, g, sq), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=dev)  # noqa: E741
+    acc = torch.zeros((b, kv, g, sq, hd), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        k_pos = kv_pos_offset + c * chunk + torch.arange(chunk, dtype=torch.int32, device=dev)
+        m, l, acc = remat(body, m, l, acc, k[:, c * chunk : (c + 1) * chunk],  # noqa: E741
+                          v[:, c * chunk : (c + 1) * chunk], k_pos)
     out = acc / torch.clamp(l, min=1e-20)[..., None]  # (B, KV, G, Sq, hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return out.to(q.dtype)

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -62,17 +63,23 @@ def chunked_cross_entropy(
 ) -> torch.Tensor:
     """Sequence-chunked softmax CE (mean over tokens): one (B, chunk, V)
     block of logits at a time, rounded to float32 after the product in
-    ``x``'s dtype."""
+    ``x``'s dtype.  Under autograd each chunk's logits are recomputed in
+    the backward pass (``layers.remat``), as the reference's are."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} must be a multiple of loss chunk {chunk}")
+
+    def body(xc, yc):
+        logits = torch.matmul(xc, w.to(x.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, s, chunk):
-        logits = torch.matmul(x[:, start : start + chunk], w.to(x.dtype)).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, start : start + chunk, None].long())[..., 0]
-        total = total + torch.sum(lse - gold)
+        total = total + L.remat(body, x[:, start : start + chunk],
+                                labels[:, start : start + chunk])
     return total / (b * s)
 
 

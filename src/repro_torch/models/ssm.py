@@ -14,7 +14,9 @@ float32, the products of model-dtype operands exact in float32 (their
 dtype before the skip connection; ``_gated_norm`` in float32.  The
 intra-chunk decays are one (B, H, Q, Q) buffer, made in place and masked by
 a select (above the diagonal ``exp`` may overflow to inf, which a product
-with a 0/1 mask would turn into NaN).
+with a 0/1 mask would turn into NaN).  Under autograd (the loss's
+backward) the decays and scores are made out of place, the entries above
+the diagonal set to −inf before the ``exp`` so that their gradient is 0.
 """
 
 from __future__ import annotations
@@ -83,9 +85,12 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float) -
 
 def _decays(cum: torch.Tensor, above: torch.Tensor) -> torch.Tensor:
     """exp(cum_t − cum_s) for s ≤ t, else 0: cum (B, Q, H) → (B, H, Qt, Qs)
-    float32, made in place."""
+    float32, made in place unless autograd records the forward."""
     cum_h = cum.transpose(1, 2)
-    return (cum_h[..., :, None] - cum_h[..., None, :]).exp_().masked_fill_(above, 0.0)
+    diff = cum_h[..., :, None] - cum_h[..., None, :]
+    if torch.is_grad_enabled():
+        return diff.masked_fill(above, float("-inf")).exp()
+    return diff.exp_().masked_fill_(above, 0.0)
 
 
 def check_chunks(t: int, cfg: ModelConfig) -> None:
@@ -123,7 +128,8 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
         cum = torch.cumsum(a_log_step[:, sl], dim=1)  # (B, Q, H) inclusive
         # intra-chunk: y_t += C_t · Σ_{s≤t} exp(cum_t − cum_s) dt_s B_s x_s
         scores = _decays(cum, above)  # (B, H, Qt, Qs)
-        scores.mul_(torch.matmul(c_k, b_k.transpose(1, 2))[:, None])  # · C_t B_s
+        cb = torch.matmul(c_k, b_k.transpose(1, 2))[:, None]  # · C_t B_s
+        scores = scores * cb if torch.is_grad_enabled() else scores.mul_(cb)
         y_intra = torch.matmul(scores, xdt_k.transpose(1, 2)).transpose(1, 2)  # (B, Qt, H, P)
         # inter-chunk: y_t += C_t · exp(cum_t) · h_prev
         y_inter = torch.einsum("bqn,bhpn->bqhp", c_k, state) * torch.exp(cum)[..., None]

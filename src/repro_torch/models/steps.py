@@ -1,19 +1,207 @@
-"""Serving step factories: prefill_step / serve_step and the generate loop
-(the port of ``repro.models.steps``, serving subset).
+"""Step factories: train_step / prefill_step / serve_step, the generate
+loop and the input specs (the port of ``repro.models.steps``).
 
-``make_train_step``, ``build_cell`` and ``auto_microbatches`` wait for
-training (ROADMAP.md, section 1, item 5).
+Training works on the reference's own parameter tree: ``TrainState.params``
+is the nested dict of tensors ``materialize`` makes, layers stacked on
+leading axes (``blocks`` (L, …), the VLM's (group, layer, …), Zamba's and
+xLSTM's groups, the enc-dec's ``enc_blocks``/``dec_blocks``), and the
+gradients come back in the same tree, so the optimizer and the checkpointer
+see the reference's shapes and flatten order.  A train step builds the
+model's module over the tree (each block's parameters views of its slice of
+the stacked leaves), differentiates the loss with respect to those views,
+and writes each block's gradient into its slice of the stacked gradient.
+
+``CellProgram`` and ``build_cell`` wait for the LM sharding rules
+(ROADMAP.md, section 1, item 5, step 6).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import optim as optim_lib
 from repro_torch.models import params as P
-from repro_torch.models.model import Model
+from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.model import ENCDEC_PREFILL_PROMPT_LEN, Model
+from repro_torch.models.params import torch_dtype
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor  # int32, 0-d
+    params: Any  # the reference's parameter tree of tensors
+    opt: Any  # the optimizer's state tree
+
+
+# ---------------------------------------------------------------------------
+# Input specs (ParamSpec trees)
+# ---------------------------------------------------------------------------
+
+
+def _tok_spec(b: int, s: int) -> P.ParamSpec:
+    return P.ParamSpec((b, s), ("batch", None), dtype=torch.int32, init="zeros")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, P.ParamSpec]:
+    """ParamSpec tree for one training/prefill batch of this cell."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: Dict[str, P.ParamSpec] = {}
+    if cfg.family == "encdec":
+        specs["frames"] = P.ParamSpec(
+            (b, s, cfg.d_model), ("batch", None, None), dtype=torch_dtype(cfg.dtype))
+        dec_len = s if shape.kind == "train" else ENCDEC_PREFILL_PROMPT_LEN
+        specs["tokens"] = _tok_spec(b, dec_len)
+        if shape.kind == "train":
+            specs["labels"] = _tok_spec(b, dec_len)
+        return specs
+    specs["tokens"] = _tok_spec(b, s)
+    if shape.kind == "train":
+        specs["labels"] = _tok_spec(b, s)
+    if cfg.family == "vlm":
+        specs["vision"] = P.ParamSpec(
+            (b, cfg.n_vision_tokens, cfg.vision_dim), ("batch", None, None),
+            dtype=torch_dtype(cfg.dtype))
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig, model: Model):
+    """(cache, token, index) ParamSpec trees for a decode cell."""
+    b, s = shape.global_batch, shape.seq_len
+    cache = model.cache_specs(b, s)
+    token = _tok_spec(b, 1)
+    index = P.ParamSpec((), (), dtype=torch.int32, init="zeros")
+    return cache, token, index
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _trainable(model: Model, tree) -> Tuple[torch.nn.Module, List[Tuple[str, torch.Tensor]]]:
+    """The model's module over ``tree`` with every parameter requiring grad:
+    (module, [(dotted name, parameter)]).  A block's parameter is a view of
+    its slice of a stacked leaf; its name's integer parts are the slice's
+    index, the rest the leaf's path."""
+    module = model.build_params(tree)
+    named = list(module.named_parameters())
+    for _, p in named:
+        p.requires_grad_(True)
+    return module, named
+
+
+def _leaf_index(name: str) -> Tuple[str, Tuple[int, ...]]:
+    keys = name.split(".")
+    return (".".join(k for k in keys if not k.isdigit()),
+            tuple(int(k) for k in keys if k.isdigit()))
+
+
+def _loss_and_parts(model: Model, tree, batch):
+    """((loss, metrics), [(leaf path, slice index, gradient)]) of the
+    model's loss at ``tree`` on ``batch``; an unused parameter's gradient
+    is zeros, as ``jax.grad`` gives it."""
+    module, named = _trainable(model, tree)
+    loss, metrics = model.loss_fn(module, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    out = [(*_leaf_index(name), torch.zeros_like(p) if g is None else g)
+           for (name, p), g in zip(named, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), out
+
+
+def _into_tree(tree, parts, accumulate=None):
+    """The gradient tree of ``tree``'s shapes and dtypes from per-slice
+    ``parts``, or, given ``accumulate`` (a tree of buffers), each part added
+    into its slice there in the buffer's dtype."""
+    if accumulate is None:
+        out = {path: torch.empty_like(leaf) for path, leaf in P.leaves(tree)}
+    else:
+        out = dict(P.leaves(accumulate))
+    with torch.no_grad():
+        for path, idx, g in parts:
+            if accumulate is None:
+                out[path][idx] = g
+            else:
+                out[path][idx] += g.to(out[path].dtype)
+    return P._rebuild(tree, out) if accumulate is None else accumulate
+
+
+def value_and_grad(model: Model, params, batch: Dict[str, torch.Tensor]):
+    """((loss, metrics), grads): the model's loss on ``batch`` (tensors on
+    the params' device) and its gradient tree, the params' shapes and
+    dtypes (``jax.value_and_grad`` of ``model.loss_fn`` with ``has_aux``)."""
+    (loss, metrics), parts = _loss_and_parts(model, params, batch)
+    return (loss, metrics), _into_tree(params, parts)
+
+
+def make_train_step(
+    model: Model,
+    optimizer: optim_lib.Optimizer,
+    microbatches: int = 1,
+    accum_dtype=torch.float32,
+):
+    """(TrainState, batch) → (TrainState, metrics).
+
+    The batch's tensors (numpy arrays or tensors) are moved to the params'
+    device.  ``microbatches > 1`` runs gradient accumulation: the batch is
+    split along its leading axis, each microbatch's gradients are added
+    into separate ``accum_dtype`` buffers (never into the parameters'
+    ``.grad``), and the loss and the gradients are their means over the
+    microbatches; the metrics are the last microbatch's, with ``loss``,
+    ``grad_norm`` and ``lr``."""
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        dev = state.step.device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        if microbatches == 1:
+            (loss, metrics), grads = value_and_grad(model, state.params, batch)
+        else:
+            def split(x):
+                b = x.shape[0]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
+                return x.reshape(microbatches, b // microbatches, *x.shape[1:])
+
+            mbatches = {k: split(v) for k, v in batch.items()}
+            grads = P.map_tree(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
+                               state.params)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(microbatches):
+                (l_i, metrics), parts = _loss_and_parts(
+                    model, state.params, {k: v[i] for k, v in mbatches.items()})
+                _into_tree(state.params, parts, accumulate=grads)
+                del parts
+                loss = loss + l_i
+            loss = loss / microbatches
+            grads = P.map_tree(lambda g: g / microbatches, grads)
+
+        new_params, new_opt, opt_metrics = optimizer.update(grads, state.opt, state.params)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    return train_step
+
+
+# Auto-microbatching target: per-device tokens per microbatch.  Activation
+# memory scales linearly with this.
+MICROBATCH_TOKEN_TARGET = 16384
+
+
+def auto_microbatches(shape: ShapeConfig, dp_size: int) -> int:
+    if shape.kind != "train" or dp_size <= 0:
+        return 1
+    tokens_per_dev = shape.global_batch * shape.seq_len // dp_size
+    mb = max(1, tokens_per_dev // MICROBATCH_TOKEN_TARGET)
+    # must divide the per-shard batch
+    while (shape.global_batch // dp_size) % mb != 0 and mb > 1:
+        mb -= 1
+    return mb
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(model: Model):
@@ -23,10 +211,12 @@ def make_prefill_step(model: Model):
     return prefill_step
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, sample: str = "greedy"):
     """One-token greedy decode: (params, cache, token, index) → (next_token,
     logits, cache), the token the first maximal logit, as ``jnp.argmax``
-    takes it."""
+    takes it.  ``sample`` is accepted and ignored, as in the reference:
+    decoding is greedy."""
+    del sample
 
     def serve_step(params, cache, token, index):
         logits, new_cache = model.decode_fn(params, cache, token, index)
@@ -72,8 +262,9 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_generate(model: Model):
-    """Prefill + decode loop with explicit token accounting.
+def make_generate(model: Model, sample: str = "greedy"):
+    """Prefill + decode loop with explicit token accounting (``sample`` is
+    accepted and ignored, as in the reference: decoding is greedy).
 
     Returns ``generate(params, batch_in, max_new_tokens)`` → ``(tokens,
     timing)`` where ``tokens`` is an int32 CPU tensor of shape ``(batch,
@@ -99,7 +290,7 @@ def make_generate(model: Model):
     needs no generator and never holds a recurrent state twice.
     """
     prefill = make_prefill_step(model)
-    decode = make_serve_step(model)
+    decode = make_serve_step(model, sample)
 
     @torch.inference_mode()
     def generate(params, batch_in: Dict[str, Any], max_new_tokens: int):

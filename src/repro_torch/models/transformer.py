@@ -233,7 +233,7 @@ def forward_hidden(
     takes ``vision`` (B, Nv, vision_dim) and stacks its kv as ((k, v) of
     (G, n_self, B, S, KV, hd), (cross_k, cross_v) of (G, B, Nv, KV, hd))."""
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks: List[torch.Tensor] = []
@@ -241,12 +241,15 @@ def forward_hidden(
 
     def self_block(lp, x):
         nonlocal aux
-        x, a, (k, v) = self_block_fwd(lp, x, cfg, positions)
-        if a is not None:
-            aux = aux + a
         if collect_kv:
+            x, a, (k, v) = self_block_fwd(lp, x, cfg, positions)
             ks.append(k)
             vs.append(v)
+        else:  # the layer body recomputed in the backward pass under cfg.remat
+            x, a = L.remat(lambda h: self_block_fwd(lp, h, cfg, positions)[:2], x,
+                           enabled=cfg.remat)
+        if a is not None:
+            aux = aux + a
         return x
 
     if cfg.family == "vlm":

@@ -118,7 +118,11 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
         cum = torch.cumsum(log_f[:, sl], dim=1)  # (B, Q, H)
         att = torch.matmul(q_k.transpose(1, 2), k_k.permute(0, 2, 3, 1)) * scale  # (B, H, Qt, Qs)
         # the decays, then the input gate at the source position
-        scores = att.mul_(_decays(cum, above)).mul_(i_k.transpose(1, 2)[:, :, None, :])
+        decays, i_src = _decays(cum, above), i_k.transpose(1, 2)[:, :, None, :]
+        if torch.is_grad_enabled():
+            scores = att * decays * i_src
+        else:
+            scores = att.mul_(decays).mul_(i_src)
         y_intra = torch.matmul(scores, v_k.transpose(1, 2)).transpose(1, 2)  # (B, Qt, H, V)
         y_inter = torch.einsum("bqhn,bhnv->bqhv", q_k * scale, state) * torch.exp(cum)[..., None]
         decay_end = torch.exp(cum[:, -1:, :] - cum) * i_k  # (B, Q, H)

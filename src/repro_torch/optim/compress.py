@@ -22,13 +22,16 @@ count) is a true division, a residual ``corrected − q · scale`` is one fused
 multiply-subtract (one rounding: computed in float64, where it is exact,
 then rounded), and rounding is half to even (``torch.round`` as
 ``jnp.round``).  Every operand is a tensor, so no backend swaps a division
-for a reciprocal on its own.  ``compressed_grads`` and the optimizer wait
-for the LM side's training.
+for a reciprocal on its own.
+
+* ``compressed_grads`` — the gradient tree's mean over a :class:`Mesh`'s
+  data axis on the error-feedback wire, each leaf split into its shards by
+  its spec (the reference's ``shard_map`` wrapper).
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,3 +153,66 @@ def compressed_psum_scatter(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]
     ])
     out = torch.round(q_sum.to(torch.float32) * s_sum).to(torch.int32)
     return [out.to(p.device) for p in parts]
+
+
+def _blocks(shape: Sequence[int], spec: Sequence[Optional[str]], mesh) -> dict:
+    """Mesh position (d, m) → the index (a tuple of slices) of the block a
+    leaf of ``shape`` under ``spec`` holds there: a dim named by a mesh axis
+    is split evenly over it, every other dim is whole."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = {}
+    for pos in np.ndindex(mesh.devices.shape):
+        idx = []
+        for dim, axis in zip(shape, spec):
+            if axis is None:
+                idx.append(slice(None))
+                continue
+            k = mesh.axis_names.index(axis)
+            n = mesh.devices.shape[k]
+            if dim % n:
+                raise ValueError(f"dim {dim} does not split over {n} {axis!r} shards")
+            step = dim // n
+            idx.append(slice(pos[k] * step, (pos[k] + 1) * step))
+        out[pos] = tuple(idx)
+    return out
+
+
+def compressed_grads(local_grads, errors, mesh, axis_name: str = "data", grad_specs=None):
+    """Synchronize per-shard gradients with int8 error-feedback compression.
+
+    ``local_grads`` and ``errors``: trees (nested dicts) of tensors, each
+    leaf the global array whose blocks the mesh's devices hold under its
+    spec.  ``grad_specs``: a matching tree of specs, one mesh axis name or
+    None per dim (the reference's ``PartitionSpec``); None means every leaf
+    is replicated.  For each position along the other axis, the blocks
+    along ``axis_name`` are reduced by :func:`compressed_psum_mean` (a
+    block that does not split over ``axis_name`` is the same on every
+    shard).  Returns (mean_grads, new_errors), the per-device results put
+    back at their blocks, on each leaf's device.
+    """
+    reduce_axis = mesh.axis_names.index(axis_name)
+
+    def one(g: torch.Tensor, e: torch.Tensor, spec) -> Tuple[torch.Tensor, torch.Tensor]:
+        blocks = _blocks(g.shape, () if spec is None else spec, mesh)
+        mean = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        err = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        groups = {}
+        for pos in blocks:
+            groups.setdefault(pos[:reduce_axis] + pos[reduce_axis + 1:], []).append(pos)
+        for members in groups.values():
+            devs = [mesh.devices[pos] for pos in members]
+            means, errs = compressed_psum_mean(
+                [g[blocks[pos]].to(d) for pos, d in zip(members, devs)],
+                [e[blocks[pos]].to(d) for pos, d in zip(members, devs)])
+            for pos, mg, ne in zip(members, means, errs):
+                mean[blocks[pos]] = mg.to(g.device)
+                err[blocks[pos]] = ne.to(g.device)
+        return mean, err
+
+    def walk(g, e, spec):
+        if isinstance(g, dict):
+            parts = {k: walk(g[k], e[k], None if spec is None else spec[k]) for k in g}
+            return ({k: v[0] for k, v in parts.items()}, {k: v[1] for k, v in parts.items()})
+        return one(g, e, spec)
+
+    return walk(local_grads, errors, grad_specs)

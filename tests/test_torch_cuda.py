@@ -17,7 +17,11 @@ forcing within its τ), the MoE by the MoE rule of ``tests/moe_rule.py``
 (the routings it calls decided equal, the LM rule before a sequence's first
 tie-bound routing), the enc-dec, Zamba and xLSTM families by the LM rule at
 ``lm_rule.depth``, and a served LM request (a whisper request with its
-frames) equals ``make_generate`` of its batch bucket exactly.
+frames) equals ``make_generate`` of its batch bucket exactly.  A train
+step of every reduced arch on the card is held to the CPU by the training
+rule of ``tests/train_rule.py`` (loss, every gradient leaf, AdamW on
+identical gradients), and a checkpoint written from the card restores on
+the CPU bit for bit.
 """
 
 from __future__ import annotations
@@ -891,3 +895,73 @@ def test_served_encdec_request_equals_make_generate_of_its_bucket_on_card(cuda, 
              "frames": torch.cat([frames, torch.zeros_like(frames[:1])])}
     direct, _ = make_generate(lm.model)(lm.params, batch, 16)
     assert torch.equal(tokens, direct[:3])
+
+
+# ---------------------------------------------------------------------------
+# LM training: a train step and a checkpoint, card against CPU
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = LM_DENSE + LM_FAMILIES + LM_LAST_FAMILIES
+
+
+def _train_batch(cfg, seed):
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32, generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((2, cfg.n_vision_tokens, cfg.vision_dim), generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 32, cfg.d_model), generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_train_step_on_card_held_to_cpu(cuda, arch):
+    """Every reduced arch, float32 activations: the loss and every gradient
+    leaf on the card held to the CPU by ``tests/train_rule.py``, AdamW's
+    update on identical gradients by its optimizer rule, and one
+    ``make_train_step`` on the card (Adafactor for the MoE family, as
+    ``build_cell`` picks it), its loss ``value_and_grad``'s by the loss
+    rule."""
+    from train_rule import hold_adamw_identical, hold_loss, hold_step
+    from repro_torch import configs as lm_configs
+    from repro_torch import optim
+    from repro_torch.models import params as PM
+    from repro_torch.models import steps
+    from repro_torch.models.model import get_model
+
+    cfg = dataclasses.replace(lm_configs.get_reduced(arch), dtype="float32")
+    model = get_model(cfg)
+    tree = _seeded_lm_tree(model, seed=40 + LM_ARCHS.index(arch))
+    card = PM.map_tree(lambda t: t.to(cuda), tree)
+    batch = _train_batch(cfg, 50 + LM_ARCHS.index(arch))
+    summary, _, g_cpu = hold_step(model, card, tree, batch, f"{arch} train step")
+    hold_adamw_identical(card, tree, g_cpu, f"{arch} adamw")
+    name = "adafactor" if cfg.family == "moe" else "adamw"
+    opt = optim.get_optimizer(name, optim.cosine_warmup(3e-4, 2000, 100_000))
+    state = steps.TrainState(torch.zeros((), dtype=torch.int32, device=cuda), card,
+                             opt.init(card))
+    new, metrics = steps.make_train_step(model, opt)(state, batch)
+    hold_loss(float(metrics["loss"]), summary["loss_card"], "float32", 0, arch)
+    assert int(new.step) == 1 and all(
+        torch.isfinite(v).all() for _, v in PM.leaves(new.params))
+
+
+def test_checkpoint_from_card_restores_on_cpu_bit_for_bit(cuda, tmp_path):
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs as lm_configs
+    from repro_torch import optim
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import TrainState
+
+    model = get_model(lm_configs.get_reduced("qwen2-1.5b"))
+    params = PM.materialize(model.param_specs, torch.Generator().manual_seed(3), cuda)
+    opt = optim.adamw(optim.constant(1e-3))
+    state = TrainState(torch.tensor(5, dtype=torch.int32, device=cuda), params, opt.init(params))
+    state.opt["m"]["embed"].normal_()
+    ckpt.save(str(tmp_path), 5, state, extra_meta={"data_state": {"cursor": 5, "seed": 0}})
+    got = ckpt.restore(str(tmp_path), 5, state, device="cpu")
+    for (k, a), (_, b) in zip(PM.leaves(got._asdict()), PM.leaves(state._asdict())):
+        assert a.device.type == "cpu" and a.dtype == b.dtype, k
+        assert torch.equal(a, b.cpu()), k

@@ -279,7 +279,7 @@ def test_train_onn_cli_prints_json(tmp_path):
 
 @pytest.mark.parametrize("target", ["repro_torch.launch.retrieve", "repro_torch.launch.train_onn",
                                     "repro_torch.launch.maxcut", "repro_torch.launch.serve_daemon",
-                                    "repro_torch.launch.mesh"]
+                                    "repro_torch.launch.mesh", "repro_torch.launch.train"]
                          + [os.path.basename(p) for p in EXAMPLES])
 def test_imports_without_jax_or_repro(target):
     """Each launcher and ``examples/torch_*.py`` imports with ``jax`` and
@@ -300,7 +300,7 @@ def test_six_torch_examples_exist():
     names = {os.path.basename(p) for p in EXAMPLES}
     assert names == {f"torch_{stem}.py" for stem in (
         "quickstart", "pattern_retrieval", "maxcut_ising", "engine_mixed_workloads",
-        "serving_load", "train_retrieve_serve")}
+        "serving_load", "train_retrieve_serve", "train_lm", "serve_lm")}
 
 
 def test_quickstart_example_retrieves_on_cpu():
