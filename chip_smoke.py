@@ -211,7 +211,12 @@ and prints one JSON line per phase:
    every block, card against CPU, on identical inputs.  ``archs``: the ten archs at
    their reduced sizes (llama-3.2-vision gated, whisper with 32 frames),
    card against CPU on the same weights, float32 and bfloat16, by the LM
-   rule at ``lm_rule.depth`` or the MoE rule.
+   rule at ``lm_rule.depth`` or the MoE rule.  The archs run in the order
+   qwen2-1.5b, whisper-large-v3, llama-3.2-vision-11b,
+   granite-moe-3b-a800m, zamba2-2.7b, xlstm-1.3b; each after the first is
+   built (its weights drawn on one host core) while the previous arch's
+   CPU check runs on the other cores; its ``build_s`` is that overlapped
+   time.
 
 16. ``train`` (four lines): LM training (``repro_torch.launch.train``,
    ``models/steps.py`` ``make_train_step``, ``repro_torch.optim``,
@@ -238,12 +243,25 @@ and prints one JSON line per phase:
    rule; the checkpoint, and a state held on the card saved by the async
    writer, restore on the CPU bit for bit.
 
-Launch counts are set to 0 before each main-path phase (4-16) and read after
+17. ``dryrun``: the LM dry run (``repro_torch.launch.dryrun``) on the meta
+   device, nothing allocated on the card.  ``dryrun_train_full``: the cell
+   of phase 16's own step (qwen2-1.5b, 8 × 4096, 2 microbatches, AdamW, a
+   1 × 1 mesh): its argument bytes equal the bytes of phase 16's live
+   ``TrainState`` and batch exactly, its predicted peak (arguments plus
+   temporaries) lies within ``DRYRUN_PEAK_TOLERANCE`` of ``train_full``'s
+   ``max_memory_allocated``, its counted FLOPs beside the model FLOPs and
+   its roofline bound beside the measured step.  ``dryrun_production``:
+   qwen2-1.5b train_4k on both production meshes, qwen2-1.5b decode_32k,
+   h2o-danube-1.8b long_500k and arctic-480b train_4k (``DRYRUN_CLI_CELLS``
+   through the CLI, in processes of their own), each with its three
+   roofline terms, dominant term, per-device bytes and ``fits``.
+
+Launch counts are set to 0 before each main-path phase (4-17) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
 phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
-phase 15 as ``launches_lm`` and of phase 16 as ``launches_train`` (which
-must be 0).
+phase 15 as ``launches_lm``, of phase 16 as ``launches_train`` and of phase
+17 as ``launches_dryrun`` (the last two must be 0).
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -269,11 +287,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
-BF16_FLOPS_PER_S = 989e12
+#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), defined
+#: once beside the dry run's roofline.
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    H100_BF16_FLOPS_PER_S as BF16_FLOPS_PER_S,
+    H100_FP32_FLOPS_PER_S as FP32_FLOPS_PER_S,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_INT8_OPS_PER_S as INT8_OPS_PER_S,
+)
 
 TPU_KERNELS = "src/repro/kernels/coupling_kernel.py"
 ROWS = {
@@ -363,6 +384,15 @@ LM_VLM_ZERO_CUT, LM_VLM_GATED_CUT = (2, 8), (1, 4)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_GLOBAL_BATCH, TRAIN_STEPS = 4096, 8, 256, 6
 TRAIN_CHECK = (2, 2, 256)
 TRAIN_RESUME_STEPS, TRAIN_PREEMPT_AFTER = 6, 3
+#: Phase 17, the LM dry run: the production cells counted by
+#: ``python -m repro_torch.launch.dryrun`` processes, (arch, shape, mesh);
+#: the tolerance of the predicted peak against ``train_full``'s.
+DRYRUN_CLI_CELLS = (("qwen2-1.5b", "train_4k", "single"), ("qwen2-1.5b", "train_4k", "multi"),
+                    ("qwen2-1.5b", "decode_32k", "single"),
+                    ("h2o-danube-1.8b", "long_500k", "single"),
+                    ("arctic-480b", "train_4k", "single"))
+DRYRUN_CLI_TIMEOUT_S = 300
+DRYRUN_PEAK_TOLERANCE = 0.15
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b",
                "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
@@ -1772,13 +1802,14 @@ def xlstm_blocks_held(card, cpu, prompt, token, dev) -> dict:
 
 def lm_lines(dev, seed, drive) -> dict:
     """Phase 15: the LM serving path on ``dev``, one JSON line per part:
-    the dense family (qwen2-1.5b), the MoE (granite-moe-3b-a800m), the VLM
-    (llama-3.2-vision-11b), the enc-dec (whisper-large-v3), Zamba
+    the dense family (qwen2-1.5b), the enc-dec (whisper-large-v3), the VLM
+    (llama-3.2-vision-11b), the MoE (granite-moe-3b-a800m), Zamba
     (zamba2-2.7b) and xLSTM (xlstm-1.3b) at full width, then the reduced
     archs of the six families card against CPU; returns the launches of
     these lines by kernel (none is expected: the path is plain PyTorch).
     ``drive``: main's launch-counting runner."""
     import copy
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch import configs as lm_configs
     from repro_torch.engine.adapters import LMEngineSolver
@@ -1807,7 +1838,10 @@ def lm_lines(dev, seed, drive) -> dict:
 
     def build(arch, n_layers, d_model, n_params):
         """The arch at full width as ``serve(..., reduced=False)`` builds it,
-        and the generator it drew from (it draws the prompts next)."""
+        and the generator it drew from (it draws the prompts next).  Each
+        arch after the first is built on ``drawer``'s thread while the
+        previous arch's CPU check runs (its weights are drawn on one host
+        core; the check's products take the others)."""
         t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(seed)
         lm = LMEngineSolver(arch, gen, reduced=False, device=dev)
@@ -1881,132 +1915,31 @@ def lm_lines(dev, seed, drive) -> dict:
         except AssertionError as exc:
             fail(f"{what}: {exc}")
 
-    # the dense family: qwen2-1.5b ------------------------------------------------
-    lm, gen, build_s = build(LM_ARCH, 28, 1536, 1_777_088_000)
-    cfg = lm.cfg
-    batch, prompt_len, new = LM_SERVE
-    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
-    served = serve_part(lm, gen, "serve", batch, prompt_len, new, prompts, None, build_s)
-    b128, p128, n128 = LM_BATCH128
-    serve_part(lm, gen, "serve_batch128", b128, p128, n128,
-               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+    drawer = ThreadPoolExecutor(max_workers=1)
+    # In this order each draw fits inside the CPU check before it (the
+    # VLM's, the longest, beside the enc-dec's check, the longest).
+    upcoming = iter([(LM_ENCDEC_ARCH, 32, 1280, 1_535_595_520),
+                     (LM_VLM_ARCH, 40, 4096, 9_806_614_544),
+                     (LM_MOE_ARCH, 32, 1536, 3_374_679_552),
+                     (LM_ZAMBA_ARCH, 54, 2560, 2_422_711_200),
+                     (LM_XLSTM_ARCH, 48, 2048, 2_552_244_560)])
 
-    t_part = time.perf_counter()
-    cpu_lm = copy.deepcopy(lm.params).to("cpu")
-    t_cpu = time.perf_counter()
-    rule = held("lm cpu_check", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check"))
-    cpu_s = time.perf_counter() - t_cpu
-    del cpu_lm, lm
-    torch.cuda.empty_cache()
-    emit({"phase": "lm", "part": "cpu_check", "arch": LM_ARCH, "depth": cfg.n_layers,
-          "depth_cut": None, "streams": batch, "steps": new, "rule": rule, "cpu_s": cpu_s,
-          "ported_kernel_launches": 0, "part_s": time.perf_counter() - t_part})
+    threads = torch.get_num_threads()
 
-    # the MoE: granite-moe-3b-a800m ----------------------------------------------
-    lm, gen, build_s = build(LM_MOE_ARCH, 32, 1536, 3_374_679_552)
-    cfg = lm.cfg
-    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
-    served = serve_part(lm, gen, "serve_moe", batch, prompt_len, new, prompts, None, build_s)
-    serve_part(lm, gen, "serve_moe_batch128", b128, p128, n128,
-               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+    def draw_next():
+        """Start building the next arch on the drawer's thread, and leave
+        the draw a core of its own: beside it, the CPU check runs one
+        intra-op thread fewer (with every thread, the draw's thread shares
+        a core with one of the check's, and each parallel region waits for
+        that one)."""
+        torch.set_num_threads(max(threads - 1, 1))
+        return drawer.submit(build, *next(upcoming))
 
-    t_part = time.perf_counter()
-    cpu_lm = copy.deepcopy(lm.params).to("cpu")
-    t_cpu = time.perf_counter()
-    rule = held("lm cpu_check_moe", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check_moe"))
-    cpu_s = time.perf_counter() - t_cpu
-    # One float32 prefill of the same prompts on the bf16 weights (upcast
-    # exactly in every product): every routing decided, the logits within τ.
-    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
-    with torch.inference_mode():
-        with moe_rule.recording() as calls_card:
-            (card32, _), _, n32 = driven(lambda: model32.prefill_fn(
-                lm.params, {"tokens": prompts.to(dev)}))
-        with moe_rule.recording() as calls_cpu:
-            cpu32, _ = model32.prefill_fn(cpu_lm, {"tokens": prompts})
-    routes = held("lm cpu_check_moe float32", lambda: moe_rule.hold_calls(moe_rule.pair_calls(
-        calls_card, calls_cpu, [0] * cfg.n_layers), "lm cpu_check_moe float32"))
-    require(routes["route_bound"] == 0,
-            f"lm cpu_check_moe: {routes['route_bound']} float32 routings are tie-bound")
-    card32, cpu32 = card32.float().cpu().numpy()[:, None], cpu32.float().cpu().numpy()[:, None]
-    rule32 = held("lm cpu_check_moe float32", lambda: hold(
-        card32.argmax(-1), card32, cpu32, "float32", cfg.n_layers, "lm cpu_check_moe float32"))
-    del cpu_lm, lm
-    torch.cuda.empty_cache()
-    emit({"phase": "lm", "part": "cpu_check_moe", "arch": LM_MOE_ARCH, "depth": cfg.n_layers,
-          "depth_cut": None, "streams": batch, "steps": new, "rule": rule,
-          "route_bound": rule["route_bound"], "routings": rule["routings"],
-          "positions_held": rule["steps_held"], "positions": rule["steps"],
-          "max_diff_over_tau": rule["max_diff_over_tau"], "cpu_s": cpu_s,
-          "float32_prefill": {"route_bound": routes["route_bound"],
-                              "routings": routes["routings"],
-                              "least_decided_gap_over_2delta":
-                                  routes["least_decided_gap_over_2delta"],
-                              "rule": rule32},
-          "tf32": tf32, "ported_kernel_launches": n32, "part_s": time.perf_counter() - t_part})
-
-    # the VLM: llama-3.2-vision-11b ----------------------------------------------
-    lm, gen, build_s = build(LM_VLM_ARCH, 40, 4096, 9_806_614_544)
-    cfg = lm.cfg
-    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
-    vision = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
-    served = serve_part(lm, gen, "serve_vlm", batch, prompt_len, new, prompts, vision, build_s)
-
-    t_part = time.perf_counter()
-    cpu_lm = copy.deepcopy(lm.params).to("cpu")
-    vision2 = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch,
-                                       torch.Generator().manual_seed(seed + 1))
-
-    def prefill_logits(vis):
-        with torch.inference_mode():
-            (logits, _), _, n = driven(lambda: lm.model.prefill_fn(
-                lm.params, {"tokens": prompts.to(dev), "vision": vis.to(dev)}))
-        return logits.float().cpu(), n
-
-    def cut_stream(streams, steps):
-        """A fresh card stream of the first ``streams`` requests (the depth
-        cut of this line), and its batch."""
-        batch_cut = {"tokens": prompts[:streams], "vision": vision[:streams]}
-        (stream, _), _, n = driven(lambda: make_generate(lm.model)(lm.params, batch_cut, steps))
-        return stream, batch_cut, n
-
-    zero_stream, zero_batch, n_z = cut_stream(*LM_VLM_ZERO_CUT)
-    t_cpu = time.perf_counter()
-    zero = held("lm cpu_check_vlm", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, zero_batch["tokens"], zero_stream,
-        vision=zero_batch["vision"], what="lm cpu_check_vlm"))
-    cpu_s = time.perf_counter() - t_cpu
-    (base, n_a), (moved, n_b) = prefill_logits(vision), prefill_logits(vision2)
-    require(torch.equal(base, moved), "lm cpu_check_vlm: vision moved the logits at zero gates")
-    gate_vlm(lm.params, seed + 2)
-    gate_vlm(cpu_lm, seed + 2)
-    (gated_base, n_c), (gated_moved, n_d) = prefill_logits(vision), prefill_logits(vision2)
-    require(not torch.equal(gated_base, gated_moved),
-            "lm cpu_check_vlm: vision did not move the logits with non-zero gates")
-    gated_stream, gated_batch, n_e = cut_stream(*LM_VLM_GATED_CUT)
-    t_cpu = time.perf_counter()
-    gated_rule = held("lm cpu_check_vlm gated", lambda: moe_rule.hold_streams(
-        lm.model, lm.params, cpu_lm, gated_batch["tokens"], gated_stream,
-        vision=gated_batch["vision"], what="lm cpu_check_vlm gated"))
-    cpu_gated_s = time.perf_counter() - t_cpu
-    del cpu_lm, lm
-    torch.cuda.empty_cache()
-    emit({"phase": "lm", "part": "cpu_check_vlm", "arch": LM_VLM_ARCH, "depth": cfg.n_layers,
-          "cross_layers": cfg.n_layers // cfg.cross_every,
-          "depth_cut": {"zero_gates": {"streams": [batch, LM_VLM_ZERO_CUT[0]],
-                                       "steps": [new, LM_VLM_ZERO_CUT[1]]},
-                        "gated": {"streams": [batch, LM_VLM_GATED_CUT[0]],
-                                  "steps": [new, LM_VLM_GATED_CUT[1]]}},
-          "streams": LM_VLM_ZERO_CUT[0], "steps": LM_VLM_ZERO_CUT[1], "rule": zero,
-          "cpu_s": cpu_s,
-          "vision_moves_logits": {"zero_gates": False, "gated": True},
-          "gated": {"rule": gated_rule, "cpu_s": cpu_gated_s,
-                    "max_abs_logit_change_from_vision": float(
-                        (gated_base - gated_moved).abs().max())},
-          "ported_kernel_launches": n_z + n_a + n_b + n_c + n_d + n_e,
-          "part_s": time.perf_counter() - t_part})
+    def drawn(future):
+        """The next arch, once drawn, with every intra-op thread back."""
+        built = future.result()
+        torch.set_num_threads(threads)
+        return built
 
     def cpu_check(part, arch, lm, held_runs, t_part):
         """Hold each (what, prompts, stream, frames) of ``held_runs`` made on
@@ -2075,10 +2008,33 @@ def lm_lines(dev, seed, drive) -> dict:
               "cpu_s": cpu_s, "ported_kernel_launches": 0,
               "part_s": time.perf_counter() - t_part})
 
+    # the dense family: qwen2-1.5b ------------------------------------------------
+    lm, gen, build_s = build(LM_ARCH, 28, 1536, 1_777_088_000)
+    cfg = lm.cfg
+    batch, prompt_len, new = LM_SERVE
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    served = serve_part(lm, gen, "serve", batch, prompt_len, new, prompts, None, build_s)
+    b128, p128, n128 = LM_BATCH128
+    serve_part(lm, gen, "serve_batch128", b128, p128, n128,
+               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+
+    t_part = time.perf_counter()
+    drawing = draw_next()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    t_cpu = time.perf_counter()
+    rule = held("lm cpu_check", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check"))
+    cpu_s = time.perf_counter() - t_cpu
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "part": "cpu_check", "arch": LM_ARCH, "depth": cfg.n_layers,
+          "depth_cut": None, "streams": batch, "steps": new, "rule": rule, "cpu_s": cpu_s,
+          "ported_kernel_launches": 0, "part_s": time.perf_counter() - t_part})
+
     # the enc-dec: whisper-large-v3 -----------------------------------------------
     from repro_torch.models.model import ENCDEC_DECODE_MEMORY_LEN, ENCDEC_PREFILL_PROMPT_LEN
 
-    lm, gen, build_s = build(LM_ENCDEC_ARCH, 32, 1280, 1_535_595_520)
+    lm, gen, build_s = drawn(drawing)
     cfg = lm.cfg
     require(cfg.n_encoder_layers == 32, "lm: whisper-large-v3 has 32 encoder layers")
     prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
@@ -2096,16 +2052,123 @@ def lm_lines(dev, seed, drive) -> dict:
     (first_1500, _), _, n_first = driven(lambda: make_generate(lm.model)(
         lm.params, {"tokens": prompts_1500[:1], "frames": frames_1500[:1]}, new))
     require(n_first == 0, "lm cpu_check_encdec: a ported kernel launched")
+    drawing = draw_next()
     cpu_check("cpu_check_encdec", LM_ENCDEC_ARCH, lm, [
         ("serve_encdec", prompts, served, frames),
         ("serve_encdec_1500_first", prompts_1500[:1], first_1500, frames_1500[:1])], t_part)
     del lm, served_1500, frames_1500
     torch.cuda.empty_cache()
 
+    # the VLM: llama-3.2-vision-11b ----------------------------------------------
+    lm, gen, build_s = drawn(drawing)
+    cfg = lm.cfg
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    vision = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
+    served = serve_part(lm, gen, "serve_vlm", batch, prompt_len, new, prompts, vision, build_s)
+
+    t_part = time.perf_counter()
+    drawing = draw_next()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    vision2 = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch,
+                                       torch.Generator().manual_seed(seed + 1))
+
+    def prefill_logits(vis):
+        with torch.inference_mode():
+            (logits, _), _, n = driven(lambda: lm.model.prefill_fn(
+                lm.params, {"tokens": prompts.to(dev), "vision": vis.to(dev)}))
+        return logits.float().cpu(), n
+
+    def cut_stream(streams, steps):
+        """A fresh card stream of the first ``streams`` requests (the depth
+        cut of this line), and its batch."""
+        batch_cut = {"tokens": prompts[:streams], "vision": vision[:streams]}
+        (stream, _), _, n = driven(lambda: make_generate(lm.model)(lm.params, batch_cut, steps))
+        return stream, batch_cut, n
+
+    zero_stream, zero_batch, n_z = cut_stream(*LM_VLM_ZERO_CUT)
+    t_cpu = time.perf_counter()
+    zero = held("lm cpu_check_vlm", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, zero_batch["tokens"], zero_stream,
+        vision=zero_batch["vision"], what="lm cpu_check_vlm"))
+    cpu_s = time.perf_counter() - t_cpu
+    (base, n_a), (moved, n_b) = prefill_logits(vision), prefill_logits(vision2)
+    require(torch.equal(base, moved), "lm cpu_check_vlm: vision moved the logits at zero gates")
+    gate_vlm(lm.params, seed + 2)
+    gate_vlm(cpu_lm, seed + 2)
+    (gated_base, n_c), (gated_moved, n_d) = prefill_logits(vision), prefill_logits(vision2)
+    require(not torch.equal(gated_base, gated_moved),
+            "lm cpu_check_vlm: vision did not move the logits with non-zero gates")
+    gated_stream, gated_batch, n_e = cut_stream(*LM_VLM_GATED_CUT)
+    t_cpu = time.perf_counter()
+    gated_rule = held("lm cpu_check_vlm gated", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, gated_batch["tokens"], gated_stream,
+        vision=gated_batch["vision"], what="lm cpu_check_vlm gated"))
+    cpu_gated_s = time.perf_counter() - t_cpu
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "part": "cpu_check_vlm", "arch": LM_VLM_ARCH, "depth": cfg.n_layers,
+          "cross_layers": cfg.n_layers // cfg.cross_every,
+          "depth_cut": {"zero_gates": {"streams": [batch, LM_VLM_ZERO_CUT[0]],
+                                       "steps": [new, LM_VLM_ZERO_CUT[1]]},
+                        "gated": {"streams": [batch, LM_VLM_GATED_CUT[0]],
+                                  "steps": [new, LM_VLM_GATED_CUT[1]]}},
+          "streams": LM_VLM_ZERO_CUT[0], "steps": LM_VLM_ZERO_CUT[1], "rule": zero,
+          "cpu_s": cpu_s,
+          "vision_moves_logits": {"zero_gates": False, "gated": True},
+          "gated": {"rule": gated_rule, "cpu_s": cpu_gated_s,
+                    "max_abs_logit_change_from_vision": float(
+                        (gated_base - gated_moved).abs().max())},
+          "ported_kernel_launches": n_z + n_a + n_b + n_c + n_d + n_e,
+          "part_s": time.perf_counter() - t_part})
+
+    # the MoE: granite-moe-3b-a800m ----------------------------------------------
+    lm, gen, build_s = drawn(drawing)
+    cfg = lm.cfg
+    prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
+    served = serve_part(lm, gen, "serve_moe", batch, prompt_len, new, prompts, None, build_s)
+    serve_part(lm, gen, "serve_moe_batch128", b128, p128, n128,
+               launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
+
+    t_part = time.perf_counter()
+    drawing = draw_next()
+    cpu_lm = copy.deepcopy(lm.params).to("cpu")
+    t_cpu = time.perf_counter()
+    rule = held("lm cpu_check_moe", lambda: moe_rule.hold_streams(
+        lm.model, lm.params, cpu_lm, prompts, served, what="lm cpu_check_moe"))
+    cpu_s = time.perf_counter() - t_cpu
+    # One float32 prefill of the same prompts on the bf16 weights (upcast
+    # exactly in every product): every routing decided, the logits within τ.
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    with torch.inference_mode():
+        with moe_rule.recording() as calls_card:
+            (card32, _), _, n32 = driven(lambda: model32.prefill_fn(
+                lm.params, {"tokens": prompts.to(dev)}))
+        with moe_rule.recording() as calls_cpu:
+            cpu32, _ = model32.prefill_fn(cpu_lm, {"tokens": prompts})
+    routes = held("lm cpu_check_moe float32", lambda: moe_rule.hold_calls(moe_rule.pair_calls(
+        calls_card, calls_cpu, [0] * cfg.n_layers), "lm cpu_check_moe float32"))
+    require(routes["route_bound"] == 0,
+            f"lm cpu_check_moe: {routes['route_bound']} float32 routings are tie-bound")
+    card32, cpu32 = card32.float().cpu().numpy()[:, None], cpu32.float().cpu().numpy()[:, None]
+    rule32 = held("lm cpu_check_moe float32", lambda: hold(
+        card32.argmax(-1), card32, cpu32, "float32", cfg.n_layers, "lm cpu_check_moe float32"))
+    del cpu_lm, lm
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "part": "cpu_check_moe", "arch": LM_MOE_ARCH, "depth": cfg.n_layers,
+          "depth_cut": None, "streams": batch, "steps": new, "rule": rule,
+          "route_bound": rule["route_bound"], "routings": rule["routings"],
+          "positions_held": rule["steps_held"], "positions": rule["steps"],
+          "max_diff_over_tau": rule["max_diff_over_tau"], "cpu_s": cpu_s,
+          "float32_prefill": {"route_bound": routes["route_bound"],
+                              "routings": routes["routings"],
+                              "least_decided_gap_over_2delta":
+                                  routes["least_decided_gap_over_2delta"],
+                              "rule": rule32},
+          "tf32": tf32, "ported_kernel_launches": n32, "part_s": time.perf_counter() - t_part})
+
     # Zamba and xLSTM: zamba2-2.7b, xlstm-1.3b -----------------------------------
-    for arch, short, shape in ((LM_ZAMBA_ARCH, "zamba", (54, 2560, 2_422_711_200)),
-                               (LM_XLSTM_ARCH, "xlstm", (48, 2048, 2_552_244_560))):
-        lm, gen, build_s = build(arch, *shape)
+    for arch, short in ((LM_ZAMBA_ARCH, "zamba"), (LM_XLSTM_ARCH, "xlstm")):
+        lm, gen, build_s = drawn(drawing)
         cfg = lm.cfg
         s_batch, s_prompt, s_new = LM_SSM_SERVE
         prompts = launch_serve.draw_prompts(cfg.vocab, s_batch, s_prompt, gen)
@@ -2115,6 +2178,7 @@ def lm_lines(dev, seed, drive) -> dict:
                    launch_serve.draw_prompts(cfg.vocab, b128, p128, gen), None, build_s)
         t_part = time.perf_counter()
         if short == "zamba":
+            drawing = draw_next()
             cpu_check("cpu_check_zamba", arch, lm, [("serve_zamba", prompts, served, None)],
                       t_part)
         else:
@@ -2163,6 +2227,7 @@ def lm_lines(dev, seed, drive) -> dict:
           "depths": {arch: depth(lm_configs.get_reduced(arch)) for arch in archs},
           "ported_kernel_launches": launches,
           "part_s": time.perf_counter() - t_part})
+    drawer.shutdown()
     torch.cuda.empty_cache()
     return own
 
@@ -2256,7 +2321,9 @@ def train_lines(dev, seed, drive) -> dict:
     ten reduced archs, card against CPU) and ``train_resume`` (a preempted
     and resumed run on the card, its checkpoint restored on the CPU);
     returns the launches of these lines by kernel (none is expected: the
-    path is plain PyTorch).  ``drive``: main's launch-counting runner."""
+    path is plain PyTorch) and ``train_full``'s step: its live ``TrainState``
+    and batch, peak memory, model FLOPs, step and bound seconds, for phase
+    17.  ``drive``: main's launch-counting runner."""
     from repro_torch import checkpoint as ckpt_lib
     from repro_torch import configs as lm_configs
     from repro_torch import optim
@@ -2334,8 +2401,13 @@ def train_lines(dev, seed, drive) -> dict:
     update_ms = cuda_ms(lambda: opt.update(grads, state.opt, state.params), iters=3, warmup=1)
     # the update's least bytes: g, p, m, v read once, p, m, v written once
     update_bytes = sum(t.numel() * (2 * t.element_size() + 16) for _, t in PM.leaves(grads))
-    del grads, state
+    del grads
     torch.cuda.empty_cache()
+    # phase 17 counts this step on the meta device beside these tensors
+    full_step = {"state": state, "batch": batch, "max_memory_allocated": peak,
+                 "model_flops": flops, "step_s": step_s, "bound_s": bound_s,
+                 "microbatches": microbatches}
+    del state
     emit({"phase": "train", "part": "train_full", "arch": LM_ARCH, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype, "remat": cfg.remat,
           "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "global_batch": TRAIN_GLOBAL_BATCH,
@@ -2467,6 +2539,125 @@ def train_lines(dev, seed, drive) -> dict:
           "restored_on_cpu_bit_for_bit": True, "card_state_restored_on_cpu_bit_for_bit": True,
           "checkpoint_step": step_w, "ported_kernel_launches": n_a + n_b + n_c,
           "part_s": time.perf_counter() - t_part})
+    return own, full_step
+
+
+def dryrun_lines(dev, drive, full_step) -> dict:
+    """Phase 17: the LM dry run (``repro_torch.launch.dryrun``) on the meta
+    device, one JSON line per part.  ``dryrun_train_full``: the cell of
+    phase 16's own step (qwen2-1.5b, 8 × 4096 tokens, 2 microbatches,
+    AdamW) on a 1 × 1 mesh, counted beside ``full_step``: its argument
+    bytes equal the live state's and batch's exactly, its peak (arguments
+    plus temporaries) against the step's ``max_memory_allocated``, its
+    FLOPs against the model FLOPs and its roofline against the measured
+    step.  ``dryrun_production``: qwen2-1.5b train_4k on both production
+    meshes, qwen2-1.5b decode_32k, h2o-danube-1.8b long_500k and
+    arctic-480b train_4k, each cell's roofline terms, dominant term,
+    per-device bytes and ``fits``.  Those cells run at once in
+    ``python -m repro_torch.launch.dryrun`` processes on the host's other
+    cores while ``dryrun_train_full`` runs here.  Nothing is allocated on
+    the card; returns the launches of the phase by kernel (none is
+    expected)."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import params as PM
+    from repro_torch.models.config import SHAPES
+
+    own = {}
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = []
+    try:
+        for i, (arch, shape_name, mesh_name) in enumerate(DRYRUN_CLI_CELLS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape_name, "--mesh", mesh_name,
+                 "--out", os.path.join(out_dir, f"cli{i}")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+
+        # dryrun_train_full: phase 16's step, counted beside its live tensors
+        t_part = time.perf_counter()
+        state, batch = full_step["state"], full_step["batch"]
+        live = (sum(t.nbytes for _, t in PM.leaves(state._asdict()))
+                + sum(np.asarray(v).nbytes for v in batch.values()))
+        mesh1 = Mesh(np.array([[torch.device("meta")]], dtype=object))
+        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+        cell, _, path = drive(lambda: dryrun.run_cell(
+            LM_ARCH, "train_4k", False, microbatches=full_step["microbatches"], mesh=mesh1,
+            shape=shape, outdir=os.path.join(out_dir, "here"), tag="train_full",
+            verbose=False))
+        for k, v in path.items():
+            own[k] = own.get(k, 0) + v
+        mem = cell["memory_analysis"]
+        require(mem["argument_size_in_bytes"] == live,
+                f"dryrun_train_full: argument bytes {mem['argument_size_in_bytes']} are not the "
+                f"live state's and batch's {live}")
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        measured = full_step["max_memory_allocated"]
+        require(abs(predicted / measured - 1) <= DRYRUN_PEAK_TOLERANCE,
+                f"dryrun_train_full: predicted peak {predicted} against {measured} measured")
+        roof = cell["roofline"]
+        bound = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+        emit({"phase": "dryrun", "part": "dryrun_train_full", "cell": cell["cell"],
+              "mesh": cell["mesh"], "arch": LM_ARCH, "batch": TRAIN_BATCH,
+              "seq_len": TRAIN_SEQ, "microbatches": cell["microbatches"],
+              "optimizer": cell["optimizer"], "memory_analysis": mem,
+              "live_state_and_batch_bytes": live, "argument_bytes_equal_live": True,
+              "predicted_peak_bytes": predicted, "max_memory_allocated": measured,
+              "predicted_over_measured_peak": predicted / measured,
+              "peak_tolerance": DRYRUN_PEAK_TOLERANCE,
+              "counted_flops": cell["replica_cost"]["flops"],
+              "model_flops": full_step["model_flops"]["total"],
+              "counted_over_model_flops":
+                  cell["replica_cost"]["flops"] / full_step["model_flops"]["total"],
+              "bytes_accessed": cell["replica_cost"]["bytes_accessed"],
+              "roofline": roof, "bound_s": bound, "dominant": roof["dominant"],
+              "step_s": full_step["step_s"], "bound_over_step": bound / full_step["step_s"],
+              "model_flops_bound_s": full_step["bound_s"],
+              "cost_probe_s": cell["cost_probe_s"], "memory_probe_s": cell["memory_probe_s"],
+              "ported_kernel_launches": sum(path.values()),
+              "part_s": time.perf_counter() - t_part})
+        del state, batch
+
+        # dryrun_production: the cells of the CLI's processes
+        t_part = time.perf_counter()
+        for proc in procs:
+            log, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+            require(proc.returncode == 0, f"dryrun_production: {proc.args}:\n{log}")
+        cells = []
+        for i in range(len(procs)):
+            cli_dir = os.path.join(out_dir, f"cli{i}")
+            for name in sorted(os.listdir(cli_dir)):
+                with open(os.path.join(cli_dir, name)) as f:
+                    cells.append(json.load(f))
+        require(len(cells) == len(DRYRUN_CLI_CELLS),
+                f"dryrun_production: {len(cells)} cells written")
+        for c in cells:
+            r, m = c["roofline"], c["memory_analysis"]
+            emit({"phase": "dryrun", "part": "dryrun_production", "cell": c["cell"],
+                  "mesh": c["mesh"], "n_devices": c["n_devices"], "dp_size": c["dp_size"],
+                  "replica_batch": c["replica_batch"], "microbatches": c["microbatches"],
+                  "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                  "collective_s": r["collective_s"], "dominant": r["dominant"],
+                  "flops_per_device": r["flops_per_device"],
+                  "hbm_bytes_per_device": r["hbm_bytes_per_device"],
+                  "collective_bytes_per_device": r["collective_bytes_per_device"],
+                  "argument_bytes_per_device": m["argument_size_in_bytes"],
+                  "temp_bytes_per_device": m["temp_size_in_bytes"], "fits": c["fits"],
+                  "useful_flops_ratio": c["useful_flops_ratio"], "n_params": c["n_params"],
+                  "cell_s": c["seconds"], "per_device_split": c["per_device_split"],
+                  "temp_bound": c["temp_bound"], "ported_kernel_launches": 0,
+                  "part_s": time.perf_counter() - t_part})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "dryrun", "part": "phase", "phase_s": time.perf_counter() - t_phase,
+          "device": str(dev), "card_bytes_allocated_by_phase": 0})
     return own
 
 
@@ -3373,7 +3564,11 @@ def main() -> None:
     lm_launches = lm_lines(dev, args.seed, drive)
 
     # 16. LM training: qwen2-1.5b at full width, card against CPU, resume -------------
-    train_launches = train_lines(dev, args.seed, drive)
+    train_launches, full_step = train_lines(dev, args.seed, drive)
+
+    # 17. the LM dry run on the meta device, beside phase 16's step ------------------
+    dryrun_launches = dryrun_lines(dev, drive, full_step)
+    del full_step
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -3382,8 +3577,10 @@ def main() -> None:
         row["launches_sharded"] = sharded_launches.get(name, 0)
         row["launches_lm"] = lm_launches.get(name, 0)
         row["launches_train"] = train_launches.get(name, 0)
+        row["launches_dryrun"] = dryrun_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
         require(row["launches_train"] == 0, f"{name} launched on the LM training path")
+        require(row["launches_dryrun"] == 0, f"{name} launched in the dry run")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -18,8 +18,10 @@ A :class:`ShardPlan` says how a solve parallelizes:
   quantizer's scale floors at 1); an opt-in approximation beyond that.
 
 The port is single-controller, as the reference is: one Python process
-drives a :class:`Mesh`, a 2-D array of ``torch.device`` with axes
-``("data", "model")``.  :func:`make_mesh` defaults to every local device of
+drives a :class:`Mesh`, a grid of ``torch.device`` with named axes:
+``("data", "model")`` for a plan (2-D), ``("pod", "data", "model")`` for
+the dry run's production mesh of meta devices
+(``repro_torch.launch.mesh.make_production_mesh``).  :func:`make_mesh` defaults to every local device of
 the requested type (``torch.cuda.device_count()`` cards, or the one CPU).
 A mesh names a device more than once only when the caller passes
 ``devices=[...]`` explicitly — ``["cpu"] * 8`` in tests, ``["cuda:0"] * 4``
@@ -70,21 +72,26 @@ def local_device_count(device: Optional[DeviceLike] = None) -> int:
 
 
 class Mesh:
-    """A (data, model) grid of ``torch.device`` s, axes ``("data", "model")``.
+    """A grid of ``torch.device`` s with named axes, ``("data", "model")``
+    unless ``axis_names`` says otherwise (the production mesh's
+    ``("pod", "data", "model")``).
 
-    ``devices`` is a numpy object array of shape (data, model); ``shape``
-    maps each axis name to its size, as ``jax.sharding.Mesh.shape`` does.
+    ``devices`` is a numpy object array with one dimension per axis;
+    ``shape`` maps each axis name to its size, as ``jax.sharding.Mesh.shape``
+    does.
     """
 
-    axis_names: Tuple[str, str] = AXES
-
-    def __init__(self, devices) -> None:
-        grid = np.empty(np.shape(devices)[:2], dtype=object)
-        if grid.ndim != 2 or grid.size == 0:
-            raise ValueError(f"a mesh needs a non-empty 2-D device grid, got {np.shape(devices)}")
+    def __init__(self, devices, axis_names: Tuple[str, ...] = AXES) -> None:
+        src = np.asarray(devices, dtype=object)
+        if src.ndim != len(axis_names) or src.size == 0:
+            raise ValueError(
+                f"a mesh needs a non-empty {len(axis_names)}-D device grid for axes "
+                f"{tuple(axis_names)}, got {src.shape}")
+        grid = np.empty(src.shape, dtype=object)
         for idx in np.ndindex(grid.shape):
-            grid[idx] = _normalize(devices[idx[0]][idx[1]])
+            grid[idx] = _normalize(src[idx])
         self.devices = grid
+        self.axis_names = tuple(axis_names)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -97,7 +104,7 @@ class Mesh:
     @property
     def first(self) -> torch.device:
         """The device that holds the solve's own tensors and the combine."""
-        return self.devices[0, 0]
+        return self.devices.flat[0]
 
     def key(self) -> Tuple[str, ...]:
         """A hashable identity of the grid (its devices in order)."""

@@ -1,5 +1,14 @@
-"""The active sharding context and the ONN coupling matrix's placement (the
-ONN half of ``repro.distributed.sharding``).
+"""Logical-axis rule tables, the active sharding context and the ONN
+coupling matrix's placement (the port of ``repro.distributed.sharding``).
+
+Rule tables map logical axis names → mesh axis (or tuple of mesh axes, or
+None for replication); ``repro_torch.models.params.logical_to_pspec`` turns
+a leaf's names into a spec through one.  The LM dry run
+(``repro_torch.launch.dryrun``) reads them:
+  * batch        → all data-parallel axes ("pod", "data")
+  * embed (fsdp) → "data"      — ZeRO-style weight sharding within a pod
+  * heads/mlp/vocab/experts → "model"  — tensor parallelism
+  * kv sequence (decode caches) → "data" for batch=1 long-context cells
 
 The reference turns logical axis names into ``with_sharding_constraint``
 calls and lets GSPMD split the work.  The port has no compiler to hand that
@@ -25,8 +34,7 @@ on any other.  Every mesh measured so far repeats one card, so that copy has
 never run on hardware.
 
 The context is thread-local, as in the reference; the scheduler that solves
-under it is single-threaded.  The LM rule tables (``single_pod_rules``,
-``logical_to_pspec``, ...) are not ported here.
+under it is single-threaded.
 """
 
 from __future__ import annotations
@@ -37,12 +45,53 @@ from typing import TYPE_CHECKING, Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.models.params import logical_to_pspec
+
 if TYPE_CHECKING:  # pragma: no cover — annotation only (no import cycle)
     from repro_torch.distributed.plan import Mesh, ShardPlan
 
 _state = threading.local()
 
 Spec = Tuple[Optional[str], ...]
+
+
+def single_pod_rules() -> Dict[str, Any]:
+    return {
+        "batch": "data",
+        "embed": "data",  # FSDP / ZeRO-3 over the data axis
+        "mlp": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "vocab": "model",
+        "experts": "model",
+        "expert_embed": "data",  # FSDP over expert d-dims (see moe_specs)
+        "expert_mlp": None,
+        "kv_seq": None,
+        "seq_act": None,  # sequence-parallel attention (override → "model")
+        "state": None,
+        "qk_dim": None,
+        "head_dim": None,
+        "vision": None,
+    }
+
+
+def multi_pod_rules() -> Dict[str, Any]:
+    r = single_pod_rules()
+    r["batch"] = ("pod", "data")  # DP across pods; FSDP stays intra-pod
+    return r
+
+
+def long_context_rules(multi_pod: bool = False) -> Dict[str, Any]:
+    """batch=1 decode: shard the KV/scan sequence dim instead of batch."""
+    r = multi_pod_rules() if multi_pod else single_pod_rules()
+    r["batch"] = None
+    r["kv_seq"] = ("pod", "data") if multi_pod else "data"
+    return r
+
+
+def data_spec(rules: Dict[str, Any], *axes: Optional[str]) -> Spec:
+    """The spec of a model input (tokens, frames, caches)."""
+    return logical_to_pspec(tuple(axes), rules)
 
 
 @contextlib.contextmanager
@@ -62,10 +111,11 @@ def use_rules(
 
 def use_plan(plan: "ShardPlan", mesh: "Mesh"):
     """Activate a :class:`repro_torch.distributed.plan.ShardPlan` over
-    ``mesh``.  Prefer ``plan.context(mesh)``, which wraps this.  No rule
-    table goes with it: the port has no reader for one until the LM side
-    is ported."""
-    return use_rules(None, mesh, plan)
+    ``mesh``, with the reference's minimal rule table (lanes → the
+    ``"data"`` axis when the plan data-parallelizes).  Prefer
+    ``plan.context(mesh)``, which wraps this."""
+    rules = {"batch": "data" if plan.batch > 1 else None}
+    return use_rules(rules, mesh, plan)
 
 
 def current_rules() -> Optional[Dict[str, Any]]:

@@ -1,0 +1,719 @@
+"""LM dry-run driver on the meta device (the port of the LM half of
+``repro.launch.dryrun``).
+
+Counts every (architecture × input shape) cell against the production mesh
+(``launch.mesh.make_production_mesh``) WITHOUT allocating anything: the
+cell's step (``models.steps.build_cell``) runs on meta tensors under one
+dispatch mode that counts what each op does.  The port has no partitioner,
+so a cell measures **one data-parallel replica's step** at full width: the
+``global_batch / dp_size`` examples one replica takes, in the cell's
+``auto_microbatches``, where ``dp_size`` is the product of the mesh axes the
+batch rule names.  From it the cell records, into
+``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``:
+
+* **FLOPs and bytes accessed** (``cost_analysis``).  FLOPs come from
+  ``torch.utils.flop_counter``'s formulas; bytes accessed are the sum of
+  each op's tensor inputs and outputs (views move nothing), what XLA's
+  ``bytes accessed`` sums.  Both are extrapolated from probes at 1 and 2
+  layer groups × 2 and 3 examples (one microbatch's count when it holds
+  fewer: a batch of one is a degenerate point of torch's bytes) with the
+  reference's algebra (``_layer_points``, the enc-dec's three depth points,
+  ``_solve_linear``), then scaled by the microbatches.  Per device: the
+  replica's count over the size of the ``"model"`` axis, the ideal
+  tensor-parallel split (``per_device_split``).
+* **Memory per device** (``memory_analysis``).  Argument bytes are exact:
+  each leaf's per-device block (``params.local_shape``) under the cell's
+  specs and the mesh sizes; the donated arguments are the alias bytes;
+  output bytes are those plus the other outputs at one replica's size.
+  Temporary bytes are the peak of live storage the replica's step makes
+  above its arguments (its outputs included), counted by this module's own
+  tracker over probes of the replica's whole step at 1 and 2 layer groups
+  and extrapolated the same way: an upper bound, since nothing of it is
+  split over the model axis.  ``fits``: arguments plus temporaries within
+  one H100's 80 GB.
+* **Parameter-side collective bytes per device** (``collectives``), from
+  the specs, with the reference's ring wire factors: a leaf split over a
+  data-parallel axis (FSDP) is all-gathered at each use (forward, remat's
+  recompute and backward for train, per microbatch); a train step
+  reduce-scatters its gradient over those axes and all-reduces it over the
+  other batch axes (a replicated leaf: all-reduce over every batch axis),
+  once a step.  The tensor-parallel activations' collectives are not
+  counted (``collectives_counted``).
+
+The reference's HLO parser has no counterpart (``launch.hlo_analysis``);
+its ``_accounting_cfg`` is not needed (the probes count the cell's own
+chunk sizes).  The ONN cells (``run_onn_cell``) are not ported yet.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  ... knobs: --microbatches 4 --no-remat --rule heads= --tag v2
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import weakref
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch import configs
+from repro_torch.distributed import sharding as shrules
+from repro_torch.launch import hlo_analysis as hlo
+from repro_torch.launch.mesh import make_production_mesh, mesh_devices
+from repro_torch.models import params as PM
+from repro_torch.models import steps as steps_lib
+from repro_torch.models.config import SHAPES
+from repro_torch.models.model import get_model
+
+ARTIFACT_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch"))
+
+PER_DEVICE_SPLIT = ("the replica's count over the 'model' axis: the ideal tensor-parallel "
+                    "split, not a replication-aware count")
+COLLECTIVES_COUNTED = ("parameter-side only: FSDP all-gathers and the gradient's "
+                       "reduce-scatter / all-reduce; the tensor-parallel activations' "
+                       "collectives are not counted")
+TEMP_BOUND = "upper bound: one replica's live storage, not split over the 'model' axis"
+
+
+# ---------------------------------------------------------------------------
+# Counting
+# ---------------------------------------------------------------------------
+
+
+_ENTER = torch.ops.profiler._record_function_enter_new.default
+_EXIT = torch.ops.profiler._record_function_exit._RecordFunction
+
+
+class CountMode(TorchDispatchMode):
+    """One pass over the dispatched ops: FLOPs (``flop_counter``'s
+    formulas), bytes accessed (each non-view op's tensor inputs and outputs)
+    and the peak of live storage made inside the mode, in all and per
+    segment: each ``torch.profiler.record_function`` range the step opens
+    (a train cell's ``steps.UPDATE_RANGE``) and each stretch around them.
+    Inside a range the live bytes are also kept op by op (the segment's
+    third entry), since there the op that holds the peak changes with the
+    depth.
+
+    A storage an op makes is live until its last tensor dies (a weak
+    reference to the storage, which the tensors, autograd's saved tensors
+    and views keep alive).  Storages that existed before the mode (the
+    step's arguments, a KV cache written in place) are never counted: an
+    output whose storage is one of the op's inputs' and was not made inside
+    the mode is the input's own memory.  Works on any device, the meta
+    device included."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self.ops = 0
+        self.segments: List[List[Any]] = [["step", 0]]  # [name, peak(, live by op)] in order
+        self._seen: Dict[int, Any] = {}
+
+    def _freed(self, key: int, nbytes: int) -> None:
+        self._seen.pop(key, None)
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops += 1
+        if func is _ENTER:
+            self.segments.append([args[0], self.live, []])
+        elif func is _EXIT:
+            self.segments.append(["step", self.live])
+        packet = func.overloadpacket
+        if packet in flop_registry:
+            self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+        if func.is_view:
+            return out
+        outs = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
+        ins = [t for t in pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        self.bytes += sum(t.nbytes for t in ins) + sum(t.nbytes for t in outs)
+        in_keys = {t.untyped_storage()._cdata for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._seen or key in in_keys:
+                continue
+            n = st.nbytes()
+            self._seen[key] = weakref.ref(st, lambda _, k=key, n=n: self._freed(k, n))
+            self.live += n
+        self.peak = max(self.peak, self.live)
+        seg = self.segments[-1]
+        seg[1] = max(seg[1], self.live)
+        if len(seg) == 3:
+            seg[2].append(self.live)
+        return out
+
+
+def count_step(step_fn, args) -> Dict[str, Any]:
+    """Run ``step_fn(*args)`` under a :class:`CountMode`: ``flops``,
+    ``bytes``, ``peak`` (live storage above the arguments), ``ops``,
+    ``segments``, ``seconds`` and ``outputs`` (the step's result)."""
+    t0 = time.perf_counter()
+    with CountMode() as mode:
+        out = step_fn(*args)
+    return {"flops": mode.flops, "bytes": mode.bytes, "peak": mode.peak, "ops": mode.ops,
+            "segments": mode.segments, "seconds": time.perf_counter() - t0, "outputs": out}
+
+
+def _pairs(abstract, specs):
+    """(tensor, spec) of every leaf of ``abstract`` and the spec tree of
+    the same structure (dicts, tuples, a ``TrainState``)."""
+    if isinstance(abstract, torch.Tensor):
+        yield abstract, specs
+    elif isinstance(abstract, dict):
+        for k in sorted(abstract):
+            yield from _pairs(abstract[k], specs[k])
+    elif isinstance(abstract, (tuple, list)):
+        if len(abstract) != len(specs):
+            raise ValueError(f"{len(abstract)} arguments against {len(specs)} specs")
+        for a, sp in zip(abstract, specs):
+            yield from _pairs(a, sp)
+
+
+def _local_numel(t: torch.Tensor, spec, axis_sizes: Dict[str, int]) -> int:
+    n = 1
+    for d in PM.local_shape(tuple(t.shape), spec, axis_sizes):
+        n *= d
+    return n
+
+
+def device_bytes(abstract, specs, axis_sizes: Dict[str, int]) -> int:
+    """Bytes one device holds of the meta tensors ``abstract`` under the
+    matching spec tree ``specs`` (each leaf's :func:`params.local_shape`)."""
+    return sum(_local_numel(t, spec, axis_sizes) * t.element_size()
+               for t, spec in _pairs(abstract, specs))
+
+
+# ---------------------------------------------------------------------------
+# The reference's helpers
+# ---------------------------------------------------------------------------
+
+
+def _active_fraction_flops(cfg) -> float:
+    """N_active/N_total for MoE archs (expert FLOPs scale by top_k/E)."""
+    if cfg.family != "moe" or not cfg.n_experts:
+        return 1.0
+    # expert params per layer: 3 matrices (wg, wu, wd) of d_model×d_ff each
+    expert = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff
+    model = get_model(cfg)
+    total = PM.count_params(model.param_specs)
+    active = total - expert * (1.0 - cfg.top_k / cfg.n_experts)
+    return active / total
+
+
+def rules_for(arch: str, shape_name: str, multi_pod: bool) -> Dict[str, Any]:
+    if shape_name == "long_500k":
+        rules = shrules.long_context_rules(multi_pod)
+    elif multi_pod:
+        rules = shrules.multi_pod_rules()
+    else:
+        rules = shrules.single_pod_rules()
+    rules.update(configs.sharding_overrides(arch))
+    return rules
+
+
+def _layer_points(cfg):
+    """(group_count, cfg_kwargs(k)) for the cost-extrapolation probes.
+
+    Layer stacks are homogeneous, so every cost is affine in the number of
+    layer groups:  C(k) = base + k·group.  Two probes (k=1, 2) recover base
+    and group exactly; the full-depth cost is base + G·group.
+    """
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return cfg.n_layers, lambda k: {"n_layers": k}
+    if fam == "vlm":
+        g = cfg.n_layers // cfg.cross_every
+        return g, lambda k: {"n_layers": k * cfg.cross_every}
+    if fam == "zamba":
+        g = cfg.n_layers // cfg.shared_attn_every
+        return g, lambda k: {"n_layers": k * cfg.shared_attn_every}
+    if fam == "xlstm":
+        g = cfg.n_layers // cfg.slstm_every
+        return g, lambda k: {"n_layers": k * cfg.slstm_every}
+    raise ValueError(fam)
+
+
+def _affine_combine(c1: Dict, c2: Dict, k1: int, k2: int, full: int, scale: float) -> Dict:
+    """C(full) = C(k1) + (full−k1)/(k2−k1) · (C(k2)−C(k1)), then × scale."""
+    f = (full - k1) / (k2 - k1)
+
+    def ext(a, b):
+        return max(0.0, (a + f * (b - a))) * scale
+
+    keys = set(c1["coll_bytes"]) | set(c2["coll_bytes"])
+    return {
+        "flops": ext(c1["flops"], c2["flops"]),
+        "bytes": ext(c1["bytes"], c2["bytes"]),
+        "coll_counts": {
+            k: int(ext(c1["coll_counts"].get(k, 0), c2["coll_counts"].get(k, 0)))
+            for k in keys
+        },
+        "coll_bytes": {
+            k: ext(c1["coll_bytes"].get(k, 0.0), c2["coll_bytes"].get(k, 0.0))
+            for k in keys
+        },
+    }
+
+
+def _solve_linear(points, features_full) -> Dict[str, Any]:
+    """Least-squares fit of cost = Σ coef·feature over probe points, then
+    evaluate at the full-size feature vector.  Exact when the model spans the
+    true affine structure (homogeneous stacks × per-example batch work)."""
+    feats = np.array([p[0] for p in points], dtype=float)  # (n_pts, n_feat)
+    keys = set()
+    for _, m in points:
+        keys |= set(m["coll_bytes"])
+
+    def fit(getter) -> float:
+        ys = np.array([getter(m) for _, m in points], dtype=float)
+        coef, *_ = np.linalg.lstsq(feats, ys, rcond=None)
+        return float(max(0.0, np.dot(coef, features_full)))
+
+    return {
+        "flops": fit(lambda m: m["flops"]),
+        "bytes": fit(lambda m: m["bytes"]),
+        "coll_counts": {
+            k: int(fit(lambda m, k=k: m["coll_counts"].get(k, 0))) for k in keys
+        },
+        "coll_bytes": {
+            k: fit(lambda m, k=k: m["coll_bytes"].get(k, 0.0)) for k in keys
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Probes
+# ---------------------------------------------------------------------------
+
+def _probe(cfg, shape, probes, *, optimizer, microbatches, accum_dtype) -> Dict[str, Any]:
+    """The counts of one probe's step; ``probes`` holds those a cell has
+    made already (its cost and memory probes meet when the replica takes
+    one microbatch of 3 examples or fewer)."""
+    key = (cfg, shape, microbatches, optimizer, accum_dtype)
+    if key not in probes:
+        cell = steps_lib.build_cell(cfg, shape, {}, optimizer_name=optimizer,
+                                    microbatches=microbatches, accum_dtype=accum_dtype)
+        got = count_step(cell.step_fn, cell.abstract_args)
+        out = got.pop("outputs")
+        # the outputs that do not take a donated argument's place: a train
+        # step's metrics, a serve step's token and logits, all of a prefill's
+        kept = {"train": out[1:], "decode": out[:2]}.get(cell.kind, out)
+        got["other_output_bytes"] = sum(
+            t.nbytes for t in pytree.tree_leaves(kept) if isinstance(t, torch.Tensor))
+        got.update(coll_counts={}, coll_bytes={})
+        probes[key] = got
+    return probes[key]
+
+
+def _depth_points(cfg):
+    """[(features, cfg_k)] at 1 and 2 layer groups (the enc-dec: (1, 1),
+    (2, 1), (1, 2) encoder and decoder layers), and the full depth's
+    features."""
+    if cfg.family == "encdec":
+        pts = [([1.0, e, d], dataclasses.replace(cfg, n_encoder_layers=e, n_layers=d))
+               for e, d in ((1, 1), (2, 1), (1, 2))]
+        return pts, [1.0, cfg.n_encoder_layers, cfg.n_layers]
+    full, kw = _layer_points(cfg)
+    ks = (1, 2) if full >= 2 else (full,)
+    return [([1.0, k], dataclasses.replace(cfg, **kw(k))) for k in ks], [1.0, full]
+
+
+def _drop_degenerate(points, full_feats):
+    fmat = np.array([p[0] for p in points])
+    keep = [i for i in range(fmat.shape[1]) if len(set(fmat[:, i])) > 1 or i == 0]
+    return [([p[0][i] for i in keep], p[1]) for p in points], [full_feats[i] for i in keep]
+
+
+def _cost_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
+                           accum_dtype=torch.float32, probes=None) -> Dict[str, Any]:
+    """One replica's full-depth FLOPs and bytes from probes at 1 and 2
+    layer groups × 2 and 3 examples (one microbatch's when it holds fewer),
+    fitted to cost = a + k·c + b·d + k·b·e and scaled by the microbatches,
+    as the reference's ``_cost_by_extrapolation`` does."""
+    scale = 1.0
+    b_full = replica_batch
+    if shape.kind == "train" and mb > 1:
+        b_full = replica_batch // mb
+        scale = float(mb)
+    # One example is a degenerate point for the bytes: torch's matmul folds
+    # a batch of one without the copy it makes of a larger one, so the
+    # probes take 2 and 3 examples (or the microbatch itself when it holds
+    # fewer than 3).
+    batches = (b_full,) if b_full < 3 else (2, 3)
+    t0 = time.perf_counter()
+    probes = {} if probes is None else probes
+    depth, depth_full = _depth_points(cfg)
+    points = []
+    for dfeats, cfg_k in depth:
+        for b in batches:
+            m = _probe(cfg_k, dataclasses.replace(shape, global_batch=b), probes,
+                       optimizer=optimizer, microbatches=1, accum_dtype=accum_dtype)
+            feats = dfeats + [b] + [f * b for f in dfeats[1:]]
+            points.append((feats, m))
+    full_feats = depth_full + [b_full] + [f * b_full for f in depth_full[1:]]
+    points, full_feats = _drop_degenerate(points, full_feats)
+    out = _solve_linear(points, full_feats)
+    for key in ("flops", "bytes"):
+        out[key] *= scale
+    out["coll_counts"] = {k: int(v * scale) for k, v in out["coll_counts"].items()}
+    out["coll_bytes"] = {k: v * scale for k, v in out["coll_bytes"].items()}
+    out["probe_s"] = round(time.perf_counter() - t0, 2)
+    out["cost_scale"] = scale
+    out["n_probes"] = len(points)
+    return out
+
+
+def _memory_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
+                             accum_dtype=torch.float32, probes=None) -> Dict[str, Any]:
+    """The replica's whole step (its batch, its microbatches) probed at 1
+    and 2 layer groups: the peak of live storage above the arguments and
+    the non-donated outputs' bytes, each extrapolated affinely to the full
+    depth.  The peak is extrapolated segment by segment: the stretch
+    before a train step's update as one peak (in it the live bytes grow by
+    the same amount a layer), the update op by op (the same ops at every
+    depth, one leaf after another; the leaf that holds its peak changes
+    with the depth), then the stretch after it.  The segment that holds
+    the step's peak changes with the depth too: at 1 or 2 layers the
+    loss's logits, at 28 the optimizer's new state."""
+    t0 = time.perf_counter()
+    probes = {} if probes is None else probes
+    depth, depth_full = _depth_points(cfg)
+    shp = dataclasses.replace(shape, global_batch=replica_batch)
+    runs = [_probe(cfg_k, shp, probes, optimizer=optimizer, microbatches=mb,
+                   accum_dtype=accum_dtype) for _, cfg_k in depth]
+    layouts = {tuple((seg[0], len(seg[2]) if len(seg) == 3 else None) for seg in m["segments"])
+               for m in runs}
+    if len(layouts) != 1:
+        raise RuntimeError(f"the step's segments change with the depth: {layouts}")
+    points, full_feats = _drop_degenerate([(f, None) for f, _ in depth], depth_full)
+    feats = np.array([f for f, _ in points], dtype=float)
+
+    def at_full(values) -> np.ndarray:
+        """Each column of ``values`` (one row a probe) at the full depth."""
+        coef, *_ = np.linalg.lstsq(feats, np.array(values, dtype=float), rcond=None)
+        return np.dot(full_feats, coef)
+
+    seg_peaks = [float(np.max(at_full([m["segments"][i][-1] for m in runs])))
+                 if len(seg) == 3 and seg[2] else float(at_full([m["segments"][i][1] for m in runs]))
+                 for i, seg in enumerate(runs[0]["segments"])]
+    top = int(np.argmax(seg_peaks))
+    return {"temp": int(round(seg_peaks[top])), "peak_segment": runs[0]["segments"][top][0],
+            "other_outputs": int(round(float(at_full([m["other_output_bytes"] for m in runs])))),
+            "probe_s": round(time.perf_counter() - t0, 2), "n_probes": len(runs)}
+
+
+# ---------------------------------------------------------------------------
+# Collectives implied by the specs
+# ---------------------------------------------------------------------------
+
+
+def _axes_of(entry):
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def param_collectives(param_abstract, param_specs, rules, axis_sizes, *, kind: str,
+                      remat: bool, microbatches: int, grad_dtype) -> hlo.CollectiveStats:
+    """Per-device wire bytes of the parameter-side collectives of one step
+    (module docstring), with :data:`hlo_analysis.WIRE_FACTOR`."""
+    batch_axes = _axes_of(rules.get("batch"))
+    counts: Dict[str, int] = {}
+    byts: Dict[str, float] = {}
+
+    def add(op, size, nbytes, times=1):
+        if size <= 1 or times <= 0:
+            return
+        counts[op] = counts.get(op, 0) + times
+        byts[op] = byts.get(op, 0.0) + times * hlo.WIRE_FACTOR[op](size) * nbytes
+
+    uses = 1 + (2 if remat else 1) * (kind == "train")
+    gather_times = uses * (microbatches if kind == "train" else 1)
+    for t, spec in _pairs(param_abstract, param_specs):
+        local = _local_numel(t, spec, axis_sizes)
+        split = {a for e in spec for a in _axes_of(e)}
+        gathered = tuple(a for a in batch_axes if a in split)
+        g = 1
+        for a in gathered:
+            g *= axis_sizes.get(a, 1)
+        add("all-gather", g, local * g * t.element_size(), gather_times)
+        if kind != "train":
+            continue
+        grad_bytes = local * (torch.empty((), dtype=grad_dtype).element_size()
+                              if microbatches > 1 else t.element_size())
+        add("reduce-scatter", g, grad_bytes)
+        rest = 1
+        for a in batch_axes:
+            if a not in gathered:
+                rest *= axis_sizes.get(a, 1)
+        add("all-reduce", rest, grad_bytes)
+    return hlo.CollectiveStats(counts=counts, bytes=byts)
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+
+def run_cell(
+    arch: str,
+    shape_name: str,
+    multi_pod: bool,
+    *,
+    microbatches: int = 0,
+    remat: Optional[bool] = None,
+    rule_overrides: Optional[Dict[str, Any]] = None,
+    optimizer: Optional[str] = None,
+    tag: str = "",
+    outdir: str = ARTIFACT_DIR,
+    verbose: bool = True,
+    accum_dtype=torch.float32,
+    mesh=None,
+    shape=None,
+) -> Dict[str, Any]:
+    """One dry-run cell (module docstring): the replica's costs by
+    extrapolation, its memory per device, the collectives its specs imply,
+    the roofline; written to ``outdir`` and returned.
+
+    ``mesh`` replaces the production mesh and ``shape`` the named shape
+    (the train step of one card, ``chip_smoke.py``'s ``dryrun_train_full``).
+    """
+    t_cell = time.perf_counter()
+    cfg = configs.get_config(arch)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    shape = SHAPES[shape_name] if shape is None else shape
+    mesh_name = "multi" if multi_pod else "single"
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+    else:
+        mesh_name = "x".join(str(n) for n in mesh.devices.shape)
+    rules = rules_for(arch, shape_name, multi_pod)
+    if rule_overrides:
+        rules.update(rule_overrides)
+    sizes = PM.mesh_axis_sizes(mesh)
+
+    # data-parallel degree = product of mesh axes carrying the batch rule
+    dp_size = 1
+    for a in _axes_of(rules.get("batch")):
+        dp_size *= sizes.get(a, 1)
+    mb = microbatches or steps_lib.auto_microbatches(shape, dp_size)
+    replica_batch = max(1, shape.global_batch // dp_size)
+
+    with shrules.use_rules(rules, mesh):
+        cell = steps_lib.build_cell(
+            cfg, shape, rules, optimizer_name=optimizer, microbatches=mb, dp_size=dp_size,
+            axis_sizes=sizes, accum_dtype=accum_dtype,
+        )
+    args_b = device_bytes(cell.abstract_args, cell.in_specs, sizes)
+    alias_b = sum(device_bytes(cell.abstract_args[i], cell.in_specs[i], sizes)
+                  for i in cell.donate)
+    opt_name = optimizer
+    if shape.kind == "train" and opt_name is None:
+        opt_name = "adafactor" if cfg.family == "moe" else "adamw"
+
+    probes: Dict[tuple, Dict[str, Any]] = {}
+    cost = _cost_by_extrapolation(cfg, shape, optimizer=optimizer, replica_batch=replica_batch,
+                                  mb=mb, accum_dtype=accum_dtype, probes=probes)
+    memory = _memory_by_extrapolation(cfg, shape, optimizer=optimizer,
+                                      replica_batch=replica_batch, mb=mb,
+                                      accum_dtype=accum_dtype, probes=probes)
+    p_abs, p_spec = cell.abstract_args[0], cell.in_specs[0]
+    if shape.kind == "train":
+        p_abs, p_spec = p_abs.params, p_spec.params
+    coll = param_collectives(p_abs, p_spec, rules, sizes, kind=shape.kind, remat=cfg.remat,
+                             microbatches=mb, grad_dtype=accum_dtype)
+    model_size = sizes.get("model", 1)
+    mem = {
+        "argument_size_in_bytes": args_b,
+        "output_size_in_bytes": alias_b + memory["other_outputs"],
+        "temp_size_in_bytes": memory["temp"],
+        "alias_size_in_bytes": alias_b,
+    }
+    return _analyze(
+        mesh,
+        name=cell.name,
+        kind=shape.kind,
+        # processed tokens per step: full sequence for train/prefill, one new
+        # token per request for decode
+        tokens=shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len),
+        cfg=cfg,
+        mesh_name=mesh_name,
+        mem=mem,
+        flops=cost["flops"] / model_size,
+        byts=cost["bytes"] / model_size,
+        coll=coll,
+        tag=tag,
+        outdir=outdir,
+        verbose=verbose,
+        extra={
+            "dp_size": dp_size,
+            "replica_batch": replica_batch,
+            "replica_cost": {"flops": cost["flops"], "bytes_accessed": cost["bytes"]},
+            "per_device_split": PER_DEVICE_SPLIT,
+            "model_axis": model_size,
+            "temp_bound": TEMP_BOUND,
+            "collectives_counted": COLLECTIVES_COUNTED,
+            "cost_probe_s": cost["probe_s"],
+            "cost_scale": cost["cost_scale"],
+            "n_probes": cost["n_probes"],
+            "memory_probe_s": memory["probe_s"],
+            "microbatches": mb,
+            "remat": cfg.remat,
+            "optimizer": opt_name,
+            "rule_overrides": {k: str(v) for k, v in (rule_overrides or {}).items()},
+        },
+        t_start=t_cell,
+    )
+
+
+def _analyze(
+    mesh,
+    *,
+    name: str,
+    kind: str,
+    tokens: int,
+    cfg,
+    mesh_name: str,
+    mem: Dict[str, int],
+    flops: float,
+    byts: float,
+    coll: hlo.CollectiveStats,
+    tag: str,
+    outdir: str,
+    verbose: bool,
+    extra: Dict[str, Any],
+    t_start: float,
+) -> Dict[str, Any]:
+    ndev = mesh_devices(mesh)
+    roof = hlo.Roofline(
+        flops_per_device=flops,
+        hbm_bytes_per_device=byts,
+        collective_bytes_per_device=coll.total_bytes,
+        n_devices=ndev,
+    )
+    needed = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    result: Dict[str, Any] = {
+        "cell": name,
+        "kind": kind,
+        "mesh": mesh_name,
+        "n_devices": ndev,
+        "memory_analysis": mem,
+        "cost_analysis": {"flops": flops, "bytes_accessed": byts},
+        "collectives": {"counts": coll.counts, "bytes": coll.bytes},
+        "roofline": roof.to_dict(),
+        "roofline_peaks": {"flops_per_s": roof.peak_flops, "hbm_bytes_per_s": roof.hbm_bw,
+                           "link_bytes_per_s": roof.link_bw},
+        "fits": needed <= hlo.H100_HBM_BYTES,
+        "hbm_bytes": hlo.H100_HBM_BYTES,
+        **extra,
+    }
+    model = get_model(cfg)
+    n_params = PM.count_params(model.param_specs)
+    frac = _active_fraction_flops(cfg)
+    useful = hlo.model_flops(kind, int(n_params * frac), tokens)
+    result["n_params"] = n_params
+    result["model_flops_global"] = useful
+    # flops are per device; the global count is n_devices times that
+    flops_global = flops * ndev
+    result["useful_flops_ratio"] = useful / flops_global if flops_global else 0.0
+    result["seconds"] = round(time.perf_counter() - t_start, 2)
+
+    os.makedirs(outdir, exist_ok=True)
+    fname = name.replace(":", "__").replace("/", "_") + f"__{mesh_name}"
+    if tag:
+        fname += f"__{tag}"
+    path = os.path.join(outdir, fname + ".json")
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    if verbose:
+        r = result["roofline"]
+        print(
+            f"[dryrun] {name} ({mesh_name}) {result['seconds']}s | compute "
+            f"{r['compute_s']:.3e}s memory {r['memory_s']:.3e}s collective "
+            f"{r['collective_s']:.3e}s → {r['dominant']}-bound | per device: args "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB fits {result['fits']}",
+            flush=True,
+        )
+        print(f"[dryrun] wrote {path}", flush=True)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", type=str, default=None)
+    ap.add_argument("--shape", type=str, default=None)
+    ap.add_argument("--all", action="store_true", help="run every LM cell")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--microbatches", type=int, default=0, help="0 = auto")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--opt", type=str, default=None)
+    ap.add_argument("--rule", action="append", default=[],
+                    help="sharding rule override key=axis ('' = replicate)")
+    ap.add_argument("--tag", type=str, default="")
+    ap.add_argument("--out", type=str, default=ARTIFACT_DIR)
+    args = ap.parse_args(argv)
+
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    overrides: Dict[str, Any] = {}
+    for kv in args.rule:
+        k, _, v = kv.partition("=")
+        if v == "":
+            overrides[k] = None
+        elif "," in v:
+            overrides[k] = tuple(v.split(","))
+        else:
+            overrides[k] = v
+
+    if args.all:
+        jobs = configs.all_cells()
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all required")
+        jobs = [(args.arch, args.shape)]
+
+    failures = []
+    for a, s in jobs:
+        for mp in meshes:
+            try:
+                run_cell(
+                    a, s, mp,
+                    microbatches=args.microbatches,
+                    remat=False if args.no_remat else None,
+                    rule_overrides=overrides or None,
+                    optimizer=args.opt,
+                    tag=args.tag,
+                    outdir=args.out,
+                )
+            except Exception as e:  # noqa: BLE001 — surface per-cell failures
+                failures.append((a, s, mp, repr(e)))
+                print(f"[dryrun] FAILED {a} {s} multi_pod={mp}: {e!r}", flush=True)
+    if failures:
+        raise SystemExit(f"{len(failures)} dry-run cells failed: {failures}")
+
+
+if __name__ == "__main__":
+    main()

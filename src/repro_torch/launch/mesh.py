@@ -3,15 +3,33 @@
 Functions, never module-level constants, so importing this module touches
 no device.  A :class:`repro_torch.distributed.Mesh` has axes
 ``("data", "model")``: ``"model"`` row-shards the coupling matrix,
-``"data"`` splits request lanes.  The reference's 256-chip
-``make_production_mesh`` waits for the dry-run tooling.
+``"data"`` splits request lanes.
+
+The production mesh of the LM dry run (``repro_torch.launch.dryrun``):
+  single-pod:  (16, 16)        axes ("data", "model")   — 256 devices
+  multi-pod:   (2, 16, 16)     axes ("pod", "data", "model") — 512 devices
+every position the meta device, so building it touches no card.  "model"
+is the tensor-parallel axis (heads / mlp / vocab / experts), "data"
+carries batch + FSDP weight sharding, "pod" composes with "data" for
+cross-pod data parallelism.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
+import torch
+
 from repro_torch.distributed.plan import DeviceLike, Mesh, ShardPlan, make_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    grid = np.empty(shape, dtype=object)
+    grid.fill(torch.device("meta"))
+    return Mesh(grid, axes)
 
 
 def make_host_mesh(

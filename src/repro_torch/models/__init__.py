@@ -8,6 +8,6 @@ trees and their materialization from a ``torch.Generator``), ``layers``
 MLP, the MoE), ``transformer`` (the decoder assembly, its KV cache, prefill
 and decode), ``encdec`` (the encoder-decoder), ``ssm`` (Mamba2's SSD),
 ``xlstm`` (the mLSTM and sLSTM blocks), ``hybrid`` (the Zamba and xLSTM
-assemblies), ``model`` (``get_model``) and ``steps`` (the serving steps and
-``make_generate``).  Training waits for ROADMAP.md, section 1, item 5.
+assemblies), ``model`` (``get_model``) and ``steps`` (the serving steps,
+``make_generate``, the train step and ``build_cell``, the dry run's cell).
 """

@@ -123,6 +123,9 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
     groups, per_group = len(params["blocks"]), cfg.shared_attn_every
     convs, states = _Stacked(groups, per_group), _Stacked(groups, per_group)
     ks, vs = [], []
+    # one view per invocation, taken once: indexing the (G, D) norms in the
+    # loop would make each invocation's gradient a whole (G, D) tensor
+    ln1s, ln2s = params["shared_ln1"].unbind(0), params["shared_ln2"].unbind(0)
     for g, group in enumerate(params["blocks"]):
         for lp in group:
             h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -134,13 +137,13 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
                 y = L.remat(S.mamba_forward, lp["mamba"], h, cfg, enabled=cfg.remat)
             x = x + y
         # the shared attention block, with this invocation's norms
-        h = L.rms_norm(x, params["shared_ln1"][g], cfg.norm_eps)
+        h = L.rms_norm(x, ln1s[g], cfg.norm_eps)
         y, k, v = L.self_attention(shared["attn"], h, cfg, positions)
         if collect_cache:
             ks.append(k)
             vs.append(v)
         x = x + y
-        h = L.rms_norm(x, params["shared_ln2"][g], cfg.norm_eps)
+        h = L.rms_norm(x, ln2s[g], cfg.norm_eps)
         x = x + L.swiglu(shared["mlp"], h)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if not collect_cache:

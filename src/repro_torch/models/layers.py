@@ -423,6 +423,13 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) by one comparison: the same ops on
+    every device (``F.one_hot`` checks the indices' range with a host read
+    on the CPU and scatters there, but compares on the meta device)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     """The router of :func:`moe_ffn` on ``x`` (B, S, D): float32 logits,
     softmax, top-k and the per-example capacity C = ⌈cf·k·S/E⌉."""
@@ -436,7 +443,7 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routin
     gates = gates / gates.sum(dim=-1, keepdim=True)
     capacity = int(math.ceil(cfg.capacity_factor * k * s / e))
     e_flat = idx.reshape(b, s * k)
-    ranks = torch.cumsum(F.one_hot(e_flat, e), dim=1) - 1  # batch-local
+    ranks = torch.cumsum(_one_hot(e_flat, e), dim=1) - 1  # batch-local
     pos = torch.gather(ranks, -1, e_flat[..., None])[..., 0]
     keep = pos < capacity
     dst = torch.where(keep, e_flat * capacity + pos, e * capacity)
@@ -455,7 +462,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
 
     # Load-balance aux (Switch): E · Σ_e fraction_e · prob_e.
     me = r.probs.mean(dim=(0, 1))
-    ce = F.one_hot(r.idx, e).float().sum(dim=2).mean(dim=(0, 1))
+    ce = _one_hot(r.idx, e).float().sum(dim=2).mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
     x_rep = torch.repeat_interleave(x, k, dim=1)  # (B, S·k, D)

@@ -14,19 +14,24 @@ both; zeros and ones are made on the device.  The reference's threefry draws are
 tests carry its weights across
 (``repro_torch.convert.lm_params_from_reference``).
 
-``abstract``, ``logical_to_pspec``, ``pspecs`` and ``shardings`` wait for
-the LM sharding rules (ROADMAP.md, section 1, item 5); the logical axis
-names are kept on every spec for them.
+The same tree gives the dry run's stand-ins: :func:`abstract` makes every
+spec an empty tensor on the meta device (no allocation), and
+:func:`pspecs` maps each spec's logical axis names to mesh axes through a
+rule table (``repro_torch.distributed.sharding``).  A spec is the port's
+plain tuple of mesh axis names (``("data", None, "model")``), standing in
+for ``PartitionSpec``: trailing ``None`` s are dropped, as ``P(*entries)``
+drops them, and an entry over several mesh axes is a tuple of them.
+:func:`shardings` pairs each spec with its mesh, the stand-in for
+``NamedSharding``, and :func:`local_shape` gives the block of a leaf one
+device holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
-
-from repro_torch.core.checks import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +97,10 @@ def materialize(tree, generator: Optional[torch.Generator], device=None):
     ``device``),
     zeros and ones filled.  ``generator`` may be None for a tree without
     normal leaves."""
+    # Imported here: ``repro_torch.core`` imports the optimizers, which
+    # import this module.
+    from repro_torch.core.checks import resolve_device
+
     if generator is not None and generator.device.type != "cpu":
         raise ValueError("materialize draws on the host: pass a CPU torch.Generator")
     dev = resolve_device(device)
@@ -103,6 +112,90 @@ def _rebuild(tree, values, prefix: str = ""):
     if isinstance(tree, dict):
         return {key: _rebuild(value, values, f"{prefix}{key}.") for key, value in tree.items()}
     return values[prefix[:-1]]
+
+
+def abstract(tree):
+    """Every ParamSpec of ``tree`` as an empty tensor of its shape and dtype
+    on the meta device: the dry run's stand-ins, which allocate nothing."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+
+
+Spec = Tuple[Any, ...]  # one entry per dim: None, a mesh axis name, or a tuple of them
+
+
+def logical_to_pspec(
+    axes: Tuple[Optional[str], ...],
+    rules: Dict[str, Any],
+    shape: Optional[Tuple[int, ...]] = None,
+    axis_sizes: Optional[Dict[str, int]] = None,
+) -> Spec:
+    """Map logical axis names to a spec using the rule table.
+
+    With ``shape`` + ``axis_sizes`` (mesh axis → size), mesh axes whose size
+    does not divide the tensor dim are dropped, trailing ones first
+    (divisibility-aware fallback: 8 KV heads over a 16-way model axis are
+    replicated).  Two tensor dims never map onto the same mesh axis.
+    """
+    entries = []
+    used: set = set()
+
+    def _flat(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    for i, name in enumerate(axes):
+        target = rules.get(name) if name else None
+        if target is None:
+            entries.append(None)
+            continue
+        taken = tuple(a for a in _flat(target) if a not in used)
+        if taken and shape is not None and axis_sizes is not None:
+            dim = shape[i]
+            while taken:
+                prod = 1
+                for a in taken:
+                    prod *= axis_sizes.get(a, 1)
+                if prod and dim % prod == 0:
+                    break
+                taken = taken[:-1]
+        if not taken:
+            entries.append(None)
+            continue
+        used.update(taken)
+        entries.append(taken if len(taken) > 1 else taken[0])
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """Mesh axis name → size (a ``repro_torch.distributed.Mesh``)."""
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def pspecs(tree, rules: Dict[str, Any], axis_sizes: Optional[Dict[str, int]] = None):
+    """Spec tree from a ParamSpec tree + rule table."""
+    return map_tree(lambda s: logical_to_pspec(s.axes, rules, s.shape, axis_sizes), tree)
+
+
+def shardings(tree, rules: Dict[str, Any], mesh):
+    """``(mesh, spec)`` per leaf: the stand-in for a ``NamedSharding`` tree."""
+    sizes = mesh_axis_sizes(mesh)
+    return map_tree(lambda s: (mesh, logical_to_pspec(s.axes, rules, s.shape, sizes)), tree)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, axis_sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The block of a ``shape`` leaf one device holds under ``spec``: each
+    dim divided by the product of the sizes of the mesh axes its entry
+    names (rounded up, as an uneven split's largest block)."""
+    out = []
+    for i, dim in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        parts = 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                parts *= axis_sizes.get(a, 1)
+        out.append(-(-dim // parts))
+    return tuple(out)
 
 
 def count_params(tree) -> int:

@@ -11,21 +11,24 @@ model's module over the tree (each block's parameters views of its slice of
 the stacked leaves), differentiates the loss with respect to those views,
 and writes each block's gradient into its slice of the stacked gradient.
 
-``CellProgram`` and ``build_cell`` wait for the LM sharding rules
-(ROADMAP.md, section 1, item 5, step 6).
+Every assigned (architecture × shape) cell resolves to one step function
+plus meta-device input stand-ins and their specs (:func:`build_cell`), so
+the dry run (``repro_torch.launch.dryrun``) counts the same code the
+launchers run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import optim as optim_lib
 from repro_torch.models import params as P
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.models.model import ENCDEC_PREFILL_PROMPT_LEN, Model
+from repro_torch.models.model import ENCDEC_PREFILL_PROMPT_LEN, Model, get_model
 from repro_torch.models.params import torch_dtype
 
 
@@ -323,3 +326,134 @@ def make_generate(model: Model, sample: str = "greedy"):
         return tokens, timing
 
     return generate
+
+
+# ---------------------------------------------------------------------------
+# Cell assembly: everything the dry run needs for one cell
+# ---------------------------------------------------------------------------
+
+
+#: The ``torch.profiler.record_function`` range a train cell's optimizer
+#: update runs in: the dry run's memory count reads it as a segment of its own.
+UPDATE_RANGE = "train_step.update"
+
+
+@dataclasses.dataclass
+class CellProgram:
+    """A countable program for one (arch × shape) cell."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    step_fn: Any
+    abstract_args: Tuple[Any, ...]  # meta tensors
+    in_specs: Tuple[Any, ...]  # spec trees matching abstract_args
+    donate: Tuple[int, ...] = ()
+
+
+def build_cell(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    rules: Dict[str, Any],
+    optimizer_name: Optional[str] = None,
+    microbatches: int = 0,
+    dp_size: int = 0,
+    axis_sizes: Optional[Dict[str, int]] = None,
+    accum_dtype=torch.float32,
+) -> CellProgram:
+    """Assemble the step function + abstract inputs + specs for one cell.
+
+    ``microbatches=0`` → auto (see :func:`auto_microbatches`, needs dp_size).
+    ``axis_sizes``: mesh axis → size, for divisibility-aware sharding.
+
+    The train step takes the parameter tree, as :func:`make_train_step`
+    does; its optimizer update runs inside the :data:`UPDATE_RANGE` range.  The prefill and serve steps take the tree too, as the
+    reference's do, and build the model's module over it inside.  They run
+    under ``torch.no_grad``: the layers take the branches they take under
+    :func:`make_generate`'s ``inference_mode`` (autograd off), and a
+    dispatch mode sees each composite op's parts (``matmul``'s ``mm``), as
+    it does in a train step.  A serve step's ``index`` (a 0-d tensor, as
+    the reference's, or a position) on the meta device has no value: the
+    step is then taken at the cell's last position, a full cache.
+    """
+    model = get_model(cfg)
+
+    def pspec_of(tree):
+        return P.pspecs(tree, rules, axis_sizes)
+
+    if microbatches == 0:
+        microbatches = auto_microbatches(shape, dp_size)
+
+    if shape.kind == "train":
+        opt_name = optimizer_name or ("adafactor" if cfg.family == "moe" else "adamw")
+        optimizer = optim_lib.get_optimizer(
+            opt_name, optim_lib.cosine_warmup(3e-4, 2000, 100_000)
+        )
+
+        def update(grads, opt_state, params):
+            with torch.profiler.record_function(UPDATE_RANGE):
+                return optimizer.update(grads, opt_state, params)
+
+        train_step = make_train_step(
+            model, optimizer._replace(update=update), microbatches=microbatches,
+            accum_dtype=accum_dtype
+        )
+        state_specs = {
+            "step": P.ParamSpec((), (), dtype=torch.int32, init="zeros"),
+            "params": model.param_specs,
+            "opt": optimizer.state_specs(model.param_specs),
+        }
+        b_specs = batch_specs(cfg, shape)
+        abstract_state = TrainState(**P.abstract(state_specs))
+        return CellProgram(
+            name=f"{cfg.name}:{shape.name}",
+            kind="train",
+            step_fn=train_step,
+            abstract_args=(abstract_state, P.abstract(b_specs)),
+            in_specs=(TrainState(**pspec_of(state_specs)), pspec_of(b_specs)),
+            donate=(0,),
+        )
+
+    if shape.kind == "prefill":
+        prefill_step = make_prefill_step(model)
+
+        @torch.no_grad()
+        def prefill_cell_step(params, batch):
+            return prefill_step(model.build_params(params), batch)
+
+        b_specs = batch_specs(cfg, shape)
+        return CellProgram(
+            name=f"{cfg.name}:{shape.name}",
+            kind="prefill",
+            step_fn=prefill_cell_step,
+            abstract_args=(P.abstract(model.param_specs), P.abstract(b_specs)),
+            in_specs=(pspec_of(model.param_specs), pspec_of(b_specs)),
+        )
+
+    # decode
+    serve_step = make_serve_step(model)
+
+    @torch.no_grad()
+    def serve_cell_step(params, cache, token, index):
+        if isinstance(index, torch.Tensor):
+            index = shape.seq_len - 1 if index.is_meta else int(index)
+        return serve_step(model.build_params(params), cache, token, index)
+
+    cache_specs, token_spec, index_spec = decode_input_specs(cfg, shape, model)
+    return CellProgram(
+        name=f"{cfg.name}:{shape.name}",
+        kind="decode",
+        step_fn=serve_cell_step,
+        abstract_args=(
+            P.abstract(model.param_specs),
+            P.abstract(cache_specs),
+            P.abstract(token_spec),
+            P.abstract(index_spec),
+        ),
+        in_specs=(
+            pspec_of(model.param_specs),
+            pspec_of(cache_specs),
+            pspec_of(token_spec),
+            pspec_of(index_spec),
+        ),
+        donate=(1,),
+    )

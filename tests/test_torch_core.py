@@ -362,6 +362,41 @@ print(len(names))
 """
 
 
+_IMPORT_FIRST = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+failed = []
+for name in names:
+    for key in [k for k in sys.modules if k == "repro_torch" or k.startswith("repro_torch.")]:
+        del sys.modules[key]
+    try:
+        importlib.import_module(name)
+    except Exception as exc:
+        failed.append(f"{name}: {exc!r}")
+assert not failed, failed
+print(len(names))
+"""
+
+
+def test_every_module_imports_first():
+    """Port fault 8 (ROADMAP.md section 3): each module of the port imports
+    as the first ``repro_torch`` module of a clean import state (every
+    ``repro_torch`` entry removed from ``sys.modules`` before each, in one
+    subprocess).  ``models.params`` used to close a cycle through
+    ``core/__init__``, ``core.dynamics`` and ``optim``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_FIRST], env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 75
+
+
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run(

@@ -150,9 +150,11 @@ def test_context_validates_and_nests():
     assert sharding.current_plan() is None
     with outer.context(mesh) as m:
         assert m is mesh and sharding.current_plan() is outer
-        assert sharding.current_rules() is None  # a plan carries no rule table
+        # a plan carries the reference's minimal rule table (lanes → "data")
+        assert sharding.current_rules() == {"batch": None}
         with inner.context(mesh):
             assert sharding.current_plan() is inner
+            assert sharding.current_rules() == {"batch": "data"}
             with sharding.use_rules({"batch": "data"}):
                 assert sharding.current_rules() == {"batch": "data"}
                 assert sharding.current_plan() is None
