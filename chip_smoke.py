@@ -169,8 +169,10 @@ and prints one JSON line per phase:
    of 32-token prompts, 16 new tokens) through the daemon and through
    ``--once``: equal tokens, each request equal to a direct
    ``make_generate`` of the same 4-lane bucket; prefill and decode seconds,
-   tokens/s, wall seconds, parameter bytes, peak memory, the idle share of a
-   warm serve, and the decode step's ms against its bound ((weight bytes +
+   tokens/s and wall seconds of the warm serve (the ``--once`` one, the
+   second at its batch), parameter bytes, peak memory, the idle share (a
+   traced daemon serve's busy time over the warm wall), and the decode
+   step's ms against its bound ((weight bytes +
    KV bytes read) at 3.35 TB/s).  ``serve_batch128``: the same model with
    128 requests of 512-token prompts and 64 new tokens (the widest batch
    bucket), the same fields and equality.  ``cpu_check``: the ``serve``
@@ -253,15 +255,33 @@ and prints one JSON line per phase:
    its roofline bound beside the measured step.  ``dryrun_production``:
    qwen2-1.5b train_4k on both production meshes, qwen2-1.5b decode_32k,
    h2o-danube-1.8b long_500k and arctic-480b train_4k (``DRYRUN_CLI_CELLS``
-   through the CLI, in processes of their own), each with its three
+   through the CLI, in processes of their own, started before phase 16 so
+   that they count on the host's idle cores while the card trains), each
+   with its three
    roofline terms, dominant term, per-device bytes and ``fits``.
 
-Launch counts are set to 0 before each main-path phase (4-17) and read after
+18. ``dryrun_onn``: the ONN dry run (``run_onn_cell``).  ``count``: the ten
+   cells (``onn_131072`` × 2 meshes × 4 variants, ``onn_506`` × 2 meshes)
+   on the meta device, roofline terms, per-device bytes, ``fits``, no float
+   tensor counted; ``refused``: the row layouts at ``onn_506``.  ``share``:
+   device (0, 0)'s program of the single-pod ``onn_131072`` ``baseline2d``
+   and ``rowpar`` cells (kernel 1) and of ``onn_506`` (kernel 2) on the
+   card, its collectives the identity: argument bytes equal the live
+   tensors', the predicted peak within ``DRYRUN_PEAK_TOLERANCE`` of the
+   sweep's ``max_memory_allocated``, the roofline terms beside the sweep's
+   time, the kernel's ms at the share's shape beside ``torch._int_mm`` and
+   its bound, the first cycle equal to the plain version on the CPU.
+   ``composed``: each variant's programs on a (2, 4) mesh of the card
+   repeated (N = 4096, 256 lanes), the collectives done for real, equal
+   after 32 cycles to the unsharded sweep of kernel 2.
+
+Launch counts are set to 0 before each main-path phase (4-18) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
 phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
-phase 15 as ``launches_lm``, of phase 16 as ``launches_train`` and of phase
-17 as ``launches_dryrun`` (the last two must be 0).
+phase 15 as ``launches_lm``, of phase 16 as ``launches_train``, of phase
+17 as ``launches_dryrun`` (the last two must be 0) and of phase 18 as
+``launches_dryrun_onn`` (above 0 for kernels 1 and 2 alone).
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -393,6 +413,15 @@ DRYRUN_CLI_CELLS = (("qwen2-1.5b", "train_4k", "single"), ("qwen2-1.5b", "train_
                     ("arctic-480b", "train_4k", "single"))
 DRYRUN_CLI_TIMEOUT_S = 300
 DRYRUN_PEAK_TOLERANCE = 0.15
+#: Phase 18, the ONN dry run: the cells counted (cell, multi_pod, variant);
+#: the single-pod shares run on the card (cell, variant); the composed
+#: sweeps' N, lanes and (data, model) mesh.
+DRYRUN_ONN_CELLS = tuple(
+    [("onn_131072", mp, v) for v in ("baseline2d", "rowpar", "rowpar_bitpack", "rowpar_bp_int4")
+     for mp in (False, True)] + [("onn_506", mp, "baseline2d") for mp in (False, True)])
+DRYRUN_ONN_SHARES = (("onn_131072", "baseline2d"), ("onn_131072", "rowpar"),
+                     ("onn_506", "baseline2d"))
+DRYRUN_ONN_COMPOSED = (4096, 256, (2, 4))
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b",
                "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
@@ -1860,19 +1889,17 @@ def lm_lines(dev, seed, drive) -> dict:
         lm.timings.clear()
         (rep_d, tok_d), _, n_d = driven(
             lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
+        # The --once serve, the second at this batch, is the warm one timed.
         lm.timings.clear()
-        (rep_o, tok_o), _, n_o = driven(lambda: launch_serve.serve_prompts(
+        (rep_o, tok_o), warm, n_o = driven(lambda: launch_serve.serve_prompts(
             lm, prompts, new, torch.Generator().manual_seed(seed), once=True, **extras))
+        timing = dict(lm.timings[-1])
         require(torch.equal(tok_d, tok_o), f"lm {part}: daemon and --once tokens differ")
         batch_in = {"tokens": prompts, **{k: v for k, v in extras.items() if v is not None}}
         direct, _ = make_generate(lm.model)(lm.params, batch_in, new)
         require(torch.equal(tok_d, direct),
                 f"lm {part}: a served request differs from make_generate of its bucket")
         del direct
-        lm.timings.clear()
-        warm = solve_seconds(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
-        timing = dict(lm.timings[-1])
         busy_ms, per_name, _ = device_busy(
             lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
         step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
@@ -1884,7 +1911,7 @@ def lm_lines(dev, seed, drive) -> dict:
             "dtype": cfg.dtype, "requests": batch, "prompt_len": prompt_len, "new_tokens": new,
             "daemon": rep_d, "once": rep_o, "daemon_equals_once": True,
             "equal_to_make_generate_same_bucket": True,
-            "warm": {"wall_s": warm, "prefill_s": timing["prefill_s"],
+            "warm": {"serve": "once", "wall_s": warm, "prefill_s": timing["prefill_s"],
                      "decode_s": timing["decode_s"],
                      "tokens_per_s": batch * new / max(timing["decode_s"], 1e-9),
                      "device_busy_ms": busy_ms,
@@ -2542,7 +2569,29 @@ def train_lines(dev, seed, drive) -> dict:
     return own, full_step
 
 
-def dryrun_lines(dev, drive, full_step) -> dict:
+def start_dryrun_cli(out_dir: str) -> list:
+    """Start ``DRYRUN_CLI_CELLS``' ``python -m repro_torch.launch.dryrun``
+    processes, each writing under ``out_dir``/cli<i>.  They count on the
+    meta device (one Python thread each, niced), so they run on the host's
+    idle cores while phase 16 trains on the card; phase 17 reads them."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_name, "--mesh", mesh_name, "--out", os.path.join(out_dir, f"cli{i}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT,
+        preexec_fn=lambda: os.nice(10))
+        for i, (arch, shape_name, mesh_name) in enumerate(DRYRUN_CLI_CELLS)]
+
+
+def stop_processes(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_lines(dev, drive, full_step, procs, out_dir) -> dict:
     """Phase 17: the LM dry run (``repro_torch.launch.dryrun``) on the meta
     device, one JSON line per part.  ``dryrun_train_full``: the cell of
     phase 16's own step (qwen2-1.5b, 8 × 4096 tokens, 2 microbatches,
@@ -2553,11 +2602,10 @@ def dryrun_lines(dev, drive, full_step) -> dict:
     step.  ``dryrun_production``: qwen2-1.5b train_4k on both production
     meshes, qwen2-1.5b decode_32k, h2o-danube-1.8b long_500k and
     arctic-480b train_4k, each cell's roofline terms, dominant term,
-    per-device bytes and ``fits``.  Those cells run at once in
-    ``python -m repro_torch.launch.dryrun`` processes on the host's other
-    cores while ``dryrun_train_full`` runs here.  Nothing is allocated on
-    the card; returns the launches of the phase by kernel (none is
-    expected)."""
+    per-device bytes and ``fits``: ``procs``, started by
+    :func:`start_dryrun_cli` before phase 16, wrote those cells under
+    ``out_dir``.  Nothing is allocated on the card; returns the launches of
+    the phase by kernel (none is expected)."""
     from repro_torch.distributed import Mesh
     from repro_torch.launch import dryrun
     from repro_torch.models import params as PM
@@ -2565,100 +2613,277 @@ def dryrun_lines(dev, drive, full_step) -> dict:
 
     own = {}
     t_phase = time.perf_counter()
-    out_dir = tempfile.mkdtemp(prefix="dryrun_")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    procs = []
-    try:
-        for i, (arch, shape_name, mesh_name) in enumerate(DRYRUN_CLI_CELLS):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                 "--shape", shape_name, "--mesh", mesh_name,
-                 "--out", os.path.join(out_dir, f"cli{i}")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+    # dryrun_train_full: phase 16's step, counted beside its live tensors
+    t_part = time.perf_counter()
+    state, batch = full_step["state"], full_step["batch"]
+    live = (sum(t.nbytes for _, t in PM.leaves(state._asdict()))
+            + sum(np.asarray(v).nbytes for v in batch.values()))
+    mesh1 = Mesh(np.array([[torch.device("meta")]], dtype=object))
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    cell, _, path = drive(lambda: dryrun.run_cell(
+        LM_ARCH, "train_4k", False, microbatches=full_step["microbatches"], mesh=mesh1,
+        shape=shape, outdir=os.path.join(out_dir, "here"), tag="train_full",
+        verbose=False))
+    for k, v in path.items():
+        own[k] = own.get(k, 0) + v
+    mem = cell["memory_analysis"]
+    require(mem["argument_size_in_bytes"] == live,
+            f"dryrun_train_full: argument bytes {mem['argument_size_in_bytes']} are not the "
+            f"live state's and batch's {live}")
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = full_step["max_memory_allocated"]
+    require(abs(predicted / measured - 1) <= DRYRUN_PEAK_TOLERANCE,
+            f"dryrun_train_full: predicted peak {predicted} against {measured} measured")
+    roof = cell["roofline"]
+    bound = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    emit({"phase": "dryrun", "part": "dryrun_train_full", "cell": cell["cell"],
+          "mesh": cell["mesh"], "arch": LM_ARCH, "batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "microbatches": cell["microbatches"],
+          "optimizer": cell["optimizer"], "memory_analysis": mem,
+          "live_state_and_batch_bytes": live, "argument_bytes_equal_live": True,
+          "predicted_peak_bytes": predicted, "max_memory_allocated": measured,
+          "predicted_over_measured_peak": predicted / measured,
+          "peak_tolerance": DRYRUN_PEAK_TOLERANCE,
+          "counted_flops": cell["replica_cost"]["flops"],
+          "model_flops": full_step["model_flops"]["total"],
+          "counted_over_model_flops":
+              cell["replica_cost"]["flops"] / full_step["model_flops"]["total"],
+          "bytes_accessed": cell["replica_cost"]["bytes_accessed"],
+          "roofline": roof, "bound_s": bound, "dominant": roof["dominant"],
+          "step_s": full_step["step_s"], "bound_over_step": bound / full_step["step_s"],
+          "model_flops_bound_s": full_step["bound_s"],
+          "cost_probe_s": cell["cost_probe_s"], "memory_probe_s": cell["memory_probe_s"],
+          "ported_kernel_launches": sum(path.values()),
+          "part_s": time.perf_counter() - t_part})
+    del state, batch
 
-        # dryrun_train_full: phase 16's step, counted beside its live tensors
-        t_part = time.perf_counter()
-        state, batch = full_step["state"], full_step["batch"]
-        live = (sum(t.nbytes for _, t in PM.leaves(state._asdict()))
-                + sum(np.asarray(v).nbytes for v in batch.values()))
-        mesh1 = Mesh(np.array([[torch.device("meta")]], dtype=object))
-        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
-        cell, _, path = drive(lambda: dryrun.run_cell(
-            LM_ARCH, "train_4k", False, microbatches=full_step["microbatches"], mesh=mesh1,
-            shape=shape, outdir=os.path.join(out_dir, "here"), tag="train_full",
-            verbose=False))
+    # dryrun_production: the cells of the CLI's processes
+    t_part = time.perf_counter()
+    for proc in procs:
+        log, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+        require(proc.returncode == 0, f"dryrun_production: {proc.args}:\n{log}")
+    cells = []
+    for i in range(len(procs)):
+        cli_dir = os.path.join(out_dir, f"cli{i}")
+        for name in sorted(os.listdir(cli_dir)):
+            with open(os.path.join(cli_dir, name)) as f:
+                cells.append(json.load(f))
+    require(len(cells) == len(DRYRUN_CLI_CELLS),
+            f"dryrun_production: {len(cells)} cells written")
+    for c in cells:
+        r, m = c["roofline"], c["memory_analysis"]
+        emit({"phase": "dryrun", "part": "dryrun_production", "cell": c["cell"],
+              "mesh": c["mesh"], "n_devices": c["n_devices"], "dp_size": c["dp_size"],
+              "replica_batch": c["replica_batch"], "microbatches": c["microbatches"],
+              "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+              "collective_s": r["collective_s"], "dominant": r["dominant"],
+              "flops_per_device": r["flops_per_device"],
+              "hbm_bytes_per_device": r["hbm_bytes_per_device"],
+              "collective_bytes_per_device": r["collective_bytes_per_device"],
+              "argument_bytes_per_device": m["argument_size_in_bytes"],
+              "temp_bytes_per_device": m["temp_size_in_bytes"], "fits": c["fits"],
+              "useful_flops_ratio": c["useful_flops_ratio"], "n_params": c["n_params"],
+              "cell_s": c["seconds"], "per_device_split": c["per_device_split"],
+              "temp_bound": c["temp_bound"], "ported_kernel_launches": 0,
+              "part_s": time.perf_counter() - t_part})
+    emit({"phase": "dryrun", "part": "phase", "phase_s": time.perf_counter() - t_phase,
+          "device": str(dev), "card_bytes_allocated_by_phase": 0})
+    return own
+
+
+def dryrun_onn_lines(dev, seed, drive) -> tuple:
+    """Phase 18: the ONN dry run (``repro_torch.launch.dryrun.run_onn_cell``).
+    ``count``: the ten cells of ``DRYRUN_ONN_CELLS`` counted on the meta
+    device, each with its roofline terms, dominant term, per-device bytes
+    and ``fits``, no float tensor among them; ``refused``: the row layouts
+    at ``onn_506``.  ``share``: device (0, 0)'s program of the single-pod
+    ``onn_131072`` cell (``baseline2d``, ``rowpar``) and of ``onn_506`` on
+    the card, on a W block of seeded 5-bit values and seeded ±1 spins, its
+    collectives the identity (one card has no peers): the counted argument
+    bytes equal the live tensors', the predicted peak against the sweep's
+    ``max_memory_allocated`` within ``DRYRUN_PEAK_TOLERANCE``, the roofline
+    terms against the sweep's CUDA-event time, the kernel's ms a launch at
+    the share's shape beside ``torch._int_mm`` and its bound, and the first
+    cycle's block equal to the plain version on the CPU (the plain
+    version's ms on the card beside the kernel's).  ``composed``:
+    each variant's programs on a (2, 4) mesh of the card repeated at
+    ``DRYRUN_ONN_COMPOSED``, the collectives done as sums and copies, equal
+    after 32 cycles to the unsharded sweep of kernel 2.  Returns the
+    launches of the phase by kernel and the kernels' times at the shares'
+    shapes."""
+    from repro_torch.core.dynamics import sign_update
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.launch import dryrun
+
+    own = {}
+
+    def driven(fn):
+        res, seconds, path = drive(fn)
         for k, v in path.items():
             own[k] = own.get(k, 0) + v
-        mem = cell["memory_analysis"]
-        require(mem["argument_size_in_bytes"] == live,
-                f"dryrun_train_full: argument bytes {mem['argument_size_in_bytes']} are not the "
-                f"live state's and batch's {live}")
-        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-        measured = full_step["max_memory_allocated"]
-        require(abs(predicted / measured - 1) <= DRYRUN_PEAK_TOLERANCE,
-                f"dryrun_train_full: predicted peak {predicted} against {measured} measured")
-        roof = cell["roofline"]
-        bound = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
-        emit({"phase": "dryrun", "part": "dryrun_train_full", "cell": cell["cell"],
-              "mesh": cell["mesh"], "arch": LM_ARCH, "batch": TRAIN_BATCH,
-              "seq_len": TRAIN_SEQ, "microbatches": cell["microbatches"],
-              "optimizer": cell["optimizer"], "memory_analysis": mem,
-              "live_state_and_batch_bytes": live, "argument_bytes_equal_live": True,
-              "predicted_peak_bytes": predicted, "max_memory_allocated": measured,
-              "predicted_over_measured_peak": predicted / measured,
-              "peak_tolerance": DRYRUN_PEAK_TOLERANCE,
-              "counted_flops": cell["replica_cost"]["flops"],
-              "model_flops": full_step["model_flops"]["total"],
-              "counted_over_model_flops":
-                  cell["replica_cost"]["flops"] / full_step["model_flops"]["total"],
-              "bytes_accessed": cell["replica_cost"]["bytes_accessed"],
-              "roofline": roof, "bound_s": bound, "dominant": roof["dominant"],
-              "step_s": full_step["step_s"], "bound_over_step": bound / full_step["step_s"],
-              "model_flops_bound_s": full_step["bound_s"],
-              "cost_probe_s": cell["cost_probe_s"], "memory_probe_s": cell["memory_probe_s"],
-              "ported_kernel_launches": sum(path.values()),
-              "part_s": time.perf_counter() - t_part})
-        del state, batch
+        return res, seconds, path
 
-        # dryrun_production: the cells of the CLI's processes
-        t_part = time.perf_counter()
-        for proc in procs:
-            log, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
-            require(proc.returncode == 0, f"dryrun_production: {proc.args}:\n{log}")
-        cells = []
-        for i in range(len(procs)):
-            cli_dir = os.path.join(out_dir, f"cli{i}")
-            for name in sorted(os.listdir(cli_dir)):
-                with open(os.path.join(cli_dir, name)) as f:
-                    cells.append(json.load(f))
-        require(len(cells) == len(DRYRUN_CLI_CELLS),
-                f"dryrun_production: {len(cells)} cells written")
-        for c in cells:
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_onn_")
+    cells = {}
+    try:
+        for cell, multi_pod, variant in DRYRUN_ONN_CELLS:
+            c = dryrun.run_onn_cell(cell, multi_pod, variant=variant, outdir=out_dir,
+                                    verbose=False)
+            floats = [d for d in c["dtypes_counted"] if "float" in d]
+            require(not floats, f"dryrun_onn {cell} {variant}: float tensors counted {floats}")
+            cells[(cell, multi_pod, variant)] = c
             r, m = c["roofline"], c["memory_analysis"]
-            emit({"phase": "dryrun", "part": "dryrun_production", "cell": c["cell"],
-                  "mesh": c["mesh"], "n_devices": c["n_devices"], "dp_size": c["dp_size"],
-                  "replica_batch": c["replica_batch"], "microbatches": c["microbatches"],
+            emit({"phase": "dryrun_onn", "part": "count", "cell": cell, "mesh": c["mesh"],
+                  "variant": variant, "layout": c["layout"], "n_devices": c["n_devices"],
                   "compute_s": r["compute_s"], "memory_s": r["memory_s"],
                   "collective_s": r["collective_s"], "dominant": r["dominant"],
                   "flops_per_device": r["flops_per_device"],
                   "hbm_bytes_per_device": r["hbm_bytes_per_device"],
-                  "collective_bytes_per_device": r["collective_bytes_per_device"],
+                  "collectives": c["collectives"],
                   "argument_bytes_per_device": m["argument_size_in_bytes"],
-                  "temp_bytes_per_device": m["temp_size_in_bytes"], "fits": c["fits"],
-                  "useful_flops_ratio": c["useful_flops_ratio"], "n_params": c["n_params"],
-                  "cell_s": c["seconds"], "per_device_split": c["per_device_split"],
-                  "temp_bound": c["temp_bound"], "ported_kernel_launches": 0,
-                  "part_s": time.perf_counter() - t_part})
+                  "temp_bytes_per_device": m["temp_size_in_bytes"],
+                  "output_bytes_per_device": m["output_size_in_bytes"], "fits": c["fits"],
+                  "useful_flops_ratio": c["useful_flops_ratio"],
+                  "dtypes_counted": c["dtypes_counted"], "cell_s": c["seconds"]})
+        refused = {}
+        for variant in dryrun.ONN_VARIANTS[1:]:
+            try:
+                dryrun.run_onn_cell("onn_506", False, variant=variant, outdir=out_dir,
+                                    verbose=False)
+            except ValueError as e:
+                refused[variant] = str(e)
+        require(len(refused) == 3, f"dryrun_onn: onn_506 row layouts not refused: {refused}")
+        emit({"phase": "dryrun_onn", "part": "refused", "cell": "onn_506", "refused": refused})
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
         shutil.rmtree(out_dir, ignore_errors=True)
-    emit({"phase": "dryrun", "part": "phase", "phase_s": time.perf_counter() - t_phase,
-          "device": str(dev), "card_bytes_allocated_by_phase": 0})
-    return own
+
+    # one device's share on the card, its collectives the identity
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = []
+    for cell, variant in DRYRUN_ONN_SHARES:
+        t_part = time.perf_counter()
+        c = cells[(cell, False, variant)]
+        prog = dryrun.onn_cell_program(cell, False, variant)
+        (w_shape, _), (s_shape, _) = prog.argument_shapes()
+        w = torch.randint(-15, 16, w_shape, generator=gen, device=dev, dtype=torch.int8)
+        sigma = torch.randint(0, 2, s_shape, generator=gen, device=dev, dtype=torch.int8) * 2 - 1
+        mem = c["memory_analysis"]
+        live = w.nbytes + sigma.nbytes
+        require(mem["argument_size_in_bytes"] == live,
+                f"dryrun_onn share {cell} {variant}: argument bytes "
+                f"{mem['argument_size_in_bytes']} are not the live tensors' {live}")
+        pos = (0, 0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() - live
+        torch.cuda.reset_peak_memory_stats()
+        out, _, path = driven(lambda: dryrun.run_onn_share(prog, pos, w, sigma))
+        measured = torch.cuda.max_memory_allocated() - before
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        require(abs(predicted / measured - 1) <= DRYRUN_PEAK_TOLERANCE,
+                f"dryrun_onn share {cell} {variant}: predicted peak {predicted} against "
+                f"{measured} measured")
+        kernel = "onn_step" if prog.layout == "replicated" else "coupling_sum"
+        require(path.get(kernel, 0) == prog.cycles and sum(path.values()) == prog.cycles,
+                f"dryrun_onn share {cell} {variant}: launches {path}")
+        require(out.shape == sigma.shape and out.dtype == torch.int8
+                and bool(torch.all(out.abs() == 1)), f"dryrun_onn share {cell}: not ±1 spins")
+        del out
+        sweep_ms = cuda_ms(lambda: dryrun.run_onn_share(prog, pos, w, sigma), iters=3, warmup=1)
+        # the first cycle's block against the plain version on the CPU
+        one = dryrun.run_onn_share(dataclasses.replace(prog, cycles=1), pos, w, sigma).cpu()
+        w_cpu, s_cpu = w.cpu(), sigma.cpu()
+        if kernel == "onn_step":
+            x, rows = s_cpu, prog.n
+            want = plain.onn_step_ref(w_cpu, s_cpu, torch.zeros(prog.n, dtype=torch.int32))
+        else:
+            rows, cols = prog.block
+            x = s_cpu[:, :cols]
+            want = sign_update(plain.coupling_sum_ref(w_cpu, x), s_cpu[:, :rows])
+        require(torch.equal(one[:, :rows], want) and torch.equal(one[:, rows:], s_cpu[:, rows:]),
+                f"dryrun_onn share {cell} {variant}: first cycle differs from the plain version")
+        del one, w_cpu, s_cpu, want
+        # the kernel at the share's shape: its ms a launch, torch._int_mm, its bound
+        x = sigma[:, :x.shape[1]].contiguous()
+        b, k = x.shape
+        m = w.shape[0]
+        out_bytes = b * m * (1 if kernel == "onn_step" else 4)
+        b_ms, b_by = bound(w.nbytes + x.nbytes + out_bytes, 2 * b * m * k)
+        if kernel == "onn_step":
+            h = torch.zeros(m, dtype=torch.int32, device=dev)
+            fn, plain_fn = (lambda: ops.onn_step(w, x)), (lambda: plain.onn_step_ref(w, x, h))
+        else:
+            fn, plain_fn = (lambda: ops.coupling_sum(w, x)), (
+                lambda: plain.coupling_sum_ref(w, x))
+        k_ms = device_ms(fn, kernel, iters=10)
+        ms_of = "kernel" if k_ms is not None else "wrapper"
+        if k_ms is None:  # the profiler recorded too few launches
+            k_ms = cuda_ms(fn, iters=10)
+        p_ms = cuda_ms(plain_fn, iters=2, warmup=1)
+        lib_ms = None
+        if b > 16 and k % 8 == 0 and m % 8 == 0:
+            lib_ms = cuda_ms(lambda: torch._int_mm(x, w.t()), iters=10)
+        shape = {"kernel": kernel, "B": b, "M": m, "K": k, "ms": k_ms, "ms_of": ms_of,
+                 "plain_ms": p_ms,
+                 "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        shapes.append({"cell": cell, "variant": variant, **shape})
+        r = c["roofline"]
+        emit({"phase": "dryrun_onn", "part": "share", "cell": cell, "mesh": "single",
+              "variant": variant, "position": list(pos), "w_block": list(w_shape),
+              "sigma": list(s_shape), "live_argument_bytes": live,
+              "argument_bytes_equal_live": True, "predicted_peak_bytes": predicted,
+              "max_memory_allocated_over_sweep": measured,
+              "predicted_over_measured_peak": predicted / measured,
+              "peak_tolerance": DRYRUN_PEAK_TOLERANCE, "cycles": prog.cycles,
+              "launches": path, "sweep_ms": sweep_ms,
+              "compute_ms": r["compute_s"] * 1e3, "memory_ms": r["memory_s"] * 1e3,
+              "collective_ms_not_run": r["collective_s"] * 1e3,
+              "bound_over_sweep": max(r["compute_s"], r["memory_s"]) * 1e3 / sweep_ms,
+              "kernel_at_shape": shape, "first_cycle_equal_to_plain_on_cpu": True,
+              "part_s": time.perf_counter() - t_part})
+        del w, sigma, x
+
+    # the sharded programs composed on a (2, 4) mesh of the card repeated
+    t_part = time.perf_counter()
+    n, b, mesh_shape = DRYRUN_ONN_COMPOSED
+    mesh = make_mesh(mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
+    sigma = torch.randint(0, 2, (b, n), generator=gen, device=dev, dtype=torch.int8) * 2 - 1
+    weights = {bits: torch.randint(lo, hi, (n, n), generator=gen, device=dev, dtype=torch.int8)
+               for bits, lo, hi in ((5, -15, 16), (4, -8, 8))}
+    unsharded = {}
+    for bits, w in weights.items():
+        def sweep(w=w):
+            s = sigma
+            for _ in range(32):
+                s = ops.onn_step(w, s)
+            return s
+        unsharded[bits], _, path = driven(sweep)
+        require(path.get("onn_step", 0) == 32, f"dryrun_onn composed: unsharded launches {path}")
+        require(bool((unsharded[bits] != sigma).any()), "dryrun_onn composed: no spin moved")
+    composed = {}
+    for variant in dryrun.ONN_VARIANTS:
+        bits = 4 if variant == "rowpar_bp_int4" else 5
+        prog = dryrun.onn_program(variant, n, b, 32, mesh.shape)
+        outs, seconds, path = driven(
+            lambda: dryrun.run_onn_composed(prog, mesh, weights[bits], sigma))
+        require(len(outs) == mesh.size, f"dryrun_onn composed {variant}: {len(outs)} outputs")
+        for pos, got in outs.items():
+            require(torch.equal(got, unsharded[bits][prog.lanes(pos)]),
+                    f"dryrun_onn composed {variant}: position {pos} differs from the "
+                    "unsharded sweep")
+        composed[variant] = {"layout": prog.layout, "w_block": list(prog.argument_shapes()[0][0]),
+                             "equal_to_unsharded": True, "launches": path, "seconds": seconds}
+    emit({"phase": "dryrun_onn", "part": "composed", "n": n, "batch": b, "cycles": 32,
+          "mesh": list(mesh_shape), "variants": composed,
+          "unsharded": "32 launches of onn_step (kernel 2)",
+          "part_s": time.perf_counter() - t_part})
+    del weights, unsharded, sigma
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun_onn", "part": "phase", "phase_s": time.perf_counter() - t_phase,
+          "launches": own, "kernel_at_shapes": shapes})
+    return own, shapes
 
 
 def main() -> None:
@@ -3564,11 +3789,22 @@ def main() -> None:
     lm_launches = lm_lines(dev, args.seed, drive)
 
     # 16. LM training: qwen2-1.5b at full width, card against CPU, resume -------------
-    train_launches, full_step = train_lines(dev, args.seed, drive)
-
-    # 17. the LM dry run on the meta device, beside phase 16's step ------------------
-    dryrun_launches = dryrun_lines(dev, drive, full_step)
+    # 17. the LM dry run on the meta device, beside phase 16's step: its CLI cells
+    # count on the host's idle cores while phase 16 trains on the card
+    dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dryrun_procs = start_dryrun_cli(dryrun_dir)
+    try:
+        train_launches, full_step = train_lines(dev, args.seed, drive)
+        dryrun_launches = dryrun_lines(dev, drive, full_step, dryrun_procs, dryrun_dir)
+    finally:
+        stop_processes(dryrun_procs)
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
     del full_step
+
+    # 18. the ONN dry run: counts, one device's share on the card, composed sweeps -----
+    onn_launches, onn_shapes = dryrun_onn_lines(dev, args.seed, drive)
+    for name in ("coupling_sum", "onn_step"):
+        rows[name]["dryrun_onn_shapes"] = [s for s in onn_shapes if s["kernel"] == name]
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -3578,9 +3814,12 @@ def main() -> None:
         row["launches_lm"] = lm_launches.get(name, 0)
         row["launches_train"] = train_launches.get(name, 0)
         row["launches_dryrun"] = dryrun_launches.get(name, 0)
+        row["launches_dryrun_onn"] = onn_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
         require(row["launches_train"] == 0, f"{name} launched on the LM training path")
         require(row["launches_dryrun"] == 0, f"{name} launched in the dry run")
+        require((row["launches_dryrun_onn"] > 0) == (name in ("coupling_sum", "onn_step")),
+                f"{name}: {row['launches_dryrun_onn']} launches in the ONN dry run")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -144,11 +144,34 @@ def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def onn_weight_spec(plan: "ShardPlan") -> Spec:
-    """The spec of the (N, N) coupling matrix under ``plan``: rows over the
-    ``"model"`` axis (replicated across ``"data"``) when the plan
-    model-parallelizes, else replicated."""
-    return ("model", None) if plan.model_sharded else (None, None)
+def onn_weight_spec(
+    multi_pod: bool = False,
+    layout: str = "row",
+    plan: Optional["ShardPlan"] = None,
+) -> Spec:
+    """The spec of the (N, N) coupling matrix.
+
+    Under a :class:`ShardPlan` (``plan`` given): rows over the ``"model"``
+    axis (replicated across ``"data"``) when the plan model-parallelizes,
+    else replicated.  Without a plan, the production mesh's layouts (the ONN
+    dry run, ``repro_torch.launch.dryrun.run_onn_cell``):
+
+      * ``"row"``        — rows over ALL mesh axes (no contraction sum; the
+        σ' all-gather is the only collective);
+      * ``"2d"``         — rows over ``"model"``, columns over ``"data"``
+        (each cycle sums the partial fields over ``"data"``);
+      * ``"replicated"`` — W on every device (parallel over the batch).
+    """
+    if plan is not None:
+        return ("model", None) if plan.model_sharded else (None, None)
+    all_axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if layout == "row":
+        return (all_axes, None)
+    if layout == "2d":
+        return ("model", "data")
+    if layout == "replicated":
+        return (None, None)
+    raise ValueError(f"unknown ONN weight layout {layout!r}")
 
 
 def at_rest_spec(n: int, plan: "ShardPlan") -> Spec:
@@ -159,12 +182,16 @@ def at_rest_spec(n: int, plan: "ShardPlan") -> Spec:
     return (None, None)
 
 
-def onn_param_shardings(plan: "ShardPlan"):
+def onn_param_shardings(
+    multi_pod: bool = False,
+    layout: str = "row",
+    plan: Optional["ShardPlan"] = None,
+):
     """``OnnParams``-shaped specs: W per :func:`onn_weight_spec`, the bias
     replicated."""
     from repro_torch.core.dynamics import OnnParams
 
-    return OnnParams(weights=onn_weight_spec(plan), bias=(None,))
+    return OnnParams(weights=onn_weight_spec(multi_pod, layout, plan), bias=(None,))
 
 
 def constrain_onn(params, layout: Optional[str] = None):

@@ -1,5 +1,4 @@
-"""LM dry-run driver on the meta device (the port of the LM half of
-``repro.launch.dryrun``).
+"""The dry run on the meta device (the port of ``repro.launch.dryrun``).
 
 Counts every (architecture × input shape) cell against the production mesh
 (``launch.mesh.make_production_mesh``) WITHOUT allocating anything: the
@@ -42,11 +41,45 @@ batch rule names.  From it the cell records, into
 
 The reference's HLO parser has no counterpart (``launch.hlo_analysis``);
 its ``_accounting_cfg`` is not needed (the probes count the cell's own
-chunk sizes).  The ONN cells (``run_onn_cell``) are not ported yet.
+chunk sizes).
+
+The ONN cells (:func:`run_onn_cell`; ``configs.onn.ONN_CELLS``, B = 1024
+lanes, 32 cycles of σ ← sign(σ Wᵀ), ties keeping σ) count one device's
+program of the batched retrieval sweep in one of four layouts
+(:func:`onn_program`):
+
+* ``baseline2d``: W's block with rows over ``"model"`` and columns over
+  ``"data"``; each cycle kernel 1 on σ's column block, the partial field
+  all-reduced over ``"data"``, the sign update on σ's row block, σ'
+  all-gathered as int8 over ``"model"``.  Where N does not divide the
+  axes (``onn_506``), W is replicated and the lanes split over the batch
+  axes: one kernel-2 launch a cycle, no collective.
+* ``rowpar``: W's rows over every device; kernel 1 on the (N/S, N) block,
+  then σ' all-gathered over all S devices.
+* ``rowpar_bitpack``: σ' packed 8 spins a byte for the gather.
+* ``rowpar_bp_int4``: as ``rowpar_bitpack``, W stored two weights a byte and
+  unpacked each cycle.
+
+The port has no partitioner, so each program is written out with its
+collectives explicit (:class:`Launch`, :class:`Collective`) and driven
+three ways: counted on the meta device (:func:`count_onn_sweep`, each
+launch by :meth:`CountMode.kernel` at its int8 operands' and output's
+bytes, never through the plain version, which computes in float64), alone
+on one device (:func:`run_onn_share`: no peers, each collective the
+identity) and composed on a mesh (:func:`run_onn_composed`).  Every tensor
+counted is int8, uint8, bool or int32: the peak per device is an int8
+program's.  Three figures differ from the reference's on purpose: FLOPs
+are the products' alone (XLA also counts the elementwise ops); the
+all-gather moves σ' once a cycle as int8, half the reference's bytes (its
+HLO gathers the two ``pred`` masks of ``sign_update``'s ``where``);
+temporaries and bytes accessed are this module's own count, op by op, not
+XLA's buffer plan.  The compute term takes the card's int8 peak (kernels 1
+and 2 multiply int8 on the tensor cores).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --onn onn_131072 --mesh both
   ... knobs: --microbatches 4 --no-remat --rule heads= --tag v2
 """
 
@@ -58,7 +91,7 @@ import json
 import os
 import time
 import weakref
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +100,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import configs
+from repro_torch.configs.onn import ONN_CELLS
+from repro_torch.core.dynamics import sign_update
+from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.distributed import sharding as shrules
+from repro_torch.kernels import ops
 from repro_torch.launch import hlo_analysis as hlo
 from repro_torch.launch.mesh import make_production_mesh, mesh_devices
 from repro_torch.models import params as PM
@@ -121,6 +158,7 @@ class CountMode(TorchDispatchMode):
         self.peak = 0
         self.ops = 0
         self.segments: List[List[Any]] = [["step", 0]]  # [name, peak(, live by op)] in order
+        self.dtypes: set = set()  # of every non-view op's tensor inputs and outputs
         self._seen: Dict[int, Any] = {}
 
     def _freed(self, key: int, nbytes: int) -> None:
@@ -143,6 +181,7 @@ class CountMode(TorchDispatchMode):
         outs = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
         ins = [t for t in pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
         self.bytes += sum(t.nbytes for t in ins) + sum(t.nbytes for t in outs)
+        self.dtypes.update(t.dtype for t in ins + outs)
         in_keys = {t.untyped_storage()._cdata for t in ins}
         for t in outs:
             st = t.untyped_storage()
@@ -158,6 +197,17 @@ class CountMode(TorchDispatchMode):
         if len(seg) == 3:
             seg[2].append(self.live)
         return out
+
+    def kernel(self, flops: int, operands, shape, dtype) -> torch.Tensor:
+        """Count one launch of a hand-written kernel as the card runs it,
+        never through its plain version: ``flops``, its operands' bytes,
+        and its output (``shape``, ``dtype``), made here while the mode is
+        active, so that the output's bytes and storage count as an op's.
+        Returns the output (on the operands' device: meta in a dry run)."""
+        self.flops += flops
+        self.bytes += sum(t.nbytes for t in operands)
+        self.dtypes.update(t.dtype for t in operands)
+        return torch.empty(shape, dtype=dtype, device=operands[0].device)
 
 
 def count_step(step_fn, args) -> Dict[str, Any]:
@@ -601,6 +651,7 @@ def _analyze(
     verbose: bool,
     extra: Dict[str, Any],
     t_start: float,
+    peak_flops: float = hlo.H100_BF16_FLOPS_PER_S,
 ) -> Dict[str, Any]:
     ndev = mesh_devices(mesh)
     roof = hlo.Roofline(
@@ -608,6 +659,7 @@ def _analyze(
         hbm_bytes_per_device=byts,
         collective_bytes_per_device=coll.total_bytes,
         n_devices=ndev,
+        peak_flops=peak_flops,
     )
     needed = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     result: Dict[str, Any] = {
@@ -625,11 +677,16 @@ def _analyze(
         "hbm_bytes": hlo.H100_HBM_BYTES,
         **extra,
     }
-    model = get_model(cfg)
-    n_params = PM.count_params(model.param_specs)
-    frac = _active_fraction_flops(cfg)
-    useful = hlo.model_flops(kind, int(n_params * frac), tokens)
-    result["n_params"] = n_params
+    if cfg is not None:
+        model = get_model(cfg)
+        n_params = PM.count_params(model.param_specs)
+        frac = _active_fraction_flops(cfg)
+        useful = hlo.model_flops(kind, int(n_params * frac), tokens)
+        result["n_params"] = n_params
+    else:
+        # an ONN sweep: 2·N²·B MACs a cycle (the coupling weighted sums)
+        n = extra["n_oscillators"]
+        useful = 2.0 * n * n * extra["batch"] * extra["cycles"]
     result["model_flops_global"] = useful
     # flops are per device; the global count is n_devices times that
     flops_global = flops * ndev
@@ -658,6 +715,354 @@ def _analyze(
 
 
 # ---------------------------------------------------------------------------
+# ONN cells: one device's program of the batched retrieval sweep
+# ---------------------------------------------------------------------------
+
+ONN_VARIANTS = ("baseline2d", "rowpar", "rowpar_bitpack", "rowpar_bp_int4")
+
+
+def _pack_bits(s: torch.Tensor) -> torch.Tensor:
+    """±1 int8 spins (B, N) → bit-packed uint8 (B, N/8), LSB first."""
+    b, n = s.shape
+    bits = (s > 0).to(torch.uint8).reshape(b, n // 8, 8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=s.device)
+    return (bits << shifts).sum(-1, dtype=torch.uint8)
+
+
+def _unpack_bits(p: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_bits`: uint8 (B, N/8) → ±1 int8 spins (B, N)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=p.device)
+    bits = (p[..., None] >> shifts) & 1
+    return (2 * bits.to(torch.int8) - 1).reshape(p.shape[0], n)
+
+
+class Launch(NamedTuple):
+    """A program's launch of kernel 1 (``"coupling_sum"``: σ Wᵀ, int32) or
+    kernel 2 (``"onn_step"``: sign(σ Wᵀ) as int8, ties keep σ)."""
+
+    kernel: str
+    w: torch.Tensor
+    sigma: torch.Tensor
+
+
+class Collective(NamedTuple):
+    """A program's collective over the mesh ``axes``, in place: an
+    ``"all-reduce"`` sums ``block`` over the group into ``block``; an
+    ``"all-gather"`` writes each member's ``block`` into ``dest`` at its
+    slot of the last axis (member ``index`` at ``index`` block widths)."""
+
+    op: str
+    axes: Tuple[str, ...]
+    block: torch.Tensor
+    dest: Optional[torch.Tensor] = None
+    index: int = 0
+
+
+def _slot(dest: torch.Tensor, block: torch.Tensor, index: int) -> torch.Tensor:
+    width = block.shape[-1]
+    return dest[..., index * width:(index + 1) * width]
+
+
+def _launch(req: Launch) -> torch.Tensor:
+    """The launch on the request's tensors (the plain version on the CPU)."""
+    return getattr(ops, req.kernel)(req.w, req.sigma)
+
+
+def _drive(gen, step):
+    """Run a program to its end, each request answered by ``step``."""
+    reply = None
+    while True:
+        try:
+            req = gen.send(reply)
+        except StopIteration as stop:
+            return stop.value
+        reply = step(req)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnnProgram:
+    """One device's program of an ONN sweep (``cycles`` of σ ← sign(σ Wᵀ),
+    ties keeping σ, on ``batch`` lanes of N oscillators) on a mesh of
+    ``axes`` and ``sizes``: W's layout, the arguments each device holds, and
+    :meth:`sweep`, which yields each kernel launch and collective."""
+
+    variant: str
+    layout: str  # "2d", "row" or "replicated"
+    n: int
+    batch: int
+    cycles: int
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def w_spec(self) -> tuple:
+        return shrules.onn_weight_spec("pod" in self.axes, self.layout)
+
+    def group_size(self, axes) -> int:
+        """The devices of a group over ``axes`` (1 for none)."""
+        size = dict(zip(self.axes, self.sizes))
+        return int(np.prod([size[a] for a in axes], dtype=np.int64))
+
+    def _rank(self, pos, axes) -> int:
+        """``pos``'s index in the group over ``axes``, row-major in their order."""
+        r = 0
+        for a in axes:
+            i = self.axes.index(a)
+            r = r * self.sizes[i] + pos[i]
+        return r
+
+    @property
+    def row_axes(self) -> Tuple[str, ...]:
+        return _axes_of(self.w_spec[0])
+
+    @property
+    def col_axes(self) -> Tuple[str, ...]:
+        return _axes_of(self.w_spec[1])
+
+    @property
+    def lane_axes(self) -> Tuple[str, ...]:
+        """The axes σ's lanes split over: the batch axes when W is
+        replicated, none otherwise (σ replicated)."""
+        if self.layout != "replicated":
+            return ()
+        return ("pod", "data") if "pod" in self.axes else ("data",)
+
+    @property
+    def block(self) -> Tuple[int, int]:
+        """(rows, columns) of W a device holds, unpacked."""
+        return self.n // self.group_size(self.row_axes), self.n // self.group_size(self.col_axes)
+
+    def argument_shapes(self) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of one device's W block and σ."""
+        rows, cols = self.block
+        w = (((rows, cols // 2), torch.uint8) if self.variant == "rowpar_bp_int4"
+             else ((rows, cols), torch.int8))
+        return [w, ((self.batch // self.group_size(self.lane_axes), self.n), torch.int8)]
+
+    def lanes(self, pos) -> slice:
+        """The lanes of the global σ that position ``pos`` holds."""
+        k = self.batch // self.group_size(self.lane_axes)
+        r = self._rank(pos, self.lane_axes)
+        return slice(r * k, (r + 1) * k)
+
+    def arguments(self, pos, w: torch.Tensor, sigma: torch.Tensor):
+        """Position ``pos``'s W block and σ, cut from the global W (N, N)
+        int8 and σ (batch, N) int8 (the int4 variant packs its block)."""
+        rows, cols = self.block
+        r, c = self._rank(pos, self.row_axes), self._rank(pos, self.col_axes)
+        blk = w[r * rows:(r + 1) * rows, c * cols:(c + 1) * cols]
+        blk = pack_int4(blk) if self.variant == "rowpar_bp_int4" else blk.contiguous()
+        return blk, sigma[self.lanes(pos)]
+
+    def sweep(self, pos, w: torch.Tensor, sigma: torch.Tensor):
+        """Position ``pos``'s sweep on its arguments: a generator that
+        yields each :class:`Launch` (answered by the launch's output) and
+        each :class:`Collective` (done in place), and returns its σ."""
+        if self.layout == "replicated":
+            s = sigma
+            for _ in range(self.cycles):
+                s = yield Launch("onn_step", w, s)
+            return s
+        rows, cols = self.block
+        r = self._rank(pos, self.row_axes)
+        own = slice(r * rows, (r + 1) * rows)
+        if self.variant in ("baseline2d", "rowpar"):
+            c = self._rank(pos, self.col_axes)
+            s = sigma.clone()  # the sweep's σ and its output: each gather writes into it
+            for _ in range(self.cycles):
+                x = s[:, c * cols:(c + 1) * cols].contiguous() if self.col_axes else s
+                field = yield Launch("coupling_sum", w, x)
+                if self.col_axes:
+                    yield Collective("all-reduce", self.col_axes, field)
+                yield Collective("all-gather", self.row_axes, sign_update(field, s[:, own]), s, r)
+            return s
+        packed = _pack_bits(sigma)  # the sweep's σ, 8 spins a byte
+        for _ in range(self.cycles):
+            s = _unpack_bits(packed, self.n)
+            wf = unpack_int4(w) if self.variant == "rowpar_bp_int4" else w
+            field = yield Launch("coupling_sum", wf, s)
+            new = _pack_bits(sign_update(field, s[:, own]))
+            yield Collective("all-gather", self.row_axes, new, packed, r)
+        return _unpack_bits(packed, self.n)
+
+
+def onn_program(variant: str, n: int, batch: int, cycles: int,
+                axis_sizes: Dict[str, int]) -> OnnProgram:
+    """The per-device program of ``variant`` on a mesh of ``axis_sizes``
+    (``{"data": 16, "model": 16}``; ``"pod"`` first when present).
+
+    ``baseline2d`` takes the ``"2d"`` layout when N divides both the
+    ``"model"`` and ``"data"`` axes, else ``"replicated"`` (W on every
+    device, the lanes over the batch axes); the ``rowpar`` variants take
+    ``"row"``, which needs N to divide over every device (and, packed, 8 to
+    divide each device's rows).  GSPMD's padding is not imitated."""
+    axes, sizes = tuple(axis_sizes), tuple(axis_sizes.values())
+    devices = int(np.prod(sizes, dtype=np.int64))
+    if variant == "baseline2d":
+        layout = ("2d" if n % axis_sizes["model"] == 0 and n % axis_sizes["data"] == 0
+                  else "replicated")
+    elif variant in ONN_VARIANTS:
+        layout = "row"
+        if n % devices:
+            raise ValueError(f"ONN variant {variant!r}: N = {n} rows do not divide over the "
+                             f"S = {devices} devices of the row layout")
+        if variant != "rowpar" and (n // devices) % 8:
+            raise ValueError(f"ONN variant {variant!r}: {n // devices} rows a device (N = {n}, "
+                             f"S = {devices}) do not pack 8 spins a byte")
+    else:
+        raise ValueError(f"unknown ONN variant {variant!r}")
+    prog = OnnProgram(variant, layout, n, batch, cycles, axes, sizes)
+    if batch % prog.group_size(prog.lane_axes):
+        raise ValueError(f"ONN variant {variant!r}: {batch} lanes do not divide over the "
+                         f"{prog.group_size(prog.lane_axes)} devices of the batch axes")
+    return prog
+
+
+def onn_cell_program(cell_name: str, multi_pod: bool, variant: str = "baseline2d") -> OnnProgram:
+    """The per-device program of an ``ONN_CELLS`` cell on a production mesh."""
+    spec = ONN_CELLS[cell_name]
+    sizes = PM.mesh_axis_sizes(make_production_mesh(multi_pod=multi_pod))
+    return onn_program(variant, spec["n"], spec["batch"], spec["cycles"], sizes)
+
+
+def count_onn_sweep(prog: OnnProgram) -> Dict[str, Any]:
+    """Device 0's sweep of ``prog`` counted on the meta device: each
+    launch by :meth:`CountMode.kernel`, each collective's wire bytes with
+    :data:`hlo_analysis.WIRE_FACTOR` and its operand's and result's bytes
+    as bytes accessed.  Returns ``flops``, ``bytes``, ``peak`` (live
+    storage above the arguments, the output included), ``argument_bytes``,
+    ``output_bytes``, ``collectives`` and ``dtypes`` (every dtype the count
+    saw)."""
+    args = [torch.empty(shape, dtype=dtype, device="meta")
+            for shape, dtype in prog.argument_shapes()]
+    counts: Dict[str, int] = {}
+    wire: Dict[str, float] = {}
+
+    def step(req):
+        if isinstance(req, Launch):
+            (b, k), m = req.sigma.shape, req.w.shape[0]
+            dtype = torch.int32 if req.kernel == "coupling_sum" else torch.int8
+            return mode.kernel(2 * b * m * k, (req.w, req.sigma), (b, m), dtype)
+        size = prog.group_size(req.axes)
+        if size > 1:
+            result = req.block.nbytes * (size if req.op == "all-gather" else 1)
+            counts[req.op] = counts.get(req.op, 0) + 1
+            wire[req.op] = wire.get(req.op, 0.0) + hlo.WIRE_FACTOR[req.op](size) * result
+            mode.bytes += req.block.nbytes + result
+        return None
+
+    with CountMode() as mode:
+        out = _drive(prog.sweep((0,) * len(prog.axes), *args), step)
+    return {"flops": mode.flops, "bytes": mode.bytes, "peak": mode.peak,
+            "argument_bytes": sum(t.nbytes for t in args), "output_bytes": out.nbytes,
+            "collectives": hlo.CollectiveStats(counts=counts, bytes=wire),
+            "dtypes": sorted(str(d).replace("torch.", "") for d in mode.dtypes)}
+
+
+def run_onn_share(prog: OnnProgram, pos, w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Position ``pos``'s sweep alone on its own W block and σ (on any
+    device): the kernels launched; with no peers each collective is the
+    identity on the device's own block (the all-reduce adds nothing, the
+    gather writes σ' into the device's own slot).  Returns its σ."""
+
+    def step(req):
+        if isinstance(req, Launch):
+            return _launch(req)
+        if req.op == "all-gather":
+            _slot(req.dest, req.block, req.index).copy_(req.block)
+        return None
+
+    return _drive(prog.sweep(pos, w, sigma), step)
+
+
+def run_onn_composed(prog: OnnProgram, mesh, w: torch.Tensor,
+                     sigma: torch.Tensor) -> Dict[tuple, torch.Tensor]:
+    """Every position's program in lock step on ``mesh`` (its shape
+    ``prog``'s), each on its device's arguments cut from the global W (N, N)
+    int8 and σ (batch, N) int8: the kernels launched, each collective done
+    for real (a sum over the group; copies into every member's slot).
+    Returns each position's σ."""
+    if tuple(mesh.devices.shape) != prog.sizes:
+        raise ValueError(f"mesh {mesh.shape} is not the program's {prog.sizes}")
+    gens, replies, outs = {}, {}, {}
+    for pos in np.ndindex(*prog.sizes):
+        dev = mesh.devices[pos]
+        gens[pos] = prog.sweep(pos, *(t.to(dev) for t in prog.arguments(pos, w, sigma)))
+        replies[pos] = None
+    while gens:
+        groups: Dict[tuple, List[Collective]] = {}
+        for pos in list(gens):
+            try:
+                req = gens[pos].send(replies[pos])
+            except StopIteration as stop:
+                outs[pos] = stop.value
+                del gens[pos]
+                continue
+            replies[pos] = _launch(req) if isinstance(req, Launch) else None
+            if isinstance(req, Collective):
+                rest = tuple(i for a, i in zip(prog.axes, pos) if a not in req.axes)
+                groups.setdefault((req.op, req.axes, rest), []).append(req)
+        for (op, axes, _), reqs in groups.items():
+            if len(reqs) != prog.group_size(axes):
+                raise RuntimeError(f"{op} over {axes}: {len(reqs)} of "
+                                   f"{prog.group_size(axes)} members in step")
+            if op == "all-reduce":
+                total = reqs[0].block.clone()
+                for q in reqs[1:]:
+                    total += q.block.to(total.device)
+                for q in reqs:
+                    q.block.copy_(total)
+            else:
+                for q in reqs:
+                    for peer in reqs:
+                        _slot(q.dest, peer.block, peer.index).copy_(peer.block)
+    return outs
+
+
+def run_onn_cell(
+    cell_name: str,
+    multi_pod: bool,
+    *,
+    tag: str = "",
+    outdir: str = ARTIFACT_DIR,
+    verbose: bool = True,
+    variant: str = "baseline2d",
+) -> Dict[str, Any]:
+    """One ONN dry-run cell (module docstring): device 0's program of
+    ``variant`` on the production mesh counted on the meta device, the
+    roofline at the card's int8 peak; written to ``outdir`` and returned."""
+    t_cell = time.perf_counter()
+    prog = onn_cell_program(cell_name, multi_pod, variant)
+    got = count_onn_sweep(prog)
+    mem = {
+        "argument_size_in_bytes": got["argument_bytes"],
+        "output_size_in_bytes": got["output_bytes"],
+        "temp_size_in_bytes": got["peak"],
+        "alias_size_in_bytes": 0,
+    }
+    return _analyze(
+        make_production_mesh(multi_pod=multi_pod),
+        name=f"onn:{cell_name}",
+        kind="onn-sweep",
+        tokens=prog.batch * prog.cycles,
+        cfg=None,
+        mesh_name="multi" if multi_pod else "single",
+        mem=mem,
+        flops=got["flops"],
+        byts=got["bytes"],
+        coll=got["collectives"],
+        tag=tag or (variant if variant != "baseline2d" else ""),
+        outdir=outdir,
+        verbose=verbose,
+        extra={"n_oscillators": prog.n, "batch": prog.batch, "cycles": prog.cycles,
+               "variant": variant, "layout": prog.layout, "w_spec": prog.w_spec,
+               "w_block": prog.argument_shapes()[0][0], "dtypes_counted": got["dtypes"]},
+        t_start=t_cell,
+        peak_flops=hlo.H100_INT8_OPS_PER_S,
+    )
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -666,7 +1071,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", type=str, default=None)
     ap.add_argument("--shape", type=str, default=None)
-    ap.add_argument("--all", action="store_true", help="run every LM cell")
+    ap.add_argument("--onn", type=str, default=None, choices=list(ONN_CELLS))
+    ap.add_argument("--all", action="store_true", help="run every LM cell, then the ONN cells")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--microbatches", type=int, default=0, help="0 = auto")
     ap.add_argument("--no-remat", action="store_true")
@@ -688,17 +1094,23 @@ def main(argv=None) -> None:
         else:
             overrides[k] = v
 
-    if args.all:
-        jobs = configs.all_cells()
+    if args.onn:
+        jobs = [("onn", args.onn, None)]
+    elif args.all:
+        jobs = [("lm", a, s) for a, s in configs.all_cells()]
+        jobs += [("onn", c, None) for c in ONN_CELLS]
     else:
         if not (args.arch and args.shape):
-            ap.error("--arch/--shape or --all required")
-        jobs = [(args.arch, args.shape)]
+            ap.error("--arch/--shape, --onn or --all required")
+        jobs = [("lm", args.arch, args.shape)]
 
     failures = []
-    for a, s in jobs:
+    for kind, a, s in jobs:
         for mp in meshes:
             try:
+                if kind == "onn":
+                    run_onn_cell(a, mp, tag=args.tag, outdir=args.out)
+                    continue
                 run_cell(
                     a, s, mp,
                     microbatches=args.microbatches,

@@ -421,6 +421,7 @@ def test_run_cell_writes_one_json(tmp_path, monkeypatch):
 def test_main_parses_the_reference_flags(monkeypatch):
     seen = []
     monkeypatch.setattr(dryrun, "run_cell", lambda *a, **k: seen.append((a, k)))
+    monkeypatch.setattr(dryrun, "run_onn_cell", lambda *a, **k: None)  # --all's ONN cells
     dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh", "both",
                  "--microbatches", "4", "--no-remat", "--opt", "adafactor",
                  "--rule", "heads=", "--rule", "batch=pod,data", "--tag", "v2"])

@@ -89,8 +89,8 @@ def test_plan_properties_and_specs(batch, model, layout, sharded):
     from repro.distributed import sharding as ref_sharding
 
     ref_spec = tuple(ref_sharding.onn_weight_spec(plan=want))
-    assert sharding.onn_weight_spec(plan) == ref_spec
-    specs = sharding.onn_param_shardings(plan)
+    assert sharding.onn_weight_spec(plan=plan) == ref_spec
+    specs = sharding.onn_param_shardings(plan=plan)
     assert specs.weights == ref_spec and specs.bias == (None,)
     assert sharding.at_rest_spec(48, plan) == (("model", None) if sharded else (None, None))
     if sharded:
