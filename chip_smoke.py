@@ -170,8 +170,9 @@ and prints one JSON line per phase:
    ``--once``: equal tokens, each request equal to a direct
    ``make_generate`` of the same 4-lane bucket; prefill and decode seconds,
    tokens/s and wall seconds of the warm serve (the ``--once`` one, the
-   second at its batch), parameter bytes, peak memory, the idle share (a
-   traced daemon serve's busy time over the warm wall), and the decode
+   second at its batch), parameter bytes, peak memory, the idle share (the
+   device time of the bucket's ``make_generate``, the one call a served
+   slab makes, traced on the device alone, over the warm wall), and the decode
    step's ms against its bound ((weight bytes +
    KV bytes read) at 3.35 TB/s).  ``serve_batch128``: the same model with
    128 requests of 512-token prompts and 64 new tokens (the widest batch
@@ -269,19 +270,36 @@ and prints one JSON line per phase:
    card, its collectives the identity: argument bytes equal the live
    tensors', the predicted peak within ``DRYRUN_PEAK_TOLERANCE`` of the
    sweep's ``max_memory_allocated``, the roofline terms beside the sweep's
-   time, the kernel's ms at the share's shape beside ``torch._int_mm`` and
-   its bound, the first cycle equal to the plain version on the CPU.
+   time, the kernel's and the wrapper's ms at the share's shape beside
+   ``torch._int_mm`` (on operands zero-padded to multiples of 8) and its
+   bound, the first cycle equal to the plain version on the CPU.
    ``composed``: each variant's programs on a (2, 4) mesh of the card
    repeated (N = 4096, 256 lanes), the collectives done for real, equal
    after 32 cycles to the unsharded sweep of kernel 2.
+
+19. ``analysis``: the tooling (``repro_torch.analysis``).  ``vmem_static``:
+   every plan of ``autotune.iter_buckets``' grid within the card's shared
+   memory, residency, grid and cluster limits, and each kernel's tightest
+   plan; ``vmem_compiled``: each compiled instantiation those plans reach
+   (registers, local bytes, static shared memory, most threads, occupancy)
+   against what its planner assumes; a miss of a constant exits non-zero.
+   ``tracegate``: ``python -m repro_torch.analysis.tracegate`` in a fresh
+   process (started beside phase 15's enc-dec CPU check, while the card
+   idles, and waited for before the VLM's serve: ``tracegate_joined``, an
+   ``analysis`` line printed there, gives their seconds and the wait)
+   passes against the committed ``TRACE_BUDGET_TORCH.json``, warm and
+   steady, and the same with ``--inject-retrace`` fails on
+   ``retrieve.steady``; each workload's deltas, the scheduler's syncs a
+   slab tick, and which calls torch counts as waits on the card.
 
 Launch counts are set to 0 before each main-path phase (4-18) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
 phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
 phase 15 as ``launches_lm``, of phase 16 as ``launches_train``, of phase
-17 as ``launches_dryrun`` (the last two must be 0) and of phase 18 as
-``launches_dryrun_onn`` (above 0 for kernels 1 and 2 alone).
+17 as ``launches_dryrun`` (the last two must be 0), of phase 18 as
+``launches_dryrun_onn`` (above 0 for kernels 1 and 2 alone) and of phase
+19's gate run (both passes) as ``launches_tracegate`` (above 0 for kernel 5).
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -425,6 +443,8 @@ DRYRUN_ONN_COMPOSED = (4096, 256, (2, 4))
 LM_DENSE = ("qwen2-1.5b", "codeqwen1.5-7b", "h2o-danube-1.8b", "qwen3-4b")
 LM_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "llama-3.2-vision-11b",
                "whisper-large-v3", "zamba2-2.7b", "xlstm-1.3b")
+#: Phase 19: how long the tracegate processes may take after their start.
+TRACEGATE_TIMEOUT_S = 600
 #: Kernel 5's stream regime is held and timed at (B, N) = MULTI_STREAM.
 MULTI_STREAM = (256, 2048)
 #: Kernel 8's second shape: a GEMV that streams a 4096 x 4096 int8 matrix.
@@ -847,7 +867,7 @@ def daemon_lines(dev, seed, cfg_mem, w_np, w2, xi, probes, checked, spans, mc, m
         except AssertionError as exc:
             fail(str(exc))
 
-    eng = serving.ContinuousEngine(torch.Generator().manual_seed(0), device=dev,
+    eng = serving.ContinuousEngine(torch.Generator().manual_seed(seed), device=dev,
                                    slab_lanes=DAEMON_SLAB, tenant_weights=dict(DAEMON_TENANTS))
     eng.install("mem", "retrieval",
                 solver=api.RetrievalSolver(cfg_mem, api.make_params(cfg_mem, w_np, device=dev)))
@@ -1657,7 +1677,7 @@ def sharded_lines(dev, seed, w_np, xi, probes, checked, rtl_rec, graphs, mc_res,
     # daemon: phase 12's retrieval stream and Max-Cut requests under 1x2
     plan = ShardPlan(1, 2)
     mesh = mesh_of(plan)
-    eng = serving.ContinuousEngine(torch.Generator().manual_seed(0), device=dev,
+    eng = serving.ContinuousEngine(torch.Generator().manual_seed(seed), device=dev,
                                    slab_lanes=DAEMON_SLAB, tenant_weights=dict(DAEMON_TENANTS))
     eng.install("mem", "retrieval", solver=api.RetrievalSolver(
         cfg_k, sharding.shard_onn_params(api.make_params(cfg_k, w_np, device=dev), plan, mesh)))
@@ -1829,14 +1849,17 @@ def xlstm_blocks_held(card, cpu, prompt, token, dev) -> dict:
             **{f"{k}_max_err_over_tol": v for k, v in worst.items()}}
 
 
-def lm_lines(dev, seed, drive) -> dict:
+def lm_lines(dev, seed, drive, tracegate_dir, tracegate_procs) -> dict:
     """Phase 15: the LM serving path on ``dev``, one JSON line per part:
     the dense family (qwen2-1.5b), the enc-dec (whisper-large-v3), the VLM
     (llama-3.2-vision-11b), the MoE (granite-moe-3b-a800m), Zamba
     (zamba2-2.7b) and xLSTM (xlstm-1.3b) at full width, then the reduced
     archs of the six families card against CPU; returns the launches of
     these lines by kernel (none is expected: the path is plain PyTorch).
-    ``drive``: main's launch-counting runner."""
+    ``drive``: main's launch-counting runner.  As the enc-dec's CPU check
+    starts (the card idles through it), phase 19's tracegate processes
+    start, writing into ``tracegate_dir``, and join ``tracegate_procs``;
+    they are waited for before the VLM's serve."""
     import copy
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1895,13 +1918,16 @@ def lm_lines(dev, seed, drive) -> dict:
             lm, prompts, new, torch.Generator().manual_seed(seed), once=True, **extras))
         timing = dict(lm.timings[-1])
         require(torch.equal(tok_d, tok_o), f"lm {part}: daemon and --once tokens differ")
+        # make_generate of the bucket, the one call a served slab makes, traced
+        # on the device alone: the serve's device time, and its tokens the
+        # served ones.
         batch_in = {"tokens": prompts, **{k: v for k, v in extras.items() if v is not None}}
-        direct, _ = make_generate(lm.model)(lm.params, batch_in, new)
-        require(torch.equal(tok_d, direct),
-                f"lm {part}: a served request differs from make_generate of its bucket")
-        del direct
+        traced = []
         busy_ms, per_name, _ = device_busy(
-            lambda: launch_serve.serve_prompts(lm, prompts, new, gen, **extras))
+            lambda: traced.append(make_generate(lm.model)(lm.params, batch_in, new)[0]))
+        require(torch.equal(tok_d, traced[-1]),
+                f"lm {part}: a served request differs from make_generate of its bucket")
+        del traced
         step_ms = timing["decode_s"] * 1e3 / max(new - 1, 1)
         bound_ms, bound_by = lm_decode_bound(lm.model, batch, prompt_len, new)
         line = {
@@ -2080,6 +2106,8 @@ def lm_lines(dev, seed, drive) -> dict:
         lm.params, {"tokens": prompts_1500[:1], "frames": frames_1500[:1]}, new))
     require(n_first == 0, "lm cpu_check_encdec: a ported kernel launched")
     drawing = draw_next()
+    t_tracegate = time.perf_counter()
+    tracegate_procs.extend(start_tracegate(tracegate_dir))
     cpu_check("cpu_check_encdec", LM_ENCDEC_ARCH, lm, [
         ("serve_encdec", prompts, served, frames),
         ("serve_encdec_1500_first", prompts_1500[:1], first_1500, frames_1500[:1])], t_part)
@@ -2091,6 +2119,14 @@ def lm_lines(dev, seed, drive) -> dict:
     cfg = lm.cfg
     prompts = launch_serve.draw_prompts(cfg.vocab, batch, prompt_len, gen)
     vision = launch_serve.draw_vision(cfg.n_vision_tokens, cfg.vision_dim, batch, gen)
+    # The tracegate processes end before the next serve, so that it has the
+    # card to itself.
+    t_wait = time.perf_counter()
+    for proc in tracegate_procs:
+        proc.wait(timeout=TRACEGATE_TIMEOUT_S)
+    emit({"phase": "analysis", "part": "tracegate_joined",
+          "tracegate_s": time.perf_counter() - t_tracegate,
+          "waited_s": time.perf_counter() - t_wait})
     served = serve_part(lm, gen, "serve_vlm", batch, prompt_len, new, prompts, vision, build_s)
 
     t_part = time.perf_counter()
@@ -2423,8 +2459,10 @@ def train_lines(dev, seed, drive) -> dict:
     stream.close()
     # warm: the launcher's run made the same step at the same shapes
     busy_ms, per_name, traced_ms = device_busy(lambda: step_fn(state, batch))
-    grads = PM.map_tree(lambda p: (torch.randn(p.shape, device=dev) * 1e-3).to(p.dtype),
-                        state.params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = PM.map_tree(
+        lambda p: (torch.randn(p.shape, generator=gen, device=dev) * 1e-3).to(p.dtype),
+        state.params)
     update_ms = cuda_ms(lambda: opt.update(grads, state.opt, state.params), iters=3, warmup=1)
     # the update's least bytes: g, p, m, v read once, p, m, v written once
     update_bytes = sum(t.numel() * (2 * t.element_size() + 16) for _, t in PM.leaves(grads))
@@ -2538,14 +2576,14 @@ def train_lines(dev, seed, drive) -> dict:
         # The checkpoint the card wrote, restored on the CPU and on the card.
         model_r = get_model(lm_configs.get_reduced(LM_ARCH))
         opt_r = optim.adamw(optim.constant(1e-3))
-        target = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(0), "cpu")
+        target = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(seed), "cpu")
         step_w = ckpt_lib.latest_step(dirs[1])
         on_cpu = ckpt_lib.restore(dirs[1], step_w, target, device="cpu")
         on_card = ckpt_lib.restore(dirs[1], step_w, target, device=dev)
         bits = all(torch.equal(a, b.cpu()) for (_, a), (_, b) in zip(
             PM.leaves(on_cpu._asdict()), PM.leaves(on_card._asdict())))
         # And a state held on the card, saved and restored on the CPU.
-        state = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(1), dev)
+        state = launch_train.build_state(model_r, opt_r, torch.Generator().manual_seed(seed + 1), dev)
         stream = TokenStream(model_r.cfg.vocab, 4, 64, seed=seed)
         state, _ = steps.make_train_step(model_r, opt_r)(state, stream.next())
         stream.close()
@@ -2821,12 +2859,17 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
         ms_of = "kernel" if k_ms is not None else "wrapper"
         if k_ms is None:  # the profiler recorded too few launches
             k_ms = cuda_ms(fn, iters=10)
+        wrapper_ms = cuda_ms(fn, iters=10)
         p_ms = cuda_ms(plain_fn, iters=2, warmup=1)
         lib_ms = None
-        if b > 16 and k % 8 == 0 and m % 8 == 0:
-            lib_ms = cuda_ms(lambda: torch._int_mm(x, w.t()), iters=10)
+        if b > 16:  # torch._int_mm on operands zero-padded to multiples of 8 (506 → 512)
+            kp, mp = -(-k // 8) * 8, -(-m // 8) * 8
+            x_p = torch.nn.functional.pad(x, (0, kp - k))
+            w_p = torch.nn.functional.pad(w, (0, kp - k, 0, mp - m))
+            lib_ms = cuda_ms(lambda: torch._int_mm(x_p, w_p.t()), iters=10)
+            del x_p, w_p
         shape = {"kernel": kernel, "B": b, "M": m, "K": k, "ms": k_ms, "ms_of": ms_of,
-                 "plain_ms": p_ms,
+                 "wrapper_ms": wrapper_ms, "plain_ms": p_ms,
                  "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
         shapes.append({"cell": cell, "variant": variant, **shape})
         r = c["roofline"]
@@ -2884,6 +2927,94 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
     emit({"phase": "dryrun_onn", "part": "phase", "phase_s": time.perf_counter() - t_phase,
           "launches": own, "kernel_at_shapes": shapes})
     return own, shapes
+
+
+def start_tracegate(out_dir: str) -> list:
+    """Start phase 19's two runs of ``python -m repro_torch.analysis.tracegate``
+    (the gate, then with ``--inject-retrace``), each in a fresh process (the
+    warm counts are a fresh process's) writing ``--out`` and its output
+    under ``out_dir``; niced, so that they take the host's idle time."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = []
+    for label, extra in (("gate", []), ("inject", ["--inject-retrace"])):
+        with open(os.path.join(out_dir, f"{label}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.analysis.tracegate", "--out",
+                 os.path.join(out_dir, f"{label}.json"), *extra],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                preexec_fn=lambda: os.nice(10)))
+    return procs
+
+
+def analysis_lines(dev, procs, out_dir) -> dict:
+    """Phase 19: the tooling (``repro_torch.analysis``).  ``vmem_static``:
+    every launch plan of the bucket grid held to the card's limits (none
+    over), and each kernel's tightest plan.  ``vmem_compiled``: one line per
+    compiled instantiation the plans reach (registers, local bytes, static
+    shared memory against the constant its planner assumes, most threads,
+    the occupancy against the assumed residency); a miss of a constant
+    fails the script, a miss of a residency is reported.  ``tracegate``: the
+    gate's and the injected run's processes (:func:`start_tracegate`, started
+    beside phase 15's CPU checks) read back: the gate exits 0 against the
+    committed ``TRACE_BUDGET_TORCH.json``, the injected run exits 1 on
+    ``retrieve.steady``; each workload's warm and steady deltas, the
+    scheduler's syncs a slab tick, and which calls torch counts as waits.
+    Returns the gate run's launches by kernel, over both passes."""
+    from repro_torch.analysis import tracegate, vmem
+
+    t_phase = time.perf_counter()
+    reports = vmem.check_all()
+    over = [r.render() for r in reports if not r.ok]
+    require(not over, f"analysis vmem: plans over the card's limits: {over[:5]}")
+    emit({"phase": "analysis", "part": "vmem_static", "buckets": len(reports),
+          "plans": sum(len(r.plans) for r in reports), "over": 0, "tightest": [
+              {"kind": r.kind, "n": r.n, "batch": r.batch, "kernel": p.kernel, "plan": p.plan,
+               "smem": p.smem, "budget": p.budget, "percent": 100.0 * p.ratio,
+               "blocks_per_sm": p.blocks_per_sm, "sm_bytes": p.sm_bytes,
+               "max_registers": p.max_registers} for r, p in vmem.tightest(reports)]})
+    compiled = vmem.check_compiled(dev)
+    for c in compiled:
+        emit({"phase": "analysis", "part": "vmem_compiled", **c.as_dict()})
+    misses = [c.kernel for c in compiled if not c.constants_ok]
+    require(not misses, f"analysis vmem: compiled kernels miss a planner's constant: {misses}")
+    in_process_s = time.perf_counter() - t_phase
+
+    runs = {}
+    for label, proc in zip(("gate", "inject"), procs):
+        proc.wait(timeout=TRACEGATE_TIMEOUT_S)
+        with open(os.path.join(out_dir, f"{label}.log")) as f:
+            log = f.read()
+        path = os.path.join(out_dir, f"{label}.json")
+        require(os.path.exists(path), f"analysis tracegate {label}: no --out, rc "
+                f"{proc.returncode}:\n{log[-3000:]}")
+        with open(path) as f:
+            runs[label] = (proc.returncode, json.load(f), log)
+    rc, gate, log = runs["gate"]
+    require(rc == 0 and gate["passed"], f"analysis tracegate: the gate failed (rc {rc}): "
+            f"{gate['diffs']}\n{log[-3000:]}")
+    rc_i, inject, _ = runs["inject"]
+    require(rc_i == 1 and inject["diffs"]
+            and all(d.startswith("retrieve.steady") for d in inject["diffs"]),
+            f"analysis tracegate: the injected run did not fail on retrieve.steady "
+            f"(rc {rc_i}): {inject['diffs']}")
+    launches = {}
+    for name in tracegate.WORKLOAD_ORDER:
+        entry = gate["observed"][name]
+        for label in ("warm", "steady"):
+            for key, v in entry[label].items():
+                if key.startswith("ops."):
+                    launches[key[4:]] = launches.get(key[4:], 0) + v
+        line = {"phase": "analysis", "part": "tracegate", "workload": name,
+                "warm": entry["warm"], "steady": entry["steady"]}
+        if "report" in entry:
+            line.update(entry["report"])
+        emit(line)
+    emit({"phase": "analysis", "part": "tracegate_gate", "gate_rc": rc, "inject_rc": rc_i,
+          "inject_diffs": inject["diffs"], "sync_probe": gate["sync_probe"],
+          "launches": launches, "in_process_s": in_process_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> None:
@@ -3785,26 +3916,37 @@ def main() -> None:
                                      rtl["recurrent"], graphs, maxcut["kernel"], mc_kw, spans_k,
                                      mc_in, drive)
 
-    # 15. the LM serving path: dense, MoE and VLM at full width -------------------------
-    lm_launches = lm_lines(dev, args.seed, drive)
-
-    # 16. LM training: qwen2-1.5b at full width, card against CPU, resume -------------
-    # 17. the LM dry run on the meta device, beside phase 16's step: its CLI cells
-    # count on the host's idle cores while phase 16 trains on the card
-    dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
-    dryrun_procs = start_dryrun_cli(dryrun_dir)
+    # 15. the LM serving path: dense, MoE and VLM at full width; phase 19's
+    # tracegate processes start beside its enc-dec CPU check, while the card idles
+    tracegate_dir = tempfile.mkdtemp(prefix="tracegate_")
+    tracegate_procs = []
     try:
-        train_launches, full_step = train_lines(dev, args.seed, drive)
-        dryrun_launches = dryrun_lines(dev, drive, full_step, dryrun_procs, dryrun_dir)
-    finally:
-        stop_processes(dryrun_procs)
-        shutil.rmtree(dryrun_dir, ignore_errors=True)
-    del full_step
+        lm_launches = lm_lines(dev, args.seed, drive, tracegate_dir, tracegate_procs)
 
-    # 18. the ONN dry run: counts, one device's share on the card, composed sweeps -----
-    onn_launches, onn_shapes = dryrun_onn_lines(dev, args.seed, drive)
-    for name in ("coupling_sum", "onn_step"):
-        rows[name]["dryrun_onn_shapes"] = [s for s in onn_shapes if s["kernel"] == name]
+        # 16. LM training: qwen2-1.5b at full width, card against CPU, resume ---------
+        # 17. the LM dry run on the meta device, beside phase 16's step: its CLI cells
+        # count on the host's idle cores while phase 16 trains on the card
+        dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
+        dryrun_procs = start_dryrun_cli(dryrun_dir)
+        try:
+            train_launches, full_step = train_lines(dev, args.seed, drive)
+            dryrun_launches = dryrun_lines(dev, drive, full_step, dryrun_procs, dryrun_dir)
+        finally:
+            stop_processes(dryrun_procs)
+            shutil.rmtree(dryrun_dir, ignore_errors=True)
+        del full_step
+
+        # 18. the ONN dry run: counts, one device's share on the card, composed sweeps -
+        onn_launches, onn_shapes = dryrun_onn_lines(dev, args.seed, drive)
+        for name in ("coupling_sum", "onn_step"):
+            rows[name]["dryrun_onn_shapes"] = [s for s in onn_shapes if s["kernel"] == name]
+
+        # 19. the tooling: the launch plans' budget, the compiled kernels, the gate ----
+        require(len(tracegate_procs) == 2, "analysis: the tracegate processes never started")
+        tracegate_launches = analysis_lines(dev, tracegate_procs, tracegate_dir)
+    finally:
+        stop_processes(tracegate_procs)
+        shutil.rmtree(tracegate_dir, ignore_errors=True)
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -3815,11 +3957,14 @@ def main() -> None:
         row["launches_train"] = train_launches.get(name, 0)
         row["launches_dryrun"] = dryrun_launches.get(name, 0)
         row["launches_dryrun_onn"] = onn_launches.get(name, 0)
+        row["launches_tracegate"] = tracegate_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
         require(row["launches_train"] == 0, f"{name} launched on the LM training path")
         require(row["launches_dryrun"] == 0, f"{name} launched in the dry run")
         require((row["launches_dryrun_onn"] > 0) == (name in ("coupling_sum", "onn_step")),
                 f"{name}: {row['launches_dryrun_onn']} launches in the ONN dry run")
+    require(rows["phase_step_multi"]["launches_tracegate"] > 0,
+            "phase_step_multi was never launched by the tracegate's retrieve workload")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

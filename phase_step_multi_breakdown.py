@@ -103,7 +103,9 @@ def build_variants(build) -> tuple:
         cu, so = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, f"{name}.so")
         with open(cu, "w") as f:
             f.write(text)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so, cu]
+        # -I: the copy includes the headers beside the committed source.
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-Xptxas", "-v",
+               "-o", so, cu]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
     libs, reports = {}, {}

@@ -115,7 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 #: Dynamic shared memory one block may use on an H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
@@ -125,6 +125,8 @@ MULTI_STATIC_SMEM = 1024
 NUM_SMS = 132
 #: Lanes per block of kernel 5's stream regime: instantiated for 1, 2, 4 and 8.
 MULTI_MAX_LANES = 8
+#: Threads of a stream-regime block (``ST_THREADS``).
+MULTI_STREAM_THREADS = 256
 #: Contraction alignment of W's rows as the wrapper pads them (16-byte loads).
 K_ALIGN = 16
 #: Kernel 5's cluster regime: the cluster sizes and lanes per cluster it
@@ -211,6 +213,11 @@ class MultiPlan:
     smem_bytes: int
 
     @property
+    def threads(self) -> int:
+        """Threads a CTA: a warp per 16 rows in the cluster regime."""
+        return 2 * self.rows if self.regime == "cluster" else MULTI_STREAM_THREADS
+
+    @property
     def args(self) -> Tuple[int, int, int, int, int]:
         """The kernel's last arguments: regime (0 cluster, 1 stream), cluster,
         lanes, rows, shared memory."""
@@ -252,12 +259,16 @@ def multi_plan(b: int, n: int) -> MultiPlan:
             if best is None or key < best[0]:
                 best = (key, MultiPlan(b, n, "cluster", c, lanes, rows, groups * c,
                                        multi_cluster_smem_bytes(n, c, lanes)))
+    if best is None:
+        raise ValueError(f"multi-cycle kernel: no cluster of {MULTI_CLUSTERS} holds N={n}")
     return best[1]
 
 
 #: Kernel 8: the largest batch of the GEMV regime, and its template sizes.
 QMV_GEMV_MAX_B = 16
 QMV_GEMV_LANES = (1, 2, 4, 8, 16)
+#: Threads a block of either regime (``THREADS``).
+QMV_THREADS = 256
 #: GEMV: output rows per block, and bytes of a W row per step of a row group.
 QMV_GEMV_ROWS = 128
 QMV_GEMV_KSTEP = 128
@@ -312,6 +323,10 @@ class QmvPlan:
     def blocks(self) -> int:
         gx, gy, gz = self.grid
         return gx * gy * gz
+
+    @property
+    def threads(self) -> int:
+        return QMV_THREADS
 
     @property
     def smem_bytes(self) -> int:
@@ -473,6 +488,10 @@ class CouplingPlan:
         return self.tile.stages
 
     @property
+    def threads(self) -> int:
+        return self.tile.threads
+
+    @property
     def group_width(self) -> int:
         return gemm_group_width(self.parallel, self.n)
 
@@ -500,6 +519,34 @@ def coupling_plan(inst: int, b: int, m: int, n: int, parallel: int | None = None
             tile = t
             break
     return CouplingPlan(inst, b, m, n, p, tile, gemm_walk_span(p, n))
+
+
+#: The bucket grid, under the names of ``repro.kernels.autotune``: the kinds
+#: of launch a bucket is planned for (``step``: kernels 1-4 and the instance
+#: axis; ``hybrid``: kernels 6 and 7; ``matvec``: kernel 8; ``multi``: kernel
+#: 5), the reference's N and batch buckets, and the sizes the port launches
+#: or plans to its limits: the cluster regime's ceiling, the ONN dry run's
+#: share of ``onn_131072`` (8,192), the stream regime's ceiling, and the main
+#: path's batches.  ``analysis/vmem.py`` sweeps it through
+#: :func:`iter_buckets`.
+KINDS = ("step", "hybrid", "matvec", "multi")
+N_BUCKETS = tuple(sorted((16, 32, 48, 64, 128, 256, 506, 512, 1024, 2048, 4096,
+                          MULTI_CLUSTER_MAX_N, 8192, MULTI_KERNEL_MAX_N)))
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def iter_buckets(kinds: Tuple[str, ...] = KINDS) -> Iterator[Tuple[str, int, int]]:
+    """Every ``(kind, n, batch)`` bucket of the grid; ``multi`` buckets past
+    :data:`MULTI_KERNEL_MAX_N` are skipped (kernel 5 refuses them, and the
+    dynamics take the per-cycle route)."""
+    for kind in kinds:
+        if kind not in KINDS:
+            raise ValueError(f"unknown autotune kind {kind!r}; expected one of {KINDS}")
+        for n in N_BUCKETS:
+            if kind == "multi" and n > MULTI_KERNEL_MAX_N:
+                continue
+            for batch in BATCH_BUCKETS:
+                yield kind, n, batch
 
 
 def cache_info() -> Dict[str, int]:

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain C
 interface, which ``ctypes`` loads; there is no PyTorch header in the build,
 so it takes seconds.  Libraries go into ``_build/`` beside this file (listed
-in ``.gitignore``), keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads as is.  :func:`build_all` starts
+in ``.gitignore``), keyed by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one loads as is.  :func:`build_all` starts
 one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -36,6 +37,8 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "onn_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "onn_phase_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # mode, then the plan's tile, bm, bn, span; out: six ints (ops.ATTRIBUTES).
+        "onn_coupling_gemm_attributes": [_I, _I, _I, _I, _I, _P],
     },
     "phase_step_multi": {
         # ... (operands, extents, packed), then the launch plan's regime,
@@ -46,9 +49,14 @@ SOURCES: Dict[str, Dict[str, List]] = {
             _I, _I, _I, _I, _I, _P,
         ],
         "onn_phase_step_multi_occupancy": [_I, _I, _I, _I, _I, _P],
+        # N, KP, packed, then the plan's regime, cluster, lanes, rows, shared
+        # memory; out: six ints (ops.ATTRIBUTES).
+        "onn_phase_step_multi_attributes": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "quantized_matvec": {
         "onn_quantized_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # the plan's gemv lanes, k_chunk, vector; out: six ints (ops.ATTRIBUTES).
+        "onn_quantized_matvec_attributes": [_I, _I, _I, _P],
     },
 }
 
@@ -71,6 +79,8 @@ def nvcc_path() -> str:
 def _lib_path(stem: str) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 

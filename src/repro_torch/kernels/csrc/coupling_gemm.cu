@@ -85,6 +85,8 @@
 
 #include <atomic>
 
+#include "attributes.cuh"
+
 namespace {
 
 constexpr int BK = 128;         // contraction bytes per K-step: four k32 steps of the mma
@@ -486,6 +488,32 @@ coupling_gemm_kernel(const int8_t* __restrict__ sigma,    // (I, B, N), all but 
   }
 }
 
+// One block's dynamic shared memory on tile T: the cp.async ring and the two
+// fragment buffers of its lane and row tiles.
+template <class T>
+constexpr int tile_smem() {
+  return (T::STAGES * RAW_LD + 2 * FRAG_LD) * (T::BM + T::BN) * 4;
+}
+
+// Above 48 KB a block's dynamic shared memory needs an opt-in, once per
+// device (a bit per ordinal, set only when the opt-in succeeded).
+template <int MODE, class T>
+cudaError_t opt_in_tile() {
+  if (tile_smem<T>() <= 48 * 1024) return cudaSuccess;
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(opted.load() & bit)) {
+    err = cudaFuncSetAttribute(coupling_gemm_kernel<MODE, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tile_smem<T>());
+    if (err != cudaSuccess) return err;
+    opted.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
 template <int MODE, class T>
 int launch_tile(const void* sigma, const void* packed, const void* w, const void* bias,
                 const void* phase, void* out, int I, int B, int M, int N, int span, int half,
@@ -493,23 +521,9 @@ int launch_tile(const void* sigma, const void* packed, const void* w, const void
   const dim3 grid((M + T::BN - 1) / T::BN, (B + T::BM - 1) / T::BM, I);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   using OutT = typename OutOf<MODE>::type;
-  const int smem = (T::STAGES * RAW_LD + 2 * FRAG_LD) * (T::BM + T::BN) * 4;
-  auto kernel = coupling_gemm_kernel<MODE, T>;
-  // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
-  // device (a bit per ordinal, set only when the opt-in succeeded).
-  if (smem > 48 * 1024) {
-    static std::atomic<unsigned long long> opted{0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-    if (!(opted.load() & bit)) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      opted.fetch_or(bit);
-    }
-  }
-  kernel<<<grid, T::THREADS, smem, (cudaStream_t)stream>>>(
+  const cudaError_t err = opt_in_tile<MODE, T>();
+  if (err != cudaSuccess) return (int)err;
+  coupling_gemm_kernel<MODE, T><<<grid, T::THREADS, tile_smem<T>(), (cudaStream_t)stream>>>(
       (const int8_t*)sigma, (const uint8_t*)packed, (const int8_t*)w, (const int32_t*)bias,
       (const int32_t*)phase, (OutT*)out, I, B, M, N, span, half);
   return (int)cudaGetLastError();
@@ -535,6 +549,19 @@ int launch(const void* sigma, const void* packed, const void* w, const void* bia
                                              half, stream)
                    : launch_tile<MODE, Split>(sigma, packed, w, bias, phase, out, I, B, M, N,
                                               span, half, stream);
+}
+
+// The instantiation that launch_tile runs, as compiled (kernel_attributes).
+template <int MODE, class T>
+int attributes_tile(int* out) {
+  const cudaError_t err = opt_in_tile<MODE, T>();
+  if (err != cudaSuccess) return (int)err;
+  return kernel_attributes(coupling_gemm_kernel<MODE, T>, T::THREADS, tile_smem<T>(), out);
+}
+
+template <int MODE>
+int attributes(int tile, int* out) {
+  return tile == 0 ? attributes_tile<MODE, Wide>(out) : attributes_tile<MODE, Split>(out);
 }
 
 }  // namespace
@@ -574,6 +601,21 @@ int onn_phase_step_packed(const void* packed, const void* w, const void* bias, v
                           void* stream) {
   return launch<PACKED>(nullptr, packed, w, bias, nullptr, out, 1, B, N, N, half, tile, bm, bn,
                         span, stream);
+}
+
+// The instantiation that a launch of `mode` (0 sum, 1 phase, 2 packed, 3 step)
+// on the plan (tile, bm, bn, span) runs, as compiled: out[6], as
+// kernel_attributes (attributes.cuh) fills it.  Launches nothing.
+int onn_coupling_gemm_attributes(int mode, int tile, int bm, int bn, int span, void* out) {
+  const bool known = (tile == 0 && tile_is<Wide>(bm, bn)) || (tile == 1 && tile_is<Split>(bm, bn));
+  if (!known || span <= 0 || mode < SUM || mode > STEP) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  switch (mode) {
+    case SUM: return attributes<SUM>(tile, o);
+    case PHASE: return attributes<PHASE>(tile, o);
+    case PACKED: return attributes<PACKED>(tile, o);
+    default: return attributes<STEP>(tile, o);
+  }
 }
 
 }  // extern "C"

@@ -66,6 +66,8 @@
 
 #include <climits>
 
+#include "attributes.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -598,7 +600,10 @@ decltype(&phase_step_multi_stream<PACKED, 1>) stream_kernel(int BB) {
                                        : phase_step_multi_stream<PACKED, 8>));
 }
 
-// A cluster launch of `blocks` CTAs of 2 R threads, C to a cluster.
+// A cluster CTA's threads for R rows: one warp per 16 rows.
+constexpr int cluster_threads(int R) { return 2 * R; }
+
+// A cluster launch of `blocks` CTAs of cluster_threads(R), C to a cluster.
 struct ClusterConfig {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -608,7 +613,7 @@ struct ClusterConfig {
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-    cfg.blockDim = dim3((unsigned)(2 * R), 1, 1);  // one warp per 16 rows
+    cfg.blockDim = dim3((unsigned)cluster_threads(R), 1, 1);
     cfg.dynamicSmemBytes = (size_t)smem;
     cfg.stream = (cudaStream_t)stream;
     cfg.attrs = attr;
@@ -671,6 +676,22 @@ int cluster_occupancy(int C, int L, int R, int smem, int* clusters) {
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &c.cfg);
 }
 
+// The instantiation that launch runs, as compiled (kernel_attributes; a
+// cluster launch also needs its peers resident: cluster_occupancy).
+template <bool PACKED>
+int attributes(int regime, int L, int R, int smem, int* out) {
+  if (regime == 0) {
+    const auto kernel = cluster_kernel<PACKED>(L);
+    const cudaError_t err = opt_in(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    return kernel_attributes(kernel, cluster_threads(R), smem, out);
+  }
+  const auto kernel = stream_kernel<PACKED>(L);
+  const cudaError_t err = opt_in(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return kernel_attributes(kernel, ST_THREADS, smem, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -705,6 +726,19 @@ int onn_phase_step_multi_occupancy(int packed, int cluster, int lanes, int rows,
   int* out = static_cast<int*>(clusters);
   return packed ? cluster_occupancy<true>(cluster, lanes, rows, smem, out)
                 : cluster_occupancy<false>(cluster, lanes, rows, smem, out);
+}
+
+// The instantiation that a launch of the plan (as onn_phase_step_multi takes
+// it, for N oscillators in rows of KP bytes) runs, as compiled: out[6], as
+// kernel_attributes (attributes.cuh) fills it.
+// Refuses a plan that this source does not run; launches nothing.
+int onn_phase_step_multi_attributes(int N, int KP, int packed, int regime, int cluster,
+                                    int lanes, int rows, int smem, void* out) {
+  if (N <= 0 || KP % 16 != 0 || KP < N || !plan_ok(regime, cluster, lanes, rows, smem, N, KP))
+    return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  return packed ? attributes<true>(regime, lanes, rows, smem, o)
+                : attributes<false>(regime, lanes, rows, smem, o);
 }
 
 }  // extern "C"

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attributes.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -451,12 +453,21 @@ qmv_gemm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   if (tid == 0) *counter = 0;
 }
 
+// The GEMV's dynamic shared memory: NB lanes of a K chunk of kc, 16 bytes
+// padded to 20; -1 where it and the static flag pass the 48 KB that need no
+// opt-in.
+template <int NB>
+int gemv_smem(int kc) {
+  const long long smem = (long long)NB * (kc / 16 * 20) * (long long)sizeof(float);
+  return smem > GV_SMEM_LIMIT - 16 ? -1 : (int)smem;
+}
+
 template <int NB>
 cudaError_t launch_gemv(const float* x, const int8_t* w, const float* scale, float* out,
                         float* partial, int* counters, int B, int M, int K, int kc, int splits,
                         bool vec, cudaStream_t stream) {
-  const size_t smem = (size_t)NB * (kc / 16 * 20) * sizeof(float);
-  if (smem > GV_SMEM_LIMIT - 16) return cudaErrorInvalidValue;  // + the static flag
+  const int smem = gemv_smem<NB>(kc);
+  if (smem < 0) return cudaErrorInvalidValue;
   dim3 grid((M + GV_ROWS - 1) / GV_ROWS, splits);
   if (vec)
     qmv_gemv_kernel<NB, true><<<grid, THREADS, smem, stream>>>(x, w, scale, out, partial,
@@ -465,6 +476,15 @@ cudaError_t launch_gemv(const float* x, const int8_t* w, const float* scale, flo
     qmv_gemv_kernel<NB, false><<<grid, THREADS, smem, stream>>>(x, w, scale, out, partial,
                                                                 counters, B, M, K, kc);
   return cudaSuccess;
+}
+
+// The GEMV instantiation that launch_gemv runs, as compiled (kernel_attributes).
+template <int NB>
+int gemv_attributes(int kc, bool vec, int* out) {
+  const int smem = gemv_smem<NB>(kc);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  return vec ? kernel_attributes(qmv_gemv_kernel<NB, true>, THREADS, smem, out)
+             : kernel_attributes(qmv_gemv_kernel<NB, false>, THREADS, smem, out);
 }
 
 }  // namespace
@@ -518,6 +538,30 @@ int onn_quantized_matvec(const void* x, const void* w, const void* scale, void* 
   }
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
+}
+
+// The instantiation that a launch of the plan (gemv_lanes, k_chunk, vector as
+// onn_quantized_matvec takes them) runs, as compiled: out[6], as
+// kernel_attributes (attributes.cuh) fills it.  Refuses a plan that the
+// launch refuses; launches nothing.
+int onn_quantized_matvec_attributes(int gemv_lanes, int k_chunk, int vector, void* out) {
+  int* o = static_cast<int*>(out);
+  const bool vec = vector != 0;
+  if (k_chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (gemv_lanes == 0) {
+    if (k_chunk % GM_BK != 0) return (int)cudaErrorInvalidValue;
+    return vec ? kernel_attributes(qmv_gemm_kernel<true>, THREADS, 0, o)
+               : kernel_attributes(qmv_gemm_kernel<false>, THREADS, 0, o);
+  }
+  if (k_chunk % GV_KSTEP != 0) return (int)cudaErrorInvalidValue;
+  switch (gemv_lanes) {
+    case 1: return gemv_attributes<1>(k_chunk, vec, o);
+    case 2: return gemv_attributes<2>(k_chunk, vec, o);
+    case 4: return gemv_attributes<4>(k_chunk, vec, o);
+    case 8: return gemv_attributes<8>(k_chunk, vec, o);
+    case 16: return gemv_attributes<16>(k_chunk, vec, o);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -347,6 +347,50 @@ def multi_cluster_occupancy(plan: autotune.MultiPlan, packed: bool = False) -> i
     return out.value
 
 
+#: What the sources' attribute entries read of one compiled instantiation, in
+#: the order of their out array (``csrc/attributes.cuh``):
+#: ``cudaFuncGetAttributes``' ``numRegs``, ``localSizeBytes``,
+#: ``sharedSizeBytes`` and ``maxThreadsPerBlock``, then
+#: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's threads
+#: and dynamic shared memory (after its opt-in), then those threads.
+ATTRIBUTES = ("registers", "local_bytes", "static_smem", "max_threads", "blocks_per_sm",
+              "threads")
+
+#: The coupling GEMM's modes (``csrc/coupling_gemm.cu`` ``Mode``), by the entry
+#: that launches each; kernels 6 and 7 run kernel 1's and kernel 3's.
+GEMM_MODES = {"coupling_sum": 0, "phase_step": 1, "phase_step_packed": 2, "onn_step": 3}
+
+
+def _attributes(stem: str, name: str, *args: int) -> dict:
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    rc = getattr(build.library(stem), name)(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    return dict(zip(ATTRIBUTES, out))
+
+
+def coupling_attributes(plan: autotune.CouplingPlan, mode: str) -> dict:
+    """The compiled instantiation of the coupling GEMM that a launch of
+    ``plan`` by the entry ``mode`` (a key of :data:`GEMM_MODES`) runs on the
+    current card: :data:`ATTRIBUTES`.  Counts no launch."""
+    return _attributes("coupling_gemm", "onn_coupling_gemm_attributes", GEMM_MODES[mode],
+                       *plan.args)
+
+
+def multi_attributes(plan: autotune.MultiPlan, packed: bool = False) -> dict:
+    """The compiled instantiation of kernel 5 that a launch of ``plan`` runs
+    on the current card: :data:`ATTRIBUTES`.  Counts no launch."""
+    return _attributes("phase_step_multi", "onn_phase_step_multi_attributes", plan.n,
+                       autotune.padded_k(plan.n), int(packed), *plan.args)
+
+
+def qmv_attributes(plan: autotune.QmvPlan) -> dict:
+    """The compiled instantiation of kernel 8 that a launch of ``plan`` runs
+    on the current card: :data:`ATTRIBUTES`.  Counts no launch."""
+    return _attributes("quantized_matvec", "onn_quantized_matvec_attributes", plan.lanes,
+                       plan.k_chunk, int(plan.vector))
+
+
 # ---------------------------------------------------------------------------
 # Kernels 6 and 7: the hybrid serialized-MAC coupling sum, and its phase step
 # ---------------------------------------------------------------------------

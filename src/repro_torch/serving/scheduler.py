@@ -9,9 +9,14 @@ advances each slab by one settle-chunk, harvests lanes that froze (early
 exit), and installs queued requests of the same bucket signature into the
 freed slots at the chunk boundary.  Per-lane clocks in the core
 (:class:`repro_torch.core.dynamics.BatchState`) make a mid-flight join
-bit-exact with solving the request in isolation.  Each tick waits on the
-card once per live slab, when the harvest reads its done mask; nothing
-waits per request.
+bit-exact with solving the request in isolation.  A tick waits on the card
+once per live slab when no lane of it completes (the harvest reads its done
+mask), and six times when lanes complete (the done mask, then one host copy
+of each of ``ONNResult``'s five fields in ``results``); admitting a request
+adds two uploads from pageable memory (its lanes and its slot indices).
+``python -m repro_torch.analysis.tracegate`` counts these waits on the card
+(``serving_tick``: 7.0 a slab tick at slab_lanes 4, NVIDIA H100 80GB HBM3,
+700.00 W).
 
 Workloads without the slab protocol (max-cut, LM decode) still serve
 through the blocking ``solve_bucket`` path, one slab per tick, so one
@@ -232,7 +237,7 @@ class ContinuousEngine(Engine):
             if rec.entries:
                 t0 = time.perf_counter()
                 solver.advance(rec.slab)
-                harvested = self._harvest(qkey, rec)  # syncs on done_mask
+                harvested = self._harvest(qkey, rec)  # waits on done_mask (and results)
                 dt = time.perf_counter() - t0
                 rec.advanced = True
                 self._serving_counts["chunks"] += 1

@@ -965,3 +965,29 @@ def test_checkpoint_from_card_restores_on_cpu_bit_for_bit(cuda, tmp_path):
     for (k, a), (_, b) in zip(PM.leaves(got._asdict()), PM.leaves(state._asdict())):
         assert a.device.type == "cpu" and a.dtype == b.dtype, k
         assert torch.equal(a, b.cpu()), k
+
+
+def test_compiled_kernels_meet_the_planners_constants(cuda):
+    """Every instantiation the launch plans reach, as compiled: its static
+    shared memory is the constant its planner assumes and it takes the
+    plan's threads (``analysis/vmem.py``'s compiled layer)."""
+    from repro_torch.analysis import vmem
+
+    rows = vmem.check_compiled(cuda)
+    assert len(rows) == 34
+    assert all(r.constants_ok for r in rows), [r.render() for r in rows if not r.constants_ok]
+
+
+def test_tracegate_passes_against_the_committed_budget(cuda):
+    """The gate in a fresh process (its warm counts are a fresh process's)
+    against ``TRACE_BUDGET_TORCH.json``, warm and steady."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.tracegate"],
+                          capture_output=True, text=True, env=env, cwd=root, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
