@@ -228,7 +228,9 @@ and prints one JSON line per phase:
    trained through ``launch.train.train(..., reduced=False)`` on train_4k's
    sequence length (4096) at one card's share of its global batch (8 of
    256, ``reduced``), in ``auto_microbatches`` (2) microbatches, AdamW, one
-   warm-up and five timed steps: losses finite and falling, step ms
+   warm-up and two timed steps (five before the script gained phase 20
+   and ``dryrun_share``: the depth cut that keeps it inside its time
+   limit): losses finite and falling, step ms
    (median), tokens/s, the model FLOPs (6 · non-embedding parameters ·
    tokens, and the causal attention's) against their time at 989 TFLOP/s,
    the AdamW update's ms (CUDA events) against its bytes, peak memory, and
@@ -246,10 +248,12 @@ and prints one JSON line per phase:
    rule; the checkpoint, and a state held on the card saved by the async
    writer, restore on the CPU bit for bit.
 
-17. ``dryrun``: the LM dry run (``repro_torch.launch.dryrun``) on the meta
-   device, nothing allocated on the card.  ``dryrun_train_full``: the cell
-   of phase 16's own step (qwen2-1.5b, 8 × 4096, 2 microbatches, AdamW, a
-   1 × 1 mesh): its argument bytes equal the bytes of phase 16's live
+17. ``dryrun``: the LM dry run (``repro_torch.launch.dryrun``): each cell
+   counts one device's program (``models/tp.py``) on the meta device.
+   ``dryrun_train_full``: the cell of phase 16's own step (qwen2-1.5b, 8 ×
+   4096, 2 microbatches, AdamW, a 1 × 1 mesh), counted in a process of its
+   own beside phase 16 (:func:`count_train_full`): its argument bytes equal
+   the bytes of phase 16's live
    ``TrainState`` and batch exactly, its predicted peak (arguments plus
    temporaries) lies within ``DRYRUN_PEAK_TOLERANCE`` of ``train_full``'s
    ``max_memory_allocated``, its counted FLOPs beside the model FLOPs and
@@ -258,8 +262,17 @@ and prints one JSON line per phase:
    h2o-danube-1.8b long_500k and arctic-480b train_4k (``DRYRUN_CLI_CELLS``
    through the CLI, in processes of their own, started before phase 16 so
    that they count on the host's idle cores while the card trains), each
-   with its three
-   roofline terms, dominant term, per-device bytes and ``fits``.
+   with its three roofline terms, dominant term, per-device bytes,
+   ``fits``, the segment that holds its peak and its collectives in two
+   parts (the parameters', the tensor-parallel hooks').
+   ``dryrun_share``: device (0, 0)'s program of the first of those cells
+   (qwen2-1.5b train_4k single: its blocks over the 16-way model axis, the
+   FSDP leaves whole, 16 × 4096 tokens in 4 microbatches, AdamW) run on the
+   card at full width and depth, one step with every collective the
+   identity: its argument bytes equal the live tensors', the count's
+   predicted peak within ``DRYRUN_PEAK_TOLERANCE`` of
+   ``max_memory_allocated``, the step's ms against the roofline's card
+   terms, its hooks' calls beside the count's.
 
 18. ``dryrun_onn``: the ONN dry run (``run_onn_cell``).  ``count``: the ten
    cells (``onn_131072`` × 2 meshes × 4 variants, ``onn_506`` × 2 meshes)
@@ -292,6 +305,17 @@ and prints one JSON line per phase:
    ``retrieve.steady``; each workload's deltas, the scheduler's syncs a
    slab tick, and which calls torch counts as waits on the card.
 
+20. ``launch_edges`` (port fault 9): kernels 1-4, 6 and 7 at N = 506 over
+   4,194,341 lanes (two launches: 65,535 wide tiles and 2), kernel 1 again
+   at N = 640 (σ and S past 2³¹ elements), kernels 1i and 6i over 65,539
+   instances, kernel 8's GEMM over 8,388,557 lanes, each through its
+   wrapper: every launch's grid within 65,535 on y and z, the rows on both
+   sides of every boundary and the last rows equal to the plain version of
+   those rows (kernel 8: within its bound), the call's device ms by CUDA
+   events; then ``MaxCutSolver.solve`` over 65,539 instances, its instances
+   on both sides of the edge equal to the CPU's solve of those instances
+   alone.  Each affected kernel's row gains ``edge``.
+
 Launch counts are set to 0 before each main-path phase (4-18) and read after
 it; every kernel must have launched on a main path, and each row of the
 ``kernels`` line carries the launches of phase 12 as ``launches_daemon``, of
@@ -299,7 +323,8 @@ phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
 phase 15 as ``launches_lm``, of phase 16 as ``launches_train``, of phase
 17 as ``launches_dryrun`` (the last two must be 0), of phase 18 as
 ``launches_dryrun_onn`` (above 0 for kernels 1 and 2 alone) and of phase
-19's gate run (both passes) as ``launches_tracegate`` (above 0 for kernel 5).
+19's gate run (both passes) as ``launches_tracegate`` (above 0 for kernel 5)
+and of phase 20 as ``launches_edges``.
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -419,7 +444,7 @@ LM_VLM_ZERO_CUT, LM_VLM_GATED_CUT = (2, 8), (1, 4)
 #: sequence length at one card's share of its global batch (steps: one
 #: warm-up, then timed); ``train_check``'s cut (layers, batch, sequence);
 #: ``train_resume``'s steps and the step whose end brings the preemption.
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_GLOBAL_BATCH, TRAIN_STEPS = 4096, 8, 256, 6
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_GLOBAL_BATCH, TRAIN_STEPS = 4096, 8, 256, 3
 TRAIN_CHECK = (2, 2, 256)
 TRAIN_RESUME_STEPS, TRAIN_PREEMPT_AFTER = 6, 3
 #: Phase 17, the LM dry run: the production cells counted by
@@ -431,6 +456,24 @@ DRYRUN_CLI_CELLS = (("qwen2-1.5b", "train_4k", "single"), ("qwen2-1.5b", "train_
                     ("arctic-480b", "train_4k", "single"))
 DRYRUN_CLI_TIMEOUT_S = 300
 DRYRUN_PEAK_TOLERANCE = 0.15
+#: ``dryrun_share``: the production cell (arch, shape, mesh) whose device
+#: (0, 0) runs its program on the card: ``DRYRUN_CLI_CELLS``' first.
+DRYRUN_SHARE_CELL = DRYRUN_CLI_CELLS[0]
+#: Phase 20, ``launch_edges``: past CUDA's 65,535 tiles on the grid's y and
+#: z.  N and the lanes of kernels 1-4, 6 and 7 (the wide tile's 64-lane runs
+#: end at 4,194,240); the instance axis's instances and per-instance
+#: (lanes, rows, N); kernel 8's GEMM lanes (runs of 8,388,480) and (M, K);
+#: the Max-Cut solve past 65,535 instances: (instances, N, replicas,
+#: sweeps), and how many instances on each side of the edge the CPU solves;
+#: the rows compared on each side of every boundary and at the end.
+EDGE_N, EDGE_LANES = 506, 4_194_341
+#: Kernel 1 once more at a width where σ and S hold more than 2³¹ elements
+#: (4,194,341 × 640 = 2.68e9): the kernel's offsets are 64-bit.
+EDGE_WIDE_N = 640
+EDGE_INSTANCES, EDGE_INSTANCE_SHAPE = 65_539, (64, 32, 64)
+EDGE_QMV_LANES, EDGE_QMV_MK = 8_388_557, (64, 64)
+EDGE_MAXCUT, EDGE_MAXCUT_CPU = (65_539, 8, 4, 4), 4
+EDGE_ROWS = 4
 #: Phase 18, the ONN dry run: the cells counted (cell, multi_pod, variant);
 #: the single-pod shares run on the card (cell, variant); the composed
 #: sweeps' N, lanes and (data, model) mesh.
@@ -2607,19 +2650,40 @@ def train_lines(dev, seed, drive) -> dict:
     return own, full_step
 
 
+def count_train_full(out_dir: str) -> None:
+    """The dry run's cell of phase 16's own step (``LM_ARCH``, ``TRAIN_BATCH``
+    × ``TRAIN_SEQ``, its microbatches, AdamW) on a 1 × 1 mesh, written
+    under ``out_dir``: run by :func:`start_dryrun_cli` in a process of its
+    own (``python -c``), beside phase 16."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import steps
+    from repro_torch.models.config import SHAPES
+
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    mesh1 = Mesh(np.array([[torch.device("meta")]], dtype=object))
+    microbatches = steps.auto_microbatches(SHAPES["train_4k"], TRAIN_GLOBAL_BATCH // TRAIN_BATCH)
+    dryrun.run_cell(LM_ARCH, "train_4k", False, microbatches=microbatches, mesh=mesh1,
+                    shape=shape, outdir=out_dir, tag="train_full", verbose=False)
+
+
 def start_dryrun_cli(out_dir: str) -> list:
     """Start ``DRYRUN_CLI_CELLS``' ``python -m repro_torch.launch.dryrun``
-    processes, each writing under ``out_dir``/cli<i>.  They count on the
-    meta device (one Python thread each, niced), so they run on the host's
-    idle cores while phase 16 trains on the card; phase 17 reads them."""
+    processes, each writing under ``out_dir``/cli<i>, and the count of phase
+    16's own step (:func:`count_train_full`, under ``out_dir``/train_full).
+    They count on the meta device (one Python thread each, niced), so they
+    run on the host's idle cores while phase 16 trains on the card; phase 17
+    reads them."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    return [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape_name, "--mesh", mesh_name, "--out", os.path.join(out_dir, f"cli{i}")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT,
-        preexec_fn=lambda: os.nice(10))
-        for i, (arch, shape_name, mesh_name) in enumerate(DRYRUN_CLI_CELLS)]
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape_name, "--mesh", mesh_name, "--out", os.path.join(out_dir, f"cli{i}")]
+            for i, (arch, shape_name, mesh_name) in enumerate(DRYRUN_CLI_CELLS)]
+    cmds.append([sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.count_train_full(sys.argv[1])", os.path.join(out_dir, "train_full")])
+    return [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             env=env, cwd=ROOT, preexec_fn=lambda: os.nice(10))
+            for cmd in cmds]
 
 
 def stop_processes(procs) -> None:
@@ -2629,7 +2693,7 @@ def stop_processes(procs) -> None:
             proc.wait()
 
 
-def dryrun_lines(dev, drive, full_step, procs, out_dir) -> dict:
+def dryrun_lines(dev, seed, drive, full_step, procs, out_dir) -> dict:
     """Phase 17: the LM dry run (``repro_torch.launch.dryrun``) on the meta
     device, one JSON line per part.  ``dryrun_train_full``: the cell of
     phase 16's own step (qwen2-1.5b, 8 × 4096 tokens, 2 microbatches,
@@ -2641,29 +2705,28 @@ def dryrun_lines(dev, drive, full_step, procs, out_dir) -> dict:
     meshes, qwen2-1.5b decode_32k, h2o-danube-1.8b long_500k and
     arctic-480b train_4k, each cell's roofline terms, dominant term,
     per-device bytes and ``fits``: ``procs``, started by
-    :func:`start_dryrun_cli` before phase 16, wrote those cells under
-    ``out_dir``.  Nothing is allocated on the card; returns the launches of
-    the phase by kernel (none is expected)."""
-    from repro_torch.distributed import Mesh
-    from repro_torch.launch import dryrun
+    :func:`start_dryrun_cli` before phase 16, wrote those cells and the
+    count of phase 16's step under ``out_dir``.  ``dryrun_share``: device
+    (0, 0)'s program of ``DRYRUN_SHARE_CELL`` on the card
+    (:func:`dryrun_share_line`).  Returns the launches of the phase by
+    kernel (none is expected)."""
     from repro_torch.models import params as PM
-    from repro_torch.models.config import SHAPES
 
     own = {}
     t_phase = time.perf_counter()
+    for proc in procs:
+        log, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+        require(proc.returncode == 0, f"dryrun: {proc.args}:\n{log}")
     # dryrun_train_full: phase 16's step, counted beside its live tensors
     t_part = time.perf_counter()
     state, batch = full_step["state"], full_step["batch"]
     live = (sum(t.nbytes for _, t in PM.leaves(state._asdict()))
             + sum(np.asarray(v).nbytes for v in batch.values()))
-    mesh1 = Mesh(np.array([[torch.device("meta")]], dtype=object))
-    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
-    cell, _, path = drive(lambda: dryrun.run_cell(
-        LM_ARCH, "train_4k", False, microbatches=full_step["microbatches"], mesh=mesh1,
-        shape=shape, outdir=os.path.join(out_dir, "here"), tag="train_full",
-        verbose=False))
-    for k, v in path.items():
-        own[k] = own.get(k, 0) + v
+    (name,) = os.listdir(os.path.join(out_dir, "train_full"))
+    with open(os.path.join(out_dir, "train_full", name)) as f:
+        cell = json.load(f)
+    require(cell["microbatches"] == full_step["microbatches"] and cell["mesh"] == "1x1",
+            f"dryrun_train_full: the counted cell is not phase 16's step: {cell['microbatches']}")
     mem = cell["memory_analysis"]
     require(mem["argument_size_in_bytes"] == live,
             f"dryrun_train_full: argument bytes {mem['argument_size_in_bytes']} are not the "
@@ -2682,26 +2745,23 @@ def dryrun_lines(dev, drive, full_step, procs, out_dir) -> dict:
           "predicted_peak_bytes": predicted, "max_memory_allocated": measured,
           "predicted_over_measured_peak": predicted / measured,
           "peak_tolerance": DRYRUN_PEAK_TOLERANCE,
-          "counted_flops": cell["replica_cost"]["flops"],
+          "counted_flops": cell["cost_analysis"]["flops"],
           "model_flops": full_step["model_flops"]["total"],
           "counted_over_model_flops":
-              cell["replica_cost"]["flops"] / full_step["model_flops"]["total"],
-          "bytes_accessed": cell["replica_cost"]["bytes_accessed"],
+              cell["cost_analysis"]["flops"] / full_step["model_flops"]["total"],
+          "bytes_accessed": cell["cost_analysis"]["bytes_accessed"],
           "roofline": roof, "bound_s": bound, "dominant": roof["dominant"],
           "step_s": full_step["step_s"], "bound_over_step": bound / full_step["step_s"],
           "model_flops_bound_s": full_step["bound_s"],
           "cost_probe_s": cell["cost_probe_s"], "memory_probe_s": cell["memory_probe_s"],
-          "ported_kernel_launches": sum(path.values()),
-          "part_s": time.perf_counter() - t_part})
+          "cell_s": cell["seconds"], "counted_in": "a process beside phase 16",
+          "ported_kernel_launches": 0, "part_s": time.perf_counter() - t_part})
     del state, batch
 
     # dryrun_production: the cells of the CLI's processes
     t_part = time.perf_counter()
-    for proc in procs:
-        log, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
-        require(proc.returncode == 0, f"dryrun_production: {proc.args}:\n{log}")
     cells = []
-    for i in range(len(procs)):
+    for i in range(len(DRYRUN_CLI_CELLS)):
         cli_dir = os.path.join(out_dir, f"cli{i}")
         for name in sorted(os.listdir(cli_dir)):
             with open(os.path.join(cli_dir, name)) as f:
@@ -2721,12 +2781,112 @@ def dryrun_lines(dev, drive, full_step, procs, out_dir) -> dict:
               "argument_bytes_per_device": m["argument_size_in_bytes"],
               "temp_bytes_per_device": m["temp_size_in_bytes"], "fits": c["fits"],
               "useful_flops_ratio": c["useful_flops_ratio"], "n_params": c["n_params"],
-              "cell_s": c["seconds"], "per_device_split": c["per_device_split"],
-              "temp_bound": c["temp_bound"], "ported_kernel_launches": 0,
+              "cell_s": c["seconds"], "model_axis": c["model_axis"],
+              "per_device": c["per_device"], "peak_segment": c["peak_segment"],
+              "collectives_params": c["collectives_params"],
+              "collectives_tp": c["collectives_tp"], "ported_kernel_launches": 0,
               "part_s": time.perf_counter() - t_part})
+
+    # dryrun_share: device (0, 0)'s program of DRYRUN_SHARE_CELL on the card
+    share = next(c for c, spec in zip(cells, DRYRUN_CLI_CELLS) if spec == DRYRUN_SHARE_CELL)
+    line, path = dryrun_share_line(dev, seed, drive, share)
+    for k, v in path.items():
+        own[k] = own.get(k, 0) + v
+    emit(line)
     emit({"phase": "dryrun", "part": "phase", "phase_s": time.perf_counter() - t_phase,
-          "device": str(dev), "card_bytes_allocated_by_phase": 0})
+          "device": str(dev)})
     return own
+
+
+def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
+    """``dryrun_share``: one device's program (``models/tp.py``) of the
+    production cell ``DRYRUN_SHARE_CELL`` run on the card at full width and
+    depth: its blocks of the model-split leaves (drawn on the card), the
+    FSDP leaves whole as a device holds them at use, the replica's batch in
+    the cell's microbatches, one train step with every collective the
+    identity (``tp.IdentityHook``).  Its argument bytes against the live
+    tensors', the count's predicted peak (arguments plus the cell's
+    temporaries) against ``max_memory_allocated`` less what earlier phases
+    still hold, the step's ms against the roofline's card terms; (line,
+    launches by kernel)."""
+    from repro_torch import configs as lm_configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import params as PM
+    from repro_torch.models import steps, tp
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.model import get_model
+
+    t_part = time.perf_counter()
+    arch, shape_name, mesh_name = DRYRUN_SHARE_CELL
+    multi = mesh_name == "multi"
+    cfg = lm_configs.get_config(arch)
+    sizes = PM.mesh_axis_sizes(make_production_mesh(multi_pod=multi))
+    rules = dryrun.rules_for(arch, shape_name, multi)
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=cell["replica_batch"])
+    prog = steps.build_cell(cfg, shape, rules, microbatches=cell["microbatches"],
+                            dp_size=cell["dp_size"], axis_sizes=sizes, per_device=True)
+    require(prog.kind == "train", f"dryrun_share: {cell['cell']} is not a train cell")
+    abstract_state, abstract_batch = prog.abstract_args
+    args_bytes = (sum(t.nbytes for _, t in PM.leaves(abstract_state._asdict()))
+                  + sum(t.nbytes for t in abstract_batch.values()))
+    local_specs = tp.local_specs(get_model(cfg).param_specs, rules, sizes)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    params = device_lm_tree(local_specs, seed, dev)
+    state = steps.TrainState(
+        torch.zeros((), dtype=torch.int32, device=dev), params,
+        PM.map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                    abstract_state.opt))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {k: torch.randint(0, cfg.vocab, tuple(t.shape), generator=gen, device=dev,
+                              dtype=t.dtype) for k, t in abstract_batch.items()}
+    live = (sum(t.nbytes for _, t in PM.leaves(state._asdict()))
+            + sum(t.nbytes for t in batch.values()))
+    require(live == args_bytes, f"dryrun_share: live {live} B against the program's "
+                                f"arguments {args_bytes} B")
+    m = sizes.get("model", 1)
+    hook = tp.IdentityHook({"model": m})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with tp.use(tp.Layout({"model": m}, {"model": 0}, hook), shared=True):
+            out = prog.step_fn(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    (new_state, metrics), step_s, path = drive(step)
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"dryrun_share: the loss is {loss}")
+    del new_state, metrics, state, params, batch
+    torch.cuda.empty_cache()
+    predicted = args_bytes + cell["memory_analysis"]["temp_size_in_bytes"]
+    require(abs(predicted / peak - 1) <= DRYRUN_PEAK_TOLERANCE,
+            f"dryrun_share: predicted peak {predicted} against {peak} measured")
+    roof = cell["roofline"]
+    card_bound = max(roof["compute_s"], roof["memory_s"])
+    return ({"phase": "dryrun", "part": "dryrun_share", "cell": cell["cell"],
+             "mesh": cell["mesh"], "device": [0, 0], "model_axis": m,
+             "replica_batch": cell["replica_batch"], "microbatches": cell["microbatches"],
+             "seq_len": shape.seq_len, "layers": cfg.n_layers, "d_model": cfg.d_model,
+             "program_argument_bytes": args_bytes, "live_argument_bytes": live,
+             "argument_bytes_equal_live": True,
+             "device_argument_bytes": cell["memory_analysis"]["argument_size_in_bytes"],
+             "temp_size_in_bytes": cell["memory_analysis"]["temp_size_in_bytes"],
+             "peak_segment": cell["peak_segment"], "predicted_peak_bytes": predicted,
+             "max_memory_allocated": peak, "held_before_bytes": base,
+             "predicted_over_measured_peak": predicted / peak,
+             "peak_tolerance": DRYRUN_PEAK_TOLERANCE, "loss": loss,
+             "step_ms": step_s * 1e3, "step_timed": "one step, after phase 16's warm run",
+             "roofline": roof, "card_bound_ms": card_bound * 1e3,
+             "card_bound_over_step": card_bound / step_s,
+             "collectives": "the identity (no peers)", "hook_calls": hook.counts,
+             "counted_tp_collectives": cell["collectives_tp"]["counts"],
+             "nvidia_smi": nvidia_smi_line(), "ported_kernel_launches": sum(path.values()),
+             "part_s": time.perf_counter() - t_part}, path)
 
 
 def dryrun_onn_lines(dev, seed, drive) -> tuple:
@@ -3015,6 +3175,190 @@ def analysis_lines(dev, procs, out_dir) -> dict:
           "launches": launches, "in_process_s": in_process_s,
           "phase_s": time.perf_counter() - t_phase})
     return launches
+
+
+def edge_windows(total: int, run: int) -> list:
+    """The rows compared around each boundary of ``run``-sized launches and
+    at the end of ``total``: (first, stop) of ``EDGE_ROWS`` each side."""
+    out = [(max(0, b - EDGE_ROWS), min(total, b + EDGE_ROWS)) for b in range(run, total, run)]
+    return out + [(total - EDGE_ROWS, total)]
+
+
+def launch_edge_lines(dev, seed, rows) -> dict:
+    """Phase 20 (port fault 9): each kernel that the planners now cut into
+    several launches, launched once past its former edge through its
+    wrapper, the rows on both sides of every 65,535-tile boundary and the
+    last rows held to the plain version of those rows alone (lanes are
+    independent), each launch's grid within 65,535 on y and z; then
+    ``MaxCutSolver.solve`` past 65,535 instances, its instances on both
+    sides of the edge equal to the CPU's solve of those instances alone.
+    One ``launch_edges`` line; each affected kernel's row gains ``edge``.
+    Returns the wrapper launches by kernel (not a main path's)."""
+    from repro_torch import api
+    from repro_torch.core import ising
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import ref as plain
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    n, lanes = EDGE_N, EDGE_LANES
+    w = torch.randint(-15, 16, (n, n), generator=gen, device=dev, dtype=torch.int8)
+    bias = torch.randint(-40, 41, (n,), generator=gen, device=dev, dtype=torch.int32)
+    sigma = (torch.randint(0, 2, (lanes, n), generator=gen, device=dev, dtype=torch.int8) * 2 - 1)
+    entries, counts = [], {}
+
+    def held(name, call, want_rows, plan, windows, launches_each):
+        """One kernel at the edge: launched once, compared on ``windows``,
+        timed by CUDA events around one more call (all its launches)."""
+        ops.reset_launches()
+        got = call()
+        torch.cuda.synchronize()
+        n_launch = sum(ops.LAUNCHES.values())
+        require(n_launch == launches_each,
+                f"launch_edges {name}: {n_launch} launches, the plan has {launches_each}")
+        for lo, hi in windows:
+            err = max_abs_err(got[lo:hi], want_rows(lo, hi))
+            require(err == 0, f"launch_edges {name}: rows {lo}:{hi} differ from the plain "
+                              f"version (max_abs_err {err})")
+        del got
+        ms = cuda_ms(call, iters=2, warmup=0)
+        counts[name] = counts.get(name, 0) + n_launch
+        grids = [list(g) for g in plan_grids(plan)]
+        require(all(g[1] <= autotune.MAX_GRID_YZ and g[2] <= autotune.MAX_GRID_YZ
+                    for g in grids), f"launch_edges {name}: a grid past 65,535: {grids}")
+        entry = {"kernel": name, "launches": n_launch, "grids": grids,
+                 "rows_compared": [list(wi) for wi in windows], "exact": True, "device_ms": ms}
+        entries.append(entry)
+        if name in rows:
+            rows[name]["edge"] = {k: entry[k] for k in ("launches", "grids", "exact",
+                                                        "device_ms")}
+            rows[name]["edge"]["shape"] = [plan.inst, plan.b, plan.m, plan.n]
+        torch.cuda.empty_cache()
+
+    run = autotune.MAX_GRID_YZ * autotune.GEMM_TILES[0].bm
+    windows = edge_windows(lanes, run)
+    for name, parallel in (("coupling_sum", None), ("hybrid_coupling_sum", 32)):
+        plan = autotune.coupling_plan(1, lanes, n, n, parallel)
+        call = ((lambda: ops.coupling_sum(w, sigma)) if parallel is None else
+                (lambda p=parallel: ops.hybrid_coupling_sum(w, sigma, parallel=p)))
+        held(name, call, lambda lo, hi: plain.coupling_sum_ref(w, sigma[lo:hi]), plan, windows,
+             len(plan.launches))
+    plan = autotune.coupling_plan(1, lanes, n, n)
+    held("onn_step", lambda: ops.onn_step(w, sigma, bias),
+         lambda lo, hi: plain.onn_step_ref(w, sigma[lo:hi], bias), plan, windows,
+         len(plan.launches))
+    phase = torch.randint(0, 2 * HALF, (lanes, n), generator=gen, device=dev, dtype=torch.int32)
+    held("phase_step", lambda: ops.phase_step(w, sigma, bias, phase, half=HALF),
+         lambda lo, hi: plain.phase_step_ref(w, sigma[lo:hi], bias, phase[lo:hi], HALF), plan,
+         windows, len(plan.launches))
+    held("phase_step_packed", lambda: ops.phase_step_packed(w, bias, phase, half=HALF),
+         lambda lo, hi: plain.phase_step_packed_ref(w, bias, phase[lo:hi], HALF), plan,
+         windows, len(plan.launches))
+    plan = autotune.coupling_plan(1, lanes, n, n, 32)
+    held("hybrid_phase_step",
+         lambda: ops.hybrid_phase_step(w, sigma, bias, phase, half=HALF, parallel=32),
+         lambda lo, hi: plain.hybrid_phase_step_ref(w, sigma[lo:hi], bias, phase[lo:hi], HALF,
+                                                    32), plan, windows, len(plan.launches))
+    del sigma, phase
+    torch.cuda.empty_cache()
+    # past 2³¹ elements in one tensor: kernel 1 at N = EDGE_WIDE_N
+    nw = EDGE_WIDE_N
+    w_w = torch.randint(-15, 16, (nw, nw), generator=gen, device=dev, dtype=torch.int8)
+    s_w = torch.randint(0, 2, (lanes, nw), generator=gen, device=dev, dtype=torch.int8) * 2 - 1
+    require(s_w.numel() > 2**31, "launch_edges: the wide operand is not past 2^31 elements")
+    plan = autotune.coupling_plan(1, lanes, nw, nw)
+    held(f"coupling_sum_n{nw}", lambda: ops.coupling_sum(w_w, s_w),
+         lambda lo, hi: plain.coupling_sum_ref(w_w, s_w[lo:hi]), plan, windows,
+         len(plan.launches))
+    del w_w, s_w
+    torch.cuda.empty_cache()
+
+    # the instance axis (kernels 1i and 6i): 65,539 instances in two launches
+    b_i, m_i, n_i = EDGE_INSTANCE_SHAPE
+    inst = EDGE_INSTANCES
+    w3 = torch.randint(-15, 16, (inst, m_i, n_i), generator=gen, device=dev, dtype=torch.int8)
+    s3 = torch.randint(0, 2, (inst, b_i, n_i), generator=gen, device=dev, dtype=torch.int8) * 2 - 1
+    i_windows = edge_windows(inst, autotune.MAX_GRID_YZ)
+    for name, parallel in (("coupling_sum_batched", None), ("hybrid_coupling_sum_batched", 32)):
+        plan = autotune.coupling_plan(inst, b_i, m_i, n_i, parallel)
+        call = ((lambda: ops.coupling_sum(w3, s3)) if parallel is None else
+                (lambda p=parallel: ops.hybrid_coupling_sum(w3, s3, parallel=p)))
+        held(name, call, lambda lo, hi: plain.coupling_sum_ref(w3[lo:hi], s3[lo:hi]), plan,
+             i_windows, len(plan.launches))
+    del w3, s3
+    torch.cuda.empty_cache()
+
+    # kernel 8's GEMM: 8,388,557 lanes, runs of 65,535 tiles of 128 on z
+    m_q, k_q = EDGE_QMV_MK
+    q_lanes = EDGE_QMV_LANES
+    wq = torch.randint(-127, 128, (m_q, k_q), generator=gen, device=dev, dtype=torch.int8)
+    scale = torch.rand((m_q,), generator=gen, device=dev) * 0.1
+    x = torch.randn((q_lanes, k_q), generator=gen, device=dev)
+    plan = autotune.qmv_plan(q_lanes, m_q, k_q)
+    ops.reset_launches()
+    got = ops.quantized_matvec(wq, scale, x)
+    torch.cuda.synchronize()
+    require(ops.LAUNCHES["quantized_matvec"] == len(plan.launches),
+            f"launch_edges quantized_matvec: {dict(ops.LAUNCHES)} launches")
+    worst = 0.0
+    q_windows = edge_windows(q_lanes, autotune.MAX_GRID_YZ * autotune.QMV_GEMM_TILE)
+    for lo, hi in q_windows:
+        err, ratio = fp32_error(got[lo:hi], x[lo:hi], wq, scale)
+        worst = max(worst, ratio)
+    require(worst <= 1.0, f"launch_edges quantized_matvec: error {worst} of its bound")
+    del got
+    ms = cuda_ms(lambda: ops.quantized_matvec(wq, scale, x), iters=2, warmup=0)
+    counts["quantized_matvec"] = len(plan.launches)
+    q_grids = [[plan.grid[0], plan.grid[1], -(-nb // autotune.QMV_GEMM_TILE)]
+               for _, nb in plan.launches]
+    entry = {"kernel": "quantized_matvec", "launches": len(plan.launches), "grids": q_grids,
+             "rows_compared": [list(wi) for wi in q_windows], "within_bound": True,
+             "error_bound_ratio": worst, "device_ms": ms}
+    entries.append(entry)
+    rows["quantized_matvec"]["edge"] = {"launches": len(plan.launches), "grids": q_grids,
+                                        "within_bound": True, "error_bound_ratio": worst,
+                                        "device_ms": ms, "shape": [q_lanes, m_q, k_q]}
+    del wq, x, scale
+    torch.cuda.empty_cache()
+
+    # a public entry past the edge: Max-Cut over 65,539 instances on the card
+    n_inst, mc_n, mc_r, mc_s = EDGE_MAXCUT
+    rng = np.random.default_rng([seed, 20])
+    upper = np.triu(rng.random((n_inst, mc_n, mc_n)) < 0.5, k=1).astype(np.int8)
+    adj = torch.as_tensor(upper + upper.transpose(0, 2, 1))
+    solver = api.MaxCutSolver(sweeps=mc_s, replicas=mc_r, settle_chunk=mc_s, backend="kernel")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(adj, key=torch.Generator().manual_seed(seed + 21))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    mc_launches = dict(ops.LAUNCHES)
+    require(mc_launches.get("coupling_sum_batched", 0) > 0,
+            f"launch_edges maxcut: the instance axis never launched: {mc_launches}")
+    key = torch.Generator().manual_seed(seed + 21)
+    init = torch.rand((n_inst, mc_r, mc_n), generator=key)
+    sweeps = torch.rand((n_inst, mc_s, mc_n), generator=key)
+    edge = autotune.MAX_GRID_YZ
+    lo, hi = edge - EDGE_MAXCUT_CPU, edge + EDGE_MAXCUT_CPU
+    cpu = ising.solve_maxcut_batch(solver.config(mc_n), adj[lo:hi], init[lo:hi], sweeps[lo:hi],
+                                   stagger_groups=solver.stagger_groups,
+                                   stagnation=solver.stagnation)
+    for f in ising.MaxCutResult._fields:
+        require(torch.equal(getattr(res, f)[lo:hi].cpu(), getattr(cpu, f)),
+                f"launch_edges maxcut: instances {lo}:{hi} differ from the CPU's in {f}")
+    emit({"phase": "launch_edges", "kernels": entries,
+          "maxcut": {"instances": n_inst, "n": mc_n, "replicas": mc_r, "sweeps": mc_s,
+                     "launches": mc_launches, "instances_compared": [lo, hi],
+                     "equal_to_cpu": True, "solve_s": solve_s},
+          "nvidia_smi": nvidia_smi_line(), "phase_s": time.perf_counter() - t_phase})
+    counts["maxcut"] = sum(mc_launches.values())
+    return counts
+
+
+def plan_grids(plan) -> list:
+    """Each launch's grid of a coupling-GEMM plan."""
+    gx = -(-plan.m // plan.tile.bn)
+    return [(gx, -(-nb // plan.tile.bm), ni) for _, ni, _, nb in plan.launches]
 
 
 def main() -> None:
@@ -3930,7 +4274,8 @@ def main() -> None:
         dryrun_procs = start_dryrun_cli(dryrun_dir)
         try:
             train_launches, full_step = train_lines(dev, args.seed, drive)
-            dryrun_launches = dryrun_lines(dev, drive, full_step, dryrun_procs, dryrun_dir)
+            dryrun_launches = dryrun_lines(dev, args.seed, drive, full_step, dryrun_procs,
+                                           dryrun_dir)
         finally:
             stop_processes(dryrun_procs)
             shutil.rmtree(dryrun_dir, ignore_errors=True)
@@ -3948,6 +4293,9 @@ def main() -> None:
         stop_processes(tracegate_procs)
         shutil.rmtree(tracegate_dir, ignore_errors=True)
 
+    # 20. launches past CUDA's 65,535 grid tiles (port fault 9) ---------------------
+    edge_launches = launch_edge_lines(dev, args.seed, rows)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_daemon"] = daemon_launches.get(name, 0)
@@ -3958,6 +4306,7 @@ def main() -> None:
         row["launches_dryrun"] = dryrun_launches.get(name, 0)
         row["launches_dryrun_onn"] = onn_launches.get(name, 0)
         row["launches_tracegate"] = tracegate_launches.get(name, 0)
+        row["launches_edges"] = edge_launches.get(name, 0)
         require(row["launches"] > 0, f"{name} was never launched on the main path")
         require(row["launches_train"] == 0, f"{name} launched on the LM training path")
         require(row["launches_dryrun"] == 0, f"{name} launched in the dry run")

@@ -23,8 +23,12 @@ layers.
     GEMM and two GEMV blocks of kernel 8 an SM, one block otherwise) in an
     SM's 233,472 B, each block with 1 KB reserved;
   - the grid's y and z against 65,535 (the coupling GEMM's y is its lane
-    tiles, which passes it past about 4.19 M lanes on the wide tile;
-    ``coupling_plan`` does not check that);
+    tiles and z its instances, kernel 8's GEMM's z its lane tiles): the
+    planners cut a plan past that into several launches
+    (``CouplingPlan.launches``, ``QmvPlan.launches``), and the grid held
+    here is the largest launch's; the edge buckets of ``iter_buckets`` and
+    an instance count past the edge (:data:`STEP_INSTANCES`) meet such
+    plans;
   - the cluster against the 8 CTAs that need no opt-in;
   - and it states the most registers a thread that the assumed residency
     allows: 65,536 / (threads × blocks), at most 255.
@@ -72,9 +76,9 @@ PORTABLE_CLUSTER = 8
 REGISTERS_PER_SM = 65_536
 MAX_REGISTERS = 255
 #: What the ``step`` and ``hybrid`` buckets plan: the instance counts of
-#: kernels 1-4 (one W) and of the instance axis, and the hybrid MAC widths
-#: beside P = N.
-STEP_INSTANCES = (1, 16, 32)
+#: kernels 1-4 (one W) and of the instance axis (65,539: past the grid's z,
+#: so in two launches), and the hybrid MAC widths beside P = N.
+STEP_INSTANCES = (1, 16, 32, 65_539)
 HYBRID_WIDTHS = (1, 32, 64)
 #: The coupling GEMM's entries (``ops.GEMM_MODES``) that each kind launches.
 STEP_MODES = ("coupling_sum", "onn_step", "phase_step", "phase_step_packed")
@@ -173,7 +177,7 @@ def _coupling(plan: autotune.CouplingPlan) -> PlanReport:
     tile = plan.tile
     return PlanReport(
         kernel=f"coupling_gemm/{tile.name}",
-        plan=f"inst={plan.inst} P={plan.parallel} span={plan.span}",
+        plan=f"inst={plan.inst} P={plan.parallel} span={plan.span} launches={len(plan.launches)}",
         smem=plan.smem_bytes, static=0, limit=autotune.SMEM_PER_BLOCK,
         threads=plan.threads, blocks_per_sm=2 if tile.name == "wide" else 1, grid=plan.grid,
     )
@@ -200,7 +204,7 @@ def _qmv(plan: autotune.QmvPlan) -> PlanReport:
     return PlanReport(
         kernel=f"quantized_matvec/{plan.regime}",
         plan=(f"lanes={plan.lanes} " if gemv else "") + f"k_chunk={plan.k_chunk} "
-             f"splits={plan.splits}",
+             f"splits={plan.splits} launches={len(plan.launches)}",
         smem=plan.smem_bytes, static=0, limit=STATIC_LIMIT,
         threads=plan.threads, blocks_per_sm=2 if gemv else 1, grid=plan.grid,
     )

@@ -13,8 +13,9 @@ device (the port of ``repro.checkpoint``), in the reference's format.
 * **Retention**: the ``keep`` newest checkpoints are kept, older ones deleted.
 * **Auto-resume**: ``latest_step`` scans for the newest *complete* directory.
 * **Restore**: :func:`restore` rebuilds the structure of a target tree on a
-  device (the reference takes shardings there; mesh placement waits for
-  the LM sharding rules).
+  device, or onto a mesh: given ``shardings`` (a tree of
+  ``distributed.sharding.NamedSharding`` or None), a sharded leaf comes
+  back as a ``ShardedTensor``, each mesh position's block on its device.
 * **Async**: :class:`AsyncCheckpointer` copies the tree to host memory
   synchronously and writes it on a background thread.
 
@@ -41,6 +42,7 @@ import torch
 
 from repro_torch.checkpoint.onn import OnnCheckpoint, load_onn, save_onn  # noqa: F401
 from repro_torch.core.checks import resolve_device
+from repro_torch.distributed.sharding import NamedSharding, place
 
 _SEP = "//"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -181,7 +183,26 @@ def _tensor(arr: np.ndarray, stored: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def restore(directory: str, step: int, target: Any, device=None) -> Any:
+def _sharding_leaves(target, shardings, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """The entry of ``shardings`` (a tree of ``target``'s structure) at each
+    leaf path of ``target``: a ``NamedSharding`` or None.  A None or a
+    ``NamedSharding`` where ``target`` has a subtree covers all of it."""
+    if shardings is None or isinstance(shardings, NamedSharding):
+        return {key: shardings for key, _ in _flatten(target, prefix)}
+    items = _items(target)
+    if items is None:
+        raise ValueError(f"shardings at {_SEP.join(prefix)!r}: {shardings!r} is not a "
+                         "NamedSharding or None")
+    sub = dict(_items(shardings) or ())
+    out: Dict[str, Any] = {}
+    for key, child in items:
+        if key not in sub:
+            raise ValueError(f"shardings lack {_SEP.join(prefix + (key,))!r}")
+        out.update(_sharding_leaves(child, sub[key], prefix + (key,)))
+    return out
+
+
+def restore(directory: str, step: int, target: Any, device=None, shardings: Any = None) -> Any:
     """Restore a checkpoint into the structure of ``target``.
 
     ``target``'s leaves (tensors, or anything with a torch ``dtype`` such as
@@ -189,9 +210,20 @@ def restore(directory: str, step: int, target: Any, device=None) -> Any:
     cast.  The leaves land on ``device``; without it, on the target leaf's
     own device (a leaf without one: the GPU, as the port's entry points
     default).
+
+    ``shardings``, the reference's elastic restore: a tree matching
+    ``target`` whose entries are None or a
+    ``distributed.sharding.NamedSharding`` (``params.shardings`` makes one
+    from the rules and a mesh).  A leaf with a sharding comes back as a
+    ``distributed.sharding.ShardedTensor``: each mesh position's block
+    (``params.local_shape`` of the leaf) cut from the stored array and
+    copied to that position's device alone; a split that does not divide
+    its dim raises ``ValueError``, as ``jax.device_put`` does.  A leaf whose
+    entry is None is restored as without ``shardings``.
     """
     path = os.path.join(directory, f"step_{step}", "arrays.npz")
     stored = load_meta(directory, step).get("dtypes", {})
+    placed = _sharding_leaves(target, shardings)
     values = {}
     with np.load(path) as data:
         for key, leaf in _flatten(target):
@@ -201,6 +233,9 @@ def restore(directory: str, step: int, target: Any, device=None) -> Any:
             dtype = getattr(leaf, "dtype", None)
             if isinstance(dtype, torch.dtype) and t.dtype != dtype:
                 t = t.to(dtype)
+            if placed[key] is not None:
+                values[key] = place(t, placed[key])
+                continue
             if device is not None:
                 dev = resolve_device(device)
             elif isinstance(leaf, torch.Tensor):

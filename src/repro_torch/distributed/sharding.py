@@ -40,9 +40,11 @@ under it is single-threaded.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import TYPE_CHECKING, Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.params import logical_to_pspec
@@ -273,3 +275,80 @@ def shard_onn_params(params, plan: "ShardPlan", mesh: "Mesh"):
     parts = plan.model if plan.model_sharded else 1
     placement = Placement(w, (parts, mesh.key()), weight_blocks(w, plan, mesh))
     return OnnParams(weights=w, bias=params.bias.to(mesh.first), placement=placement)
+
+
+# ---------------------------------------------------------------------------
+# Leaves placed on a mesh (the elastic restore, ``checkpoint.restore``)
+# ---------------------------------------------------------------------------
+
+
+class NamedSharding(NamedTuple):
+    """The port's counterpart of ``jax.sharding.NamedSharding``: a
+    :class:`~repro_torch.distributed.plan.Mesh` and a spec (a tuple of mesh
+    axis names per dim, ``None`` replicated, a tuple of names split over
+    several axes, major first)."""
+
+    mesh: "Mesh"
+    spec: Spec
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(shape: Tuple[int, ...], sharding: NamedSharding, position) -> Tuple[slice, ...]:
+    """The slice of a ``shape`` array that mesh ``position`` (an index into
+    ``mesh.devices``) holds, as ``jax.Array.addressable_shards`` gives it:
+    a dim split over axes (a1, a2, …) is cut into ∏ sizes equal blocks,
+    block ravel(position along a1, a2, …); replicated dims are whole.
+    Raises ``ValueError`` where a split does not divide its dim, with the
+    words ``jax.device_put`` uses."""
+    mesh, spec = sharding
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    where = dict(zip(mesh.axis_names, position))
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the array's {len(shape)} dims")
+    out = []
+    for i, dim in enumerate(shape):
+        axes = _entry_axes(spec[i] if i < len(spec) else None)
+        parts, idx = 1, 0
+        for a in axes:
+            if a not in sizes:
+                raise ValueError(f"spec {spec} names axis {a!r}, not one of {mesh.axis_names}")
+            parts *= sizes[a]
+            idx = idx * sizes[a] + where[a]
+        if dim % parts:
+            raise ValueError(
+                f"Sharding spec {spec} implies that array axis {i} is partitioned {parts} "
+                f"times, but does not evenly divide the dimension size {dim}. Got shape: "
+                f"{tuple(shape)} and sharding {sharding}")
+        blk = dim // parts
+        out.append(slice(idx * blk, (idx + 1) * blk))
+    return tuple(out)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedTensor:
+    """One leaf placed per a :class:`NamedSharding`: ``blocks[position]`` is
+    the block that mesh position holds (``params.local_shape`` of the leaf),
+    on that position's device.  A replicated dim repeats whole on every
+    position along the axes that do not split it."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding
+    blocks: np.ndarray  # object array of the mesh's shape
+
+
+def place(array: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """``array`` (on the host) placed per ``sharding``: each mesh position
+    receives its own slice, copied to its device (``jax.device_put`` with a
+    ``NamedSharding``); no device receives more than its block."""
+    mesh = sharding.mesh
+    shape = tuple(array.shape)
+    blocks = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(blocks.shape):
+        blocks[pos] = array[block_index(shape, sharding, pos)].to(mesh.devices[pos], copy=True)
+    return ShardedTensor(shape, array.dtype, sharding, blocks)

@@ -46,6 +46,14 @@ per shape: a tile of :data:`GEMM_TILES`, the grid, and the K walk's unit.
   plan, and the tile's index with its shape, which it checks against the
   tiles it instantiates (``Tile<>``).  Kernels 1-4 walk 64-byte groups, so
   128-byte steps.
+* **Launches.** The grid's y (lane tiles) and z (instances) hold at most
+  65,535 (:data:`MAX_GRID_YZ`): past 4,194,240 lanes on the wide tile, or
+  65,535 instances, :attr:`CouplingPlan.launches` cuts the plan into runs
+  of at most that many tiles, which the wrapper issues in order on one
+  stream with σ, θ and the output offset to each run's first lane and
+  instance (kernel 8's GEMM likewise past 65,535 × 128 lanes on z,
+  :attr:`QmvPlan.launches`).  Below the edge a plan is one launch, its grid
+  as before.
 
 **Kernel 5** (``csrc/phase_step_multi.cu``) runs a whole settle-chunk in
 one launch, in one of two regimes that :func:`multi_plan` picks by shape:
@@ -284,12 +292,27 @@ QMV_FLAG_SMEM = 16
 #: (128 × 36 bytes), plus the split-K arrival flag (46,096 bytes).
 QMV_GEMM_SMEM = (2 * QMV_GEMM_TILE * (QMV_GEMM_BK + 4) * 4 + 2 * QMV_GEMM_TILE * (QMV_GEMM_BK + 4)
                  + QMV_FLAG_SMEM)
-#: Grid limit of the split axis (gridDim.y).
-_MAX_GRID_Y = 65_535
+#: CUDA's limit on a grid's y and z: kernel 8's K chunks (y) and GEMM lane
+#: tiles (z), the coupling GEMM's lane tiles (y) and instances (z).  A plan
+#: past it is cut into several launches of at most this many tiles each
+#: (``QmvPlan.launches``, ``CouplingPlan.launches``), issued in order on one
+#: stream with the operands' pointers offset to each launch's first lane
+#: (and instance).
+MAX_GRID_YZ = 65_535
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _runs(total: int, tile: int) -> Tuple[Tuple[int, int], ...]:
+    """(first, count) of consecutive runs of ``total`` items, each at most
+    :data:`MAX_GRID_YZ` tiles of ``tile`` items: one run unless more are
+    needed (an empty total is one empty run)."""
+    step = MAX_GRID_YZ * tile
+    if total <= step:
+        return ((0, total),)
+    return tuple((lo, min(step, total - lo)) for lo in range(0, total, step))
 
 
 def qmv_gemv_smem_bytes(lanes: int, k_chunk: int) -> int:
@@ -299,7 +322,7 @@ def qmv_gemv_smem_bytes(lanes: int, k_chunk: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class QmvPlan:
-    """One launch of kernel 8: the regime, the GEMV template size (``lanes``;
+    """The launches of kernel 8 (:attr:`launches`): the regime, the GEMV template size (``lanes``;
     0 in the GEMM regime), the K chunk each block owns and their number
     (``splits``), and whether the 16-byte vector path runs."""
 
@@ -313,16 +336,29 @@ class QmvPlan:
     vector: bool
 
     @property
+    def launches(self) -> Tuple[Tuple[int, int], ...]:
+        """(first lane, lanes) of each launch: one, unless the GEMM's lane
+        tiles pass :data:`MAX_GRID_YZ` on z; then runs of that many tiles."""
+        if self.regime == "gemv":
+            return ((0, self.batch),)
+        return _runs(self.batch, QMV_GEMM_TILE)
+
+    @property
     def grid(self) -> Tuple[int, int, int]:
-        """(row tiles, K chunks, lane tiles), as the kernel launches it."""
+        """(row tiles, K chunks, lane tiles) of the first (largest) launch,
+        as the kernel launches it."""
         if self.regime == "gemv":
             return (_cdiv(self.m, QMV_GEMV_ROWS), self.splits, 1)
-        return (_cdiv(self.m, QMV_GEMM_TILE), self.splits, _cdiv(self.batch, QMV_GEMM_TILE))
+        lanes = self.launches[0][1]
+        return (_cdiv(self.m, QMV_GEMM_TILE), self.splits, _cdiv(lanes, QMV_GEMM_TILE))
 
     @property
     def blocks(self) -> int:
-        gx, gy, gz = self.grid
-        return gx * gy * gz
+        """Blocks of every launch together."""
+        gx, gy, _ = self.grid
+        tile = QMV_GEMV_ROWS if self.regime == "gemv" else QMV_GEMM_TILE
+        return sum(gx * gy * (1 if self.regime == "gemv" else _cdiv(nb, tile))
+                   for _, nb in self.launches)
 
     @property
     def threads(self) -> int:
@@ -342,8 +378,9 @@ class QmvPlan:
 
     @property
     def workspace(self) -> int:
-        """float32 partial sums (splits, B, M) when K is split."""
-        return self.splits * self.batch * self.m if self.splits > 1 else 0
+        """float32 partial sums (splits, lanes, M) of the largest launch
+        when K is split; the launches run in order and reuse it."""
+        return self.splits * self.launches[0][1] * self.m if self.splits > 1 else 0
 
 
 def qmv_plan(batch: int, m: int, k: int, *, aligned: bool = True) -> QmvPlan:
@@ -366,7 +403,7 @@ def qmv_plan(batch: int, m: int, k: int, *, aligned: bool = True) -> QmvPlan:
             per = _cdiv(_cdiv(k, _cdiv(NUM_SMS, tiles)), step) * step
             k_chunk = max(QMV_GEMM_MIN_K_CHUNK, per)
         regime = "gemm"
-    k_chunk = max(k_chunk, _cdiv(_cdiv(k, _MAX_GRID_Y), step) * step)
+    k_chunk = max(k_chunk, _cdiv(_cdiv(k, MAX_GRID_YZ), step) * step)
     splits = max(1, _cdiv(k, k_chunk))
     return QmvPlan(batch, m, k, regime, lanes, k_chunk, splits, vector)
 
@@ -461,7 +498,7 @@ def coupling_k_steps(n: int, parallel: int = GEMM_GROUP_TILE) -> Tuple[Tuple[int
 
 @dataclasses.dataclass(frozen=True)
 class CouplingPlan:
-    """One launch of the coupling GEMM: ``inst`` × σ (b, n) · W (m, n)ᵀ, its
+    """The launches of the coupling GEMM (:attr:`launches`): ``inst`` × σ (b, n) · W (m, n)ᵀ, its
     tile, the MAC width it walks (``parallel``; 64, one group tile, for
     kernels 1-4) and the walk's unit, ``span`` columns."""
 
@@ -474,14 +511,30 @@ class CouplingPlan:
     span: int
 
     @property
+    def launches(self) -> Tuple[Tuple[int, int, int, int], ...]:
+        """(first instance, instances, first lane, lanes) of each launch, in
+        the order the wrapper issues them: one launch unless the lane tiles
+        (grid y) or the instances (grid z) pass :data:`MAX_GRID_YZ`; then
+        runs of at most that many tiles, so that every lane of every
+        instance is covered once.  A launch over part of the lanes takes one
+        instance (the pointer offsets hold one instance's stride)."""
+        lanes = _runs(self.b, self.tile.bm)
+        if len(lanes) > 1:  # a run of lanes is one instance's: its rows are contiguous
+            return tuple((i, 1, b0, nb) for i in range(self.inst) for b0, nb in lanes)
+        return tuple((i0, ni, 0, self.b) for i0, ni in _runs(self.inst, 1))
+
+    @property
     def grid(self) -> Tuple[int, int, int]:
-        """(row tiles, lane tiles, instances), as the kernel launches it."""
-        return (_cdiv(self.m, self.tile.bn), _cdiv(self.b, self.tile.bm), self.inst)
+        """(row tiles, lane tiles, instances) of the first (largest) launch,
+        as the kernel launches it."""
+        _, ni, _, nb = self.launches[0]
+        return (_cdiv(self.m, self.tile.bn), _cdiv(nb, self.tile.bm), ni)
 
     @property
     def blocks(self) -> int:
-        gx, gy, gz = self.grid
-        return gx * gy * gz
+        """Blocks of every launch together."""
+        gx = _cdiv(self.m, self.tile.bn)
+        return sum(gx * _cdiv(nb, self.tile.bm) * ni for _, ni, _, nb in self.launches)
 
     @property
     def stages(self) -> int:
@@ -533,10 +586,22 @@ KINDS = ("step", "hybrid", "matvec", "multi")
 N_BUCKETS = tuple(sorted((16, 32, 48, 64, 128, 256, 506, 512, 1024, 2048, 4096,
                           MULTI_CLUSTER_MAX_N, 8192, MULTI_KERNEL_MAX_N)))
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+#: The grid's edges, where a plan first takes a second launch: at N = 506
+#: the coupling GEMM's wide tile holds 65,535 × 64 = 4,194,240 lanes a
+#: launch and kernel 8's GEMM 65,535 × 128 = 8,388,480; a bucket at each
+#: edge, one lane past it, and the sizes ``chip_smoke.py`` launches
+#: (``launch_edges``).  The instance axis's edge is ``analysis/vmem.py``'s
+#: ``STEP_INSTANCES``.
+EDGE_BUCKETS = tuple(
+    (kind, 506, b) for kind, edges in (("step", (4_194_240, 4_194_241, 4_194_341)),
+                                       ("hybrid", (4_194_240, 4_194_241, 4_194_341)),
+                                       ("matvec", (8_388_480, 8_388_481, 8_388_557)))
+    for b in edges)
 
 
 def iter_buckets(kinds: Tuple[str, ...] = KINDS) -> Iterator[Tuple[str, int, int]]:
-    """Every ``(kind, n, batch)`` bucket of the grid; ``multi`` buckets past
+    """Every ``(kind, n, batch)`` bucket of the grid, then the
+    :data:`EDGE_BUCKETS` of those kinds; ``multi`` buckets past
     :data:`MULTI_KERNEL_MAX_N` are skipped (kernel 5 refuses them, and the
     dynamics take the per-cycle route)."""
     for kind in kinds:
@@ -547,6 +612,7 @@ def iter_buckets(kinds: Tuple[str, ...] = KINDS) -> Iterator[Tuple[str, int, int
                 continue
             for batch in BATCH_BUCKETS:
                 yield kind, n, batch
+    yield from (b for b in EDGE_BUCKETS if b[0] in kinds)
 
 
 def cache_info() -> Dict[str, int]:

@@ -518,6 +518,9 @@ template <int MODE, class T>
 int launch_tile(const void* sigma, const void* packed, const void* w, const void* bias,
                 const void* phase, void* out, int I, int B, int M, int N, int span, int half,
                 void* stream) {
+  // The grid's y and z hold 65,535: the planner cuts a larger batch into
+  // several launches (autotune.CouplingPlan.launches), so this guard only
+  // refuses a plan that did not.  Every offset below is 64-bit.
   const dim3 grid((M + T::BN - 1) / T::BN, (B + T::BM - 1) / T::BM, I);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   using OutT = typename OutOf<MODE>::type;

@@ -519,6 +519,8 @@ int onn_quantized_matvec(const void* x, const void* w, const void* scale, void* 
   const bool vec = vector != 0;
   cudaError_t rc = cudaSuccess;
   if (gemv_lanes == 0) {
+    // z holds 65,535 lane tiles: the planner cuts more lanes into several
+    // launches (autotune.QmvPlan.launches); this guard refuses a plan that did not.
     if (k_chunk % GM_BK != 0 || (B + GM_TILE - 1) / GM_TILE > 65535) return (int)cudaErrorInvalidValue;
     dim3 grid((M + GM_TILE - 1) / GM_TILE, splits, (B + GM_TILE - 1) / GM_TILE);
     if (vec)

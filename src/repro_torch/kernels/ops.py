@@ -67,6 +67,21 @@ def _check_extent(*sizes: int) -> None:
             raise ValueError(f"kernel extent {s} does not fit a 32-bit index")
 
 
+def _at(t: torch.Tensor, elems: int) -> int:
+    """The address of ``t``'s element ``elems`` (a contiguous tensor)."""
+    return t.data_ptr() + elems * t.element_size()
+
+
+def _gemm(name: str, entry: str, plan: autotune.CouplingPlan, device: torch.device, args) -> None:
+    """Every launch of ``plan`` (:attr:`~autotune.CouplingPlan.launches`)
+    through the coupling GEMM's ``entry``, in order on one stream, one count
+    each: ``args(i0, ni, b0, nb)`` gives one launch's arguments, the
+    operands offset to its first instance and lane."""
+    for i0, ni, b0, nb in plan.launches:
+        _launch("coupling_gemm", entry, device, *args(i0, ni, b0, nb), *plan.args)
+        LAUNCHES[name] += 1
+
+
 def _bias(bias, n: int, like: torch.Tensor) -> torch.Tensor:
     if bias is None:
         return torch.zeros((n,), dtype=torch.int32, device=like.device)
@@ -82,7 +97,8 @@ def _coupling_sums(name: str, w: torch.Tensor, sigma: torch.Tensor, parallel) ->
     """Kernel 1 (``parallel`` None) or kernel 6, on a 2-d or 3-d ``w``.
 
     A 2-d call is the kernel's I = 1 case; a 3-d ``w`` (I, M, N) takes
-    ``sigma`` (I, ..., N), one launch for every instance, counted under
+    ``sigma`` (I, ..., N), one launch for every instance (a plan past CUDA's
+    grid limits cuts it into several, :func:`_gemm`), counted under
     ``<name>_batched``.
     """
     require_int_dtype(w, "w")
@@ -101,15 +117,13 @@ def _coupling_sums(name: str, w: torch.Tensor, sigma: torch.Tensor, parallel) ->
                else _ref.hybrid_coupling_sum_ref(w3, sig3, parallel))
     else:
         b = sig3.shape[1]
-        _check_extent(inst * b * n, inst * m * n, inst * b * m)
+        _check_extent(inst, b, m, n)
         w8, sig3 = w3.to(torch.int8).contiguous(), sig3.contiguous()
         out = torch.empty((inst, b, m), dtype=torch.int32, device=sig3.device)
-        plan = autotune.coupling_plan(inst, b, m, n, parallel)
-        _launch(
-            "coupling_gemm", "onn_coupling_sum", sig3.device,
-            sig3.data_ptr(), w8.data_ptr(), out.data_ptr(), inst, b, m, n, *plan.args,
-        )
-        LAUNCHES[f"{name}_batched" if batched else name] += 1
+        _gemm(f"{name}_batched" if batched else name, "onn_coupling_sum",
+              autotune.coupling_plan(inst, b, m, n, parallel), sig3.device,
+              lambda i0, ni, b0, nb: (_at(sig3, (i0 * b + b0) * n), _at(w8, i0 * m * n),
+                                      _at(out, (i0 * b + b0) * m), ni, nb, m, n))
     return out.reshape(*lead, m)
 
 
@@ -131,7 +145,8 @@ def coupling_sum(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
     """One fused ONN spin update: σ' = sign(W σ + h) as int8, where
     W σ + h == 0 keeps σ.  ``w`` (N, N); ``sigma`` (N,) or (..., N); ``bias``
-    (N,) integers or None (zeros).  One launch per call.
+    (N,) integers or None (zeros).  One launch per call (several past
+    65,535 lane tiles: ``autotune.CouplingPlan.launches``).
     """
     require_int_dtype(w, "w")
     n = w.shape[0]
@@ -144,15 +159,12 @@ def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
         out = _ref.onn_step_ref(w, sig2d, h)
     else:
         b = sig2d.shape[0]
-        _check_extent(b * n, n * n)
+        _check_extent(b, n)
         w8, sig2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, h))
         out = torch.empty((b, n), dtype=torch.int8, device=sig2d.device)
-        _launch(
-            "coupling_gemm", "onn_step", sig2d.device,
-            sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), out.data_ptr(), b, n,
-            *autotune.coupling_plan(1, b, n, n).args,
-        )
-        LAUNCHES["onn_step"] += 1
+        _gemm("onn_step", "onn_step", autotune.coupling_plan(1, b, n, n), sig2d.device,
+              lambda _i0, _ni, b0, nb: (_at(sig2d, b0 * n), w8.data_ptr(), h.data_ptr(),
+                                        _at(out, b0 * n), nb, n))
     return out.reshape(*batch_shape, n)
 
 
@@ -171,7 +183,8 @@ def phase_step(
 ) -> torch.Tensor:
     """Fused functional-mode cycle; ``sigma``/``phase`` (N,) or (..., N).
 
-    ``phase`` is returned in its input dtype.  One launch per cycle.
+    ``phase`` is returned in its input dtype.  One launch per cycle (several
+    past 65,535 lane tiles).
     """
     require_int_dtype(w, "w")
     n = w.shape[0]
@@ -183,16 +196,20 @@ def phase_step(
         out = _ref.phase_step_ref(w, sig2d, h, ph2d, half)
     else:
         b = sig2d.shape[0]
-        _check_extent(b * n, n * n)
+        _check_extent(b, n)
         w8, sig2d, ph2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, ph2d, h))
         out = torch.empty((b, n), dtype=torch.int32, device=sig2d.device)
-        _launch(
-            "coupling_gemm", "onn_phase_step", sig2d.device,
-            sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), ph2d.data_ptr(),
-            out.data_ptr(), b, n, half, *autotune.coupling_plan(1, b, n, n).args,
-        )
-        LAUNCHES["phase_step"] += 1
+        _phase_gemm("phase_step", autotune.coupling_plan(1, b, n, n), w8, sig2d, h, ph2d, out,
+                    half)
     return out.to(phase.dtype).reshape(*batch_shape, n)
+
+
+def _phase_gemm(name: str, plan: autotune.CouplingPlan, w8, sig2d, h, ph2d, out, half: int):
+    """Kernel 3's entry (kernel 7 on the walk of its MAC width) over ``plan``'s launches."""
+    n = w8.shape[0]
+    _gemm(name, "onn_phase_step", plan, sig2d.device,
+          lambda _i0, _ni, b0, nb: (_at(sig2d, b0 * n), w8.data_ptr(), h.data_ptr(),
+                                    _at(ph2d, b0 * n), _at(out, b0 * n), nb, n, half))
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +242,15 @@ def phase_step_packed(
         out = _ref.phase_step_packed_ref(w, h, ph2d, half)
     else:
         b = ph2d.shape[0]
-        _check_extent(b * n, n * n)
+        _check_extent(b, n)
         packed = pack_phases(ph2d).contiguous()
         w8, h = w.to(torch.int8).contiguous(), h.contiguous()
         out = torch.empty((b, n), dtype=torch.int32, device=ph2d.device)
-        _launch(
-            "coupling_gemm", "onn_phase_step_packed", ph2d.device,
-            packed.data_ptr(), w8.data_ptr(), h.data_ptr(), out.data_ptr(), b, n, half,
-            *autotune.coupling_plan(1, b, n, n).args,
-        )
-        LAUNCHES["phase_step_packed"] += 1
+        pw = packed.shape[-1]
+        _gemm("phase_step_packed", "onn_phase_step_packed", autotune.coupling_plan(1, b, n, n),
+              ph2d.device,
+              lambda _i0, _ni, b0, nb: (_at(packed, b0 * pw), w8.data_ptr(), h.data_ptr(),
+                                        _at(out, b0 * n), nb, n, half))
     return out.to(phase.dtype).reshape(*batch_shape, n)
 
 
@@ -428,7 +444,8 @@ def hybrid_phase_step(
     the coupling sum serialized into passes of MAC width ``parallel``.
 
     Same calling convention as :func:`phase_step` (W square, ``phase``
-    returned in its input dtype).  One launch per cycle.
+    returned in its input dtype).  One launch per cycle (several past 65,535
+    lane tiles).
     """
     require_int_dtype(w, "w")
     _check_parallel(parallel)
@@ -441,16 +458,12 @@ def hybrid_phase_step(
         out = _ref.hybrid_phase_step_ref(w, sig2d, h, ph2d, half, parallel)
     else:
         b = sig2d.shape[0]
-        _check_extent(b * n, n * n)
+        _check_extent(b, n)
         w8, sig2d, ph2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, ph2d, h))
         out = torch.empty((b, n), dtype=torch.int32, device=sig2d.device)
         # Kernel 7 is kernel 3's entry point on the walk of MAC width P.
-        _launch(
-            "coupling_gemm", "onn_phase_step", sig2d.device,
-            sig2d.data_ptr(), w8.data_ptr(), h.data_ptr(), ph2d.data_ptr(),
-            out.data_ptr(), b, n, half, *autotune.coupling_plan(1, b, n, n, parallel).args,
-        )
-        LAUNCHES["hybrid_phase_step"] += 1
+        _phase_gemm("hybrid_phase_step", autotune.coupling_plan(1, b, n, n, parallel), w8,
+                    sig2d, h, ph2d, out, half)
     return out.to(phase.dtype).reshape(*batch_shape, n)
 
 
@@ -465,7 +478,8 @@ def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
     ``w_q`` (M, K) int8; ``x`` (K,) or (..., K), cast to float32 → (..., M)
     float32.  Each element is within K · 2⁻²⁴ · |scale_m| · Σ_k |x_k w_mk|
     of the exact value (float32 summation, in the kernel's order on the
-    card and the matmul's on the CPU).  One launch per call, planned by
+    card and the matmul's on the CPU).  One launch per call (one per run of
+    65,535 lane tiles past that), planned by
     :func:`~repro_torch.kernels.autotune.qmv_plan`; when it splits K, the
     wrapper also allocates the partial sums and the zeroed arrival counters,
     and the kernel sums the partials in a fixed order, so two calls on the
@@ -484,7 +498,7 @@ def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
         out = _ref.quantized_matvec_ref(w_q, scale_full, x2d)
     else:
         b = x2d.shape[0]
-        _check_extent(b * k, m * k, b * m)
+        _check_extent(b, m, k)
         w8, x2d, s = (t.contiguous() for t in (w_q.to(torch.int8), x2d, scale_full))
         aligned = x2d.data_ptr() % 16 == 0 and w8.data_ptr() % 16 == 0
         plan = autotune.qmv_plan(b, m, k, aligned=aligned)
@@ -493,12 +507,17 @@ def quantized_matvec(w_q: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
         if plan.splits > 1:
             partial = torch.empty((plan.workspace,), dtype=torch.float32, device=x2d.device)
             counters = torch.zeros((plan.counters,), dtype=torch.int32, device=x2d.device)
-        _launch(
-            "quantized_matvec", "onn_quantized_matvec", x2d.device,
-            x2d.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            b, m, k, plan.lanes, plan.k_chunk, plan.splits, int(plan.vector),
-        )
-        LAUNCHES["quantized_matvec"] += 1
+        # Past 65,535 GEMM lane tiles, runs of lanes in order on one stream;
+        # each leaves the counters zero for the next.  A run's first lane is
+        # a multiple of 128 × 65,535, so x's offset keeps the vector path's
+        # 16-byte alignment.
+        for b0, nb in plan.launches:
+            _launch(
+                "quantized_matvec", "onn_quantized_matvec", x2d.device,
+                _at(x2d, b0 * k), w8.data_ptr(), s.data_ptr(), _at(out, b0 * m),
+                None if partial is None else partial.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                nb, m, k, plan.lanes, plan.k_chunk, plan.splits, int(plan.vector),
+            )
+            LAUNCHES["quantized_matvec"] += 1
     return out.reshape(*batch_shape, m)

@@ -4,40 +4,48 @@ Counts every (architecture × input shape) cell against the production mesh
 (``launch.mesh.make_production_mesh``) WITHOUT allocating anything: the
 cell's step (``models.steps.build_cell``) runs on meta tensors under one
 dispatch mode that counts what each op does.  The port has no partitioner,
-so a cell measures **one data-parallel replica's step** at full width: the
-``global_batch / dp_size`` examples one replica takes, in the cell's
-``auto_microbatches``, where ``dp_size`` is the product of the mesh axes the
-batch rule names.  From it the cell records, into
+so a cell measures **one device's program** (``models/tp.py``;
+``build_cell(per_device=True)``): the ``global_batch / dp_size`` examples
+one data-parallel replica takes, in the cell's ``auto_microbatches``, where
+``dp_size`` is the product of the mesh axes the batch rule names, through
+that device's blocks of every leaf that ``params.pspecs`` splits over
+``"model"`` (local heads, MLP width, vocab, experts; a ``kv_seq``-split
+cache at its block), whole where the specs replicate, with the
+tensor-parallel collectives at the points where a split contraction leaves
+a partial sum or a split result.  From it the cell records, into
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``:
 
-* **FLOPs and bytes accessed** (``cost_analysis``).  FLOPs come from
-  ``torch.utils.flop_counter``'s formulas; bytes accessed are the sum of
-  each op's tensor inputs and outputs (views move nothing), what XLA's
-  ``bytes accessed`` sums.  Both are extrapolated from probes at 1 and 2
-  layer groups × 2 and 3 examples (one microbatch's count when it holds
-  fewer: a batch of one is a degenerate point of torch's bytes) with the
-  reference's algebra (``_layer_points``, the enc-dec's three depth points,
-  ``_solve_linear``), then scaled by the microbatches.  Per device: the
-  replica's count over the size of the ``"model"`` axis, the ideal
-  tensor-parallel split (``per_device_split``).
+* **FLOPs and bytes accessed** (``cost_analysis``), per device.  FLOPs
+  come from ``torch.utils.flop_counter``'s formulas; bytes accessed are the
+  sum of each op's tensor inputs and outputs (views move nothing), what
+  XLA's ``bytes accessed`` sums.  Both are extrapolated from probes at 1
+  and 2 layer groups × 2 and 3 examples (one microbatch's count when it
+  holds fewer: a batch of one is a degenerate point of torch's bytes) with
+  the reference's algebra (``_layer_points``, the enc-dec's three depth
+  points, ``_solve_linear``), then scaled by the microbatches.
 * **Memory per device** (``memory_analysis``).  Argument bytes are exact:
   each leaf's per-device block (``params.local_shape``) under the cell's
   specs and the mesh sizes; the donated arguments are the alias bytes;
-  output bytes are those plus the other outputs at one replica's size.
-  Temporary bytes are the peak of live storage the replica's step makes
-  above its arguments (its outputs included), counted by this module's own
-  tracker over probes of the replica's whole step at 1 and 2 layer groups
-  and extrapolated the same way: an upper bound, since nothing of it is
-  split over the model axis.  ``fits``: arguments plus temporaries within
-  one H100's 80 GB.
-* **Parameter-side collective bytes per device** (``collectives``), from
-  the specs, with the reference's ring wire factors: a leaf split over a
-  data-parallel axis (FSDP) is all-gathered at each use (forward, remat's
-  recompute and backward for train, per microbatch); a train step
+  output bytes are those plus the program's other outputs.  Temporary
+  bytes are the peak of live storage the device's program makes above its
+  arguments (its outputs included), counted by this module's own tracker
+  over probes of the whole step at 1 and 2 layer groups and extrapolated
+  the same way; ``peak_segment`` names the stretch that holds it.  The
+  program holds the FSDP-split leaves whole (gathered at use), as its
+  arguments, which the peak does not count.  ``fits``: arguments plus
+  temporaries within one H100's 80 GB.
+* **Collective bytes per device** (``collectives``), with the reference's
+  ring wire factors (``hlo_analysis.WIRE_FACTOR``), the sum of two parts.
+  The parameter side (``collectives_params``), from the specs: a leaf split
+  over a data-parallel axis (FSDP) is all-gathered at each use (forward,
+  remat's recompute and backward for train, per microbatch); a train step
   reduce-scatters its gradient over those axes and all-reduces it over the
   other batch axes (a replicated leaf: all-reduce over every batch axis),
-  once a step.  The tensor-parallel activations' collectives are not
-  counted (``collectives_counted``).
+  once a step.  The tensor-parallel side (``collectives_tp``), counted by
+  the program's hooks (``tp.CountHook``) in its forward, remat's recompute
+  and its backward, and extrapolated with the FLOPs.  At a model axis of 1
+  (and no ``kv_seq`` split) the program is the replica's step and the
+  counts are the replica's.
 
 The reference's HLO parser has no counterpart (``launch.hlo_analysis``);
 its ``_accounting_cfg`` is not needed (the probes count the cell's own
@@ -109,18 +117,20 @@ from repro_torch.launch import hlo_analysis as hlo
 from repro_torch.launch.mesh import make_production_mesh, mesh_devices
 from repro_torch.models import params as PM
 from repro_torch.models import steps as steps_lib
+from repro_torch.models import tp
 from repro_torch.models.config import SHAPES
 from repro_torch.models.model import get_model
 
 ARTIFACT_DIR = os.path.normpath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch"))
 
-PER_DEVICE_SPLIT = ("the replica's count over the 'model' axis: the ideal tensor-parallel "
-                    "split, not a replication-aware count")
-COLLECTIVES_COUNTED = ("parameter-side only: FSDP all-gathers and the gradient's "
-                       "reduce-scatter / all-reduce; the tensor-parallel activations' "
-                       "collectives are not counted")
-TEMP_BOUND = "upper bound: one replica's live storage, not split over the 'model' axis"
+#: What an LM cell's per-device fields count (its ``per_device`` entry).
+PER_DEVICE = ("one device's program (models/tp.py): its blocks of the model-split "
+              "leaves, whole where the specs replicate; FLOPs, bytes and temporaries "
+              "its own; collectives: the parameter side (FSDP gathers, the gradient's "
+              "reduce-scatter / all-reduce) and the tensor-parallel hooks' (forward, "
+              "remat's recompute and backward)")
+
 
 
 # ---------------------------------------------------------------------------
@@ -352,22 +362,42 @@ def _solve_linear(points, features_full) -> Dict[str, Any]:
 # Probes
 # ---------------------------------------------------------------------------
 
-def _probe(cfg, shape, probes, *, optimizer, microbatches, accum_dtype) -> Dict[str, Any]:
-    """The counts of one probe's step; ``probes`` holds those a cell has
-    made already (its cost and memory probes meet when the replica takes
-    one microbatch of 3 examples or fewer)."""
-    key = (cfg, shape, microbatches, optimizer, accum_dtype)
+class Split(NamedTuple):
+    """Where one device's program sits: the rule table and the mesh's axis
+    sizes (``models.tp``; a model axis of 1 is the replica's own step)."""
+
+    rules: Dict[str, Any]
+    sizes: Dict[str, int]
+
+    def key(self) -> tuple:
+        return (tuple(sorted((k, str(v)) for k, v in self.rules.items())),
+                tuple(sorted(self.sizes.items())))
+
+
+def _probe(cfg, shape, probes, *, optimizer, microbatches, accum_dtype,
+           split: Split) -> Dict[str, Any]:
+    """The counts of one probe's step: one device's program
+    (``build_cell(per_device=True)``) under a :class:`models.tp.CountHook`,
+    whose collectives are the probe's ``coll_counts`` and ``coll_bytes``;
+    ``probes`` holds those a cell has made already (its cost and memory
+    probes meet when the replica takes one microbatch of 3 examples or
+    fewer)."""
+    key = (cfg, shape, microbatches, optimizer, accum_dtype, split.key())
     if key not in probes:
-        cell = steps_lib.build_cell(cfg, shape, {}, optimizer_name=optimizer,
-                                    microbatches=microbatches, accum_dtype=accum_dtype)
-        got = count_step(cell.step_fn, cell.abstract_args)
+        cell = steps_lib.build_cell(cfg, shape, split.rules, optimizer_name=optimizer,
+                                    microbatches=microbatches, accum_dtype=accum_dtype,
+                                    axis_sizes=split.sizes, per_device=True)
+        sizes = {"model": split.sizes.get("model", 1), "kv_seq": cell.kv_seq_blocks}
+        hook = tp.CountHook(sizes)
+        with tp.use(tp.Layout(sizes, {}, hook), shared=True):
+            got = count_step(cell.step_fn, cell.abstract_args)
         out = got.pop("outputs")
         # the outputs that do not take a donated argument's place: a train
         # step's metrics, a serve step's token and logits, all of a prefill's
         kept = {"train": out[1:], "decode": out[:2]}.get(cell.kind, out)
         got["other_output_bytes"] = sum(
             t.nbytes for t in pytree.tree_leaves(kept) if isinstance(t, torch.Tensor))
-        got.update(coll_counts={}, coll_bytes={})
+        got.update(coll_counts=dict(hook.counts), coll_bytes=dict(hook.bytes))
         probes[key] = got
     return probes[key]
 
@@ -392,7 +422,8 @@ def _drop_degenerate(points, full_feats):
 
 
 def _cost_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
-                           accum_dtype=torch.float32, probes=None) -> Dict[str, Any]:
+                           accum_dtype=torch.float32, probes=None,
+                           split: Split = Split({}, {})) -> Dict[str, Any]:
     """One replica's full-depth FLOPs and bytes from probes at 1 and 2
     layer groups × 2 and 3 examples (one microbatch's when it holds fewer),
     fitted to cost = a + k·c + b·d + k·b·e and scaled by the microbatches,
@@ -414,12 +445,20 @@ def _cost_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
     for dfeats, cfg_k in depth:
         for b in batches:
             m = _probe(cfg_k, dataclasses.replace(shape, global_batch=b), probes,
-                       optimizer=optimizer, microbatches=1, accum_dtype=accum_dtype)
+                       optimizer=optimizer, microbatches=1, accum_dtype=accum_dtype,
+                       split=split)
             feats = dfeats + [b] + [f * b for f in dfeats[1:]]
             points.append((feats, m))
     full_feats = depth_full + [b_full] + [f * b_full for f in depth_full[1:]]
     points, full_feats = _drop_degenerate(points, full_feats)
     out = _solve_linear(points, full_feats)
+    # A count is a whole number: the fit rounded (``_solve_linear`` truncates,
+    # as the reference's does, so 7.9999… would count 7).
+    feats = np.array([p[0] for p in points], dtype=float)
+    for k in out["coll_counts"]:
+        ys = np.array([m["coll_counts"].get(k, 0) for _, m in points], dtype=float)
+        coef, *_ = np.linalg.lstsq(feats, ys, rcond=None)
+        out["coll_counts"][k] = max(0, int(round(float(np.dot(coef, full_feats)))))
     for key in ("flops", "bytes"):
         out[key] *= scale
     out["coll_counts"] = {k: int(v * scale) for k, v in out["coll_counts"].items()}
@@ -431,7 +470,8 @@ def _cost_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
 
 
 def _memory_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
-                             accum_dtype=torch.float32, probes=None) -> Dict[str, Any]:
+                             accum_dtype=torch.float32, probes=None,
+                             split: Split = Split({}, {})) -> Dict[str, Any]:
     """The replica's whole step (its batch, its microbatches) probed at 1
     and 2 layer groups: the peak of live storage above the arguments and
     the non-donated outputs' bytes, each extrapolated affinely to the full
@@ -447,7 +487,7 @@ def _memory_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
     depth, depth_full = _depth_points(cfg)
     shp = dataclasses.replace(shape, global_batch=replica_batch)
     runs = [_probe(cfg_k, shp, probes, optimizer=optimizer, microbatches=mb,
-                   accum_dtype=accum_dtype) for _, cfg_k in depth]
+                   accum_dtype=accum_dtype, split=split) for _, cfg_k in depth]
     layouts = {tuple((seg[0], len(seg[2]) if len(seg) == 3 else None) for seg in m["segments"])
                for m in runs}
     if len(layouts) != 1:
@@ -580,17 +620,23 @@ def run_cell(
         opt_name = "adafactor" if cfg.family == "moe" else "adamw"
 
     probes: Dict[tuple, Dict[str, Any]] = {}
+    split = Split(rules, sizes)
     cost = _cost_by_extrapolation(cfg, shape, optimizer=optimizer, replica_batch=replica_batch,
-                                  mb=mb, accum_dtype=accum_dtype, probes=probes)
+                                  mb=mb, accum_dtype=accum_dtype, probes=probes, split=split)
     memory = _memory_by_extrapolation(cfg, shape, optimizer=optimizer,
                                       replica_batch=replica_batch, mb=mb,
-                                      accum_dtype=accum_dtype, probes=probes)
+                                      accum_dtype=accum_dtype, probes=probes, split=split)
     p_abs, p_spec = cell.abstract_args[0], cell.in_specs[0]
     if shape.kind == "train":
         p_abs, p_spec = p_abs.params, p_spec.params
-    coll = param_collectives(p_abs, p_spec, rules, sizes, kind=shape.kind, remat=cfg.remat,
-                             microbatches=mb, grad_dtype=accum_dtype)
-    model_size = sizes.get("model", 1)
+    params_coll = param_collectives(p_abs, p_spec, rules, sizes, kind=shape.kind,
+                                    remat=cfg.remat, microbatches=mb, grad_dtype=accum_dtype)
+    tp_coll = hlo.CollectiveStats(counts=cost["coll_counts"], bytes=cost["coll_bytes"])
+    coll = hlo.CollectiveStats(
+        counts={k: params_coll.counts.get(k, 0) + tp_coll.counts.get(k, 0)
+                for k in set(params_coll.counts) | set(tp_coll.counts)},
+        bytes={k: params_coll.bytes.get(k, 0.0) + tp_coll.bytes.get(k, 0.0)
+               for k in set(params_coll.bytes) | set(tp_coll.bytes)})
     mem = {
         "argument_size_in_bytes": args_b,
         "output_size_in_bytes": alias_b + memory["other_outputs"],
@@ -607,8 +653,8 @@ def run_cell(
         cfg=cfg,
         mesh_name=mesh_name,
         mem=mem,
-        flops=cost["flops"] / model_size,
-        byts=cost["bytes"] / model_size,
+        flops=cost["flops"],
+        byts=cost["bytes"],
         coll=coll,
         tag=tag,
         outdir=outdir,
@@ -616,11 +662,11 @@ def run_cell(
         extra={
             "dp_size": dp_size,
             "replica_batch": replica_batch,
-            "replica_cost": {"flops": cost["flops"], "bytes_accessed": cost["bytes"]},
-            "per_device_split": PER_DEVICE_SPLIT,
-            "model_axis": model_size,
-            "temp_bound": TEMP_BOUND,
-            "collectives_counted": COLLECTIVES_COUNTED,
+            "model_axis": sizes.get("model", 1),
+            "per_device": PER_DEVICE,
+            "peak_segment": memory["peak_segment"],
+            "collectives_params": {"counts": params_coll.counts, "bytes": params_coll.bytes},
+            "collectives_tp": {"counts": tp_coll.counts, "bytes": tp_coll.bytes},
             "cost_probe_s": cost["probe_s"],
             "cost_scale": cost["cost_scale"],
             "n_probes": cost["n_probes"],

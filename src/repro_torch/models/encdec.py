@@ -29,6 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, torch_dtype
 from repro_torch.models.transformer import ParamTree, _stack, _unstack
@@ -156,12 +157,13 @@ def decode_sequence(
     d = cfg.d_model
     dtype = torch_dtype(cfg.dtype)
     pos = sinusoid(s, d, device=memory.device).to(dtype)[None]
-    x = L.embed(params["embed"], tokens, dtype) + pos
+    x = L.embed(params["embed"], tokens, dtype, tp.parts(params, "embed", 0)) + pos
     kv = ([], [], [], [])
 
     def body(lp, x, memory):
         h = _ln(x, lp["ln1"])
-        y, k, v = L.self_attention(lp["self_attn"], h, cfg, None, causal=True, rope=False)
+        y, k, v = L.self_attention(lp["self_attn"], h, cfg, None, causal=True, rope=False,
+                                   cache_kv=collect_kv)
         if collect_kv:
             for out, t in zip(kv, (k, v, L.dot(memory, lp["cross_attn"]["wk"]),
                                    L.dot(memory, lp["cross_attn"]["wv"]))):
@@ -181,11 +183,7 @@ def decode_sequence(
 def lm_logits(params: EncDecLM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits on the tied ``embed`` in the served dtype; columns ≥ ``vocab``
     masked to −1e30."""
-    logits = L.dot(x, params["embed"].T)
-    if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return L.vocab_logits(x, params["embed"].T, cfg, tp.parts(params, "embed", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +213,7 @@ def decode_step(
     """One decoder token against the cache, whose self KV it writes in
     place at ``index``.  Returns (logits (B, V), cache)."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][token].to(dtype)
+    x = L.embed(params["embed"], token, dtype, tp.parts(params, "embed", 0))
     x = x + sinusoid(1, cfg.d_model, offset=index, device=x.device).to(dtype)[None]
     for i, lp in enumerate(params["dec_blocks"]):
         h = _ln(x, lp["ln1"])

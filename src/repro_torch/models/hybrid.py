@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models import tp
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, map_tree, torch_dtype
@@ -117,7 +118,7 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
     states, caches): with ``collect_cache`` caches is (MambaCache of
     (G, E, B, …) tensors, (k, v) of (G, B, S, KV, hd)), else None."""
     s = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype), tp.parts(params, "embed", 0))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     shared = params["shared"]
     groups, per_group = len(params["blocks"]), cfg.shared_attn_every
@@ -138,7 +139,7 @@ def zamba_forward_hidden(params: ZambaLM, tokens: torch.Tensor, cfg: ModelConfig
             x = x + y
         # the shared attention block, with this invocation's norms
         h = L.rms_norm(x, ln1s[g], cfg.norm_eps)
-        y, k, v = L.self_attention(shared["attn"], h, cfg, positions)
+        y, k, v = L.self_attention(shared["attn"], h, cfg, positions, cache_kv=collect_cache)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -171,7 +172,7 @@ def zamba_cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, A
 def zamba_decode_step(params: ZambaLM, cache: Dict[str, torch.Tensor], token: torch.Tensor,
                       index: int, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token against the cache, updated in place: (logits (B, V), cache)."""
-    x = params["embed"][token].to(torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], token, torch_dtype(cfg.dtype), tp.parts(params, "embed", 0))
     shared = params["shared"]
     for g, group in enumerate(params["blocks"]):
         for j, lp in enumerate(group):
@@ -247,7 +248,7 @@ def xlstm_forward_hidden(params: XLSTMLM, tokens: torch.Tensor, cfg: ModelConfig
     caches): with ``collect_cache`` caches is (MLSTMCache of (G, M, B, …)
     tensors, (s_conv (G, B, K − 1, D), SLSTMCache of (G, B, H, hd))), else
     None."""
-    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype), tp.parts(params, "embed", 0))
     g, m = _xlstm_groups(cfg)
     m_convs, m_states, s_convs, s_cells = _Stacked(g, m), _Stacked(g, m), [], []
     for group, sp in zip(params["mblocks"], params["sblocks"]):
@@ -305,7 +306,7 @@ def xlstm_decode_step(params: XLSTMLM, cache: Dict[str, torch.Tensor], token: to
     """One token against the cache, updated in place: (logits (B, V),
     cache).  ``index`` is unused: the recurrence has no position."""
     del index
-    x = params["embed"][token].to(torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], token, torch_dtype(cfg.dtype), tp.parts(params, "embed", 0))
     for g, (group, sp) in enumerate(zip(params["mblocks"], params["sblocks"])):
         for j, lp in enumerate(group):
             h = L.rms_norm(x, lp["ln"], cfg.norm_eps)

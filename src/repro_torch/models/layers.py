@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
@@ -73,14 +74,38 @@ def remat(fn, *args, enabled: bool = True):
     return fn(*args)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype,
+          parts: int = 1) -> torch.Tensor:
     """The rows of ``table`` at ``tokens`` in ``dtype`` (an exact cast).
     Under autograd the table is cast before the lookup, as the reference
     does, so that a token's gradients are summed in ``dtype`` and rounded to
-    the table's dtype once; otherwise only the looked-up rows are cast."""
+    the table's dtype once; otherwise only the looked-up rows are cast.
+
+    ``parts`` > 1: ``table`` is this device's block of the vocab rows (a
+    device's program, ``models/tp.py``); tokens outside it give zero rows,
+    and the blocks' rows are summed over the ``"model"`` axis."""
+    if parts > 1:
+        local = tokens - tp.rank() * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = embed(table, local.clamp(0, table.shape[0] - 1), dtype)
+        return tp.reduce(rows * inside[..., None].to(dtype))
     if torch.is_grad_enabled():
         return table.to(dtype)[tokens]
     return table[tokens].to(dtype)
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, parts: int = 1):
+    """``x · w`` over the (padded) vocab in ``x``'s dtype, the columns
+    ≥ ``vocab`` masked to −1e30; with ``parts`` > 1 ``w`` holds this
+    device's block of the columns, and the blocks are gathered."""
+    if parts > 1:
+        x = tp.enter(x)
+    logits = dot(x, w)
+    if cfg.padded_vocab != cfg.vocab:  # mask pad columns (see padded_vocab)
+        cols = tp.rank() * w.shape[-1] if parts > 1 else 0
+        pad = torch.arange(cols, cols + w.shape[-1], device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return tp.gather(logits, -1) if parts > 1 else logits
 
 
 # ---------------------------------------------------------------------------
@@ -257,17 +282,70 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpe
     return specs
 
 
+class HeadSplit(NamedTuple):
+    """How a device's program holds an attention's heads (``models/tp.py``):
+    ``parts`` blocks of the query heads; ``kv`` the KV heads its query
+    heads read where the KV heads are whole on every device (None: its KV
+    heads line up with its query heads); ``index`` each local query head's
+    KV head within ``kv`` where they do not form equal groups (else None)."""
+
+    parts: int
+    kv: Optional[slice]
+    index: Optional[Tuple[int, ...]]
+
+
+def head_split(params, cfg: ModelConfig) -> HeadSplit:
+    """The :class:`HeadSplit` of ``params`` (an attention's weights)."""
+    hp = tp.parts(params, "wq", 1)
+    if hp == 1 or tp.parts(params, "wk", 1) == hp:
+        return HeadSplit(hp, None, None)
+    h_loc, g = cfg.n_heads // hp, cfg.n_heads // cfg.n_kv_heads
+    first = tp.rank() * h_loc
+    heads = [(first + i) // g for i in range(h_loc)]
+    kv0, n_kv = heads[0], heads[-1] - heads[0] + 1
+    index = tuple(hh - kv0 for hh in heads)
+    uniform = h_loc % n_kv == 0 and index == tuple(i // (h_loc // n_kv) for i in range(h_loc))
+    return HeadSplit(hp, slice(kv0, kv0 + n_kv), None if uniform else index)
+
+
+def _kv_weights(params, split: HeadSplit, whole: bool = False):
+    """(wk, wv, bk, bv) of the KV heads the program computes: every head
+    when ``whole`` (a cache that holds them all), else ``split.kv``'s."""
+    names = ("wk", "wv", "bk", "bv") if "bk" in params else ("wk", "wv")
+    out = [params[n] for n in names]
+    if split.kv is not None and not whole:
+        out = [t[:, split.kv] if t.dim() == 3 else t[split.kv] for t in out]
+    return out + [None] * (4 - len(out))
+
+
+def select_kv(k: torch.Tensor, split: HeadSplit, whole: bool = False) -> torch.Tensor:
+    """The KV heads (dim −2) of the local query heads, from ``k`` holding
+    ``split.kv``'s heads (or every head when ``whole``): one per query head
+    where they do not form equal groups."""
+    if split.kv is not None and whole:
+        k = k[..., split.kv, :]
+    if split.index is not None:
+        k = k[..., list(split.index), :]
+    return k
+
+
 def project_qkv(params, x, cfg: ModelConfig, positions: Optional[torch.Tensor],
-                rope: bool = True):
+                rope: bool = True, whole_kv: bool = False):
     """Shared q/k/v projection path (bias, qk-norm, and RoPE when ``rope``
-    and ``positions`` is given)."""
+    and ``positions`` is given).  In a device's program the query heads are
+    its block, and the KV heads those it reads (every KV head with
+    ``whole_kv``, where a cache keeps them all; :func:`head_split`)."""
+    split = head_split(params, cfg)
+    if split.parts > 1:
+        x = tp.enter(x)
+    wk, wv, bk, bv = _kv_weights(params, split, whole_kv)
     q = dot(x, params["wq"])
-    k = dot(x, params["wk"])
-    v = dot(x, params["wv"])
+    k = dot(x, wk)
+    v = dot(x, wv)
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
-        k = k + params["bk"].to(k.dtype)
-        v = v + params["bv"].to(v.dtype)
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -277,16 +355,26 @@ def project_qkv(params, x, cfg: ModelConfig, positions: Optional[torch.Tensor],
     return q, k, v
 
 
+def _out_proj(params, out: torch.Tensor, split: HeadSplit) -> torch.Tensor:
+    """The output projection; a partial sum over split heads is summed."""
+    y = dot(out, params["wo"], contract=2)
+    return tp.reduce(y) if split.parts > 1 else y
+
+
 def self_attention(params, x: torch.Tensor, cfg: ModelConfig,
                    positions: Optional[torch.Tensor], *, causal: bool = True,
-                   rope: bool = True):
+                   rope: bool = True, cache_kv: bool = False):
     """Self-attention of ``x`` (B, S, D), causal unless ``causal=False``:
     (y, k, v), the layer's k and v being what prefill keeps as its cache
-    (the reference recomputes them from the same input: the same values)."""
-    q, k, v = project_qkv(params, x, cfg, positions, rope=rope)
-    out = flash_attention(q, k, v, causal=causal, window=cfg.window, chunk=cfg.attn_chunk,
+    (the reference recomputes them from the same input: the same values).
+    ``cache_kv``: k and v are kept, so a device's program computes every KV
+    head its cache holds."""
+    split = head_split(params, cfg)
+    q, k, v = project_qkv(params, x, cfg, positions, rope=rope, whole_kv=cache_kv)
+    out = flash_attention(q, select_kv(k, split, cache_kv), select_kv(v, split, cache_kv),
+                          causal=causal, window=cfg.window, chunk=cfg.attn_chunk,
                           q_chunk=cfg.q_chunk)
-    return dot(out, params["wo"], contract=2), k, v
+    return _out_proj(params, out, split), k, v
 
 
 def decode_attention(
@@ -305,21 +393,57 @@ def decode_attention(
     linear cache raises ``IndexError`` where the reference's update would
     clamp."""
     pos = torch.full((1,), index, dtype=torch.int32, device=x_step.device)
+    split = head_split(params, cfg)
     q, k_new, v_new = project_qkv(params, x_step, cfg, pos, rope=rope)
-    s_ctx, window = cache_k.shape[1], cfg.window
+    blocks = tp.seq_blocks()
+    s_ctx, window = cache_k.shape[1] * blocks, cfg.window
     if window is not None and s_ctx == window:
         # Ring-buffer cache for sliding-window attention: positions rotate;
         # every slot is valid once the cache is full (mask via valid_len).
         slot, valid = index % window, min(index + 1, window)
     else:
         slot, valid = index, index + 1
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
-    out = flash_attention(
-        q, cache_k, cache_v, causal=False, q_offset=index, kv_valid_len=valid,
-        chunk=cfg.attn_chunk,
-    )
-    return dot(out, params["wo"], contract=2), cache_k, cache_v
+    ck, cv = cache_k, cache_v
+    if split.kv is not None:  # a cache of every KV head: this program's heads
+        ck, cv = cache_k[:, :, split.kv], cache_v[:, :, split.kv]
+    if blocks > 1:
+        out = _decode_attention_blocks(q, ck, cv, k_new, v_new, slot, valid, split)
+    else:
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new[:, 0]
+        out = flash_attention(
+            q, select_kv(ck, split), select_kv(cv, split), causal=False, q_offset=index,
+            kv_valid_len=valid, chunk=cfg.attn_chunk,
+        )
+    return _out_proj(params, out, split), cache_k, cache_v
+
+
+def _decode_attention_blocks(q, ck, cv, k_new, v_new, slot: int, valid: int,
+                             split: HeadSplit) -> torch.Tensor:
+    """One query against a cache whose slots are split over the ``kv_seq``
+    axes (a device's program): the block that holds ``slot`` writes the new
+    key, each block scores its own slots, and the blocks' softmax maxima
+    (gathered), normalizers and weighted values (summed) combine as one
+    softmax over every slot (float32, as :func:`flash_attention`)."""
+    b, _, h, hd = q.shape
+    n = ck.shape[1]
+    first = tp.rank("kv_seq") * n
+    if first <= slot < first + n:
+        ck[:, slot - first] = k_new[:, 0]
+        cv[:, slot - first] = v_new[:, 0]
+    k, v = select_kv(ck, split), select_kv(cv, split)
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, 1, kv, g, hd).permute(0, 2, 3, 1, 4).float()  # (B, KV, G, 1, hd)
+    s = torch.matmul(qg, k.permute(0, 2, 3, 1)[:, :, None].float()) / math.sqrt(hd)
+    mask = (first + torch.arange(n, device=q.device)) < valid  # (n,)
+    s = torch.where(mask, s, _NEG_INF)
+    m = tp.gather(s.amax(dim=-1)[None], 0, "kv_seq").amax(dim=0)  # (B, KV, G, 1)
+    p = torch.exp(s - m[..., None]) * mask
+    l = tp.reduce(p.sum(dim=-1), "kv_seq")  # noqa: E741
+    acc = torch.matmul(p.to(v.dtype).float(), v.permute(0, 2, 1, 3)[:, :, None].float())
+    out = tp.reduce(acc, "kv_seq") / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
 
 
 def _gated(params, y: torch.Tensor) -> torch.Tensor:
@@ -332,23 +456,30 @@ def cross_attention(params, x: torch.Tensor, kv_feats: torch.Tensor, cfg: ModelC
     """Gated cross-attention of ``x`` (B, S, D) on ``kv_feats`` (B, Nv, D)
     (the VLM's image layers, ungated in the enc-dec decoder), non-causal,
     with ``q_norm``/``k_norm`` when the config has them."""
+    split = head_split(params, cfg)
+    if split.parts > 1:
+        x, kv_feats = tp.enter(x), tp.enter(kv_feats)
+    wk, wv, _, _ = _kv_weights(params, split)
     q = dot(x, params["wq"])
-    k = dot(kv_feats, params["wk"])
-    v = dot(kv_feats, params["wv"])
+    k = dot(kv_feats, wk)
+    v = dot(kv_feats, wv)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, q_chunk=cfg.q_chunk)
-    return _gated(params, dot(out, params["wo"], contract=2))
+    out = flash_attention(q, select_kv(k, split), select_kv(v, split), causal=False,
+                          chunk=cfg.attn_chunk, q_chunk=cfg.q_chunk)
+    return _gated(params, _out_proj(params, out, split))
 
 
 def cross_attention_cached(params, x_step: torch.Tensor, cross_k, cross_v, cfg: ModelConfig):
     """Decode-time cross-attention against the prefill's (B, Nv, KV, hd)
     K/V.  As in the reference, neither ``q_norm`` here nor ``k_norm`` in
     the prefill's K is applied (reference fault 6, ROADMAP.md section 3)."""
+    split = head_split(params, cfg)
     q = dot(x_step, params["wq"])
-    out = flash_attention(q, cross_k, cross_v, causal=False, chunk=cfg.attn_chunk)
-    return _gated(params, dot(out, params["wo"], contract=2))
+    out = flash_attention(q, select_kv(cross_k, split, True), select_kv(cross_v, split, True),
+                          causal=False, chunk=cfg.attn_chunk)
+    return _gated(params, _out_proj(params, out, split))
 
 
 # ---------------------------------------------------------------------------
@@ -365,10 +496,14 @@ def swiglu_specs(d: int, f: int) -> Dict[str, ParamSpec]:
 
 
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    parts = tp.parts(params, "wg", 1)
+    if parts > 1:
+        x = tp.enter(x)
     g = dot(x, params["wg"])
     u = dot(x, params["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return dot(h, params["wd"])
+    y = dot(h, params["wd"])
+    return tp.reduce(y) if parts > 1 else y
 
 
 def gelu_mlp_specs(d: int, f: int) -> Dict[str, ParamSpec]:
@@ -382,9 +517,13 @@ def gelu_mlp_specs(d: int, f: int) -> Dict[str, ParamSpec]:
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     """Biased two-layer MLP with the tanh-approximated GELU in float32."""
+    parts = tp.parts(params, "w1", 1)
+    if parts > 1:
+        x = tp.enter(x)
     h = dot(x, params["w1"]) + params["b1"].to(x.dtype)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return dot(h, params["w2"]) + params["b2"].to(x.dtype)
+    y = dot(h, params["w2"])
+    return (tp.reduce(y) if parts > 1 else y) + params["b2"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +572,13 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     """The router of :func:`moe_ffn` on ``x`` (B, S, D): float32 logits,
     softmax, top-k and the per-example capacity C = ⌈cf·k·S/E⌉."""
-    b, s, _ = x.shape
+    return _route(torch.matmul(x.float(), router.float()), cfg)
+
+
+def _route(logits: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """:func:`moe_route` from the router's float32 logits (B, S, E)."""
+    b, s, _ = logits.shape
     e, k = cfg.n_experts, cfg.top_k
-    logits = torch.matmul(x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: descending, the lower index first on ties.
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -457,7 +600,13 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     dropped.  Every expert computes all of its C slots."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = moe_route(params["router"], x, cfg)
+    # A device's program (models/tp.py): its block of the experts (the
+    # router's logits gathered, the dispatch and combine over its experts'
+    # slots) or of every expert's hidden width; its outputs are summed.
+    pe, pf = tp.parts(params, "router", 1), tp.parts(params, "wg", 2)
+    xm = tp.enter(x) if pe > 1 or pf > 1 else x  # the dense residual enters on its own
+    logits = torch.matmul(xm.float(), params["router"].float())
+    r = _route(tp.gather(logits, -1) if pe > 1 else logits, cfg)
     capacity = r.capacity
 
     # Load-balance aux (Switch): E · Σ_e fraction_e · prob_e.
@@ -465,10 +614,16 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     ce = _one_hot(r.idx, e).float().sum(dim=2).mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
-    x_rep = torch.repeat_interleave(x, k, dim=1)  # (B, S·k, D)
+    dst, keep = r.dst, r.keep
+    if pe > 1:  # this device's experts [e0, e0 + e): the others' pairs to the sink
+        e_flat, e = r.idx.reshape(b, s * k), e // pe
+        mine = (e_flat >= tp.rank() * e) & (e_flat < (tp.rank() + 1) * e)
+        keep = keep & mine
+        dst = torch.where(keep, (e_flat - tp.rank() * e) * capacity + r.pos, e * capacity)
+    x_rep = torch.repeat_interleave(xm, k, dim=1)  # (B, S·k, D)
     bidx = torch.arange(b, device=x.device)[:, None]
     buf = x.new_zeros((b, e * capacity + 1, d))
-    buf[bidx, r.dst] = x_rep  # duplicates only at the sink row, sliced off
+    buf[bidx, dst] = x_rep  # duplicates only at the sink row, sliced off
     h = buf[:, : e * capacity].reshape(b, e, capacity, d).transpose(0, 1)
     h = h.reshape(e, b * capacity, d)  # (E, B·C, D): one product per expert
     g = torch.bmm(h, params["wg"].to(x.dtype))
@@ -477,8 +632,10 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     y = torch.bmm(y, params["wd"].to(x.dtype))  # (E, B·C, D)
     y = y.reshape(e, b, capacity, d).transpose(0, 1).reshape(b, e * capacity, d)
     yf = torch.cat([y, y.new_zeros((b, 1, d))], dim=1)
-    weight = (r.gates.reshape(b, s * k, 1) * r.keep[..., None]).to(x.dtype)
-    out = (yf[bidx, r.dst] * weight).reshape(b, s, k, d).sum(dim=2)
+    weight = (r.gates.reshape(b, s * k, 1) * keep[..., None]).to(x.dtype)
+    out = (yf[bidx, dst] * weight).reshape(b, s, k, d).sum(dim=2)
+    if pe > 1 or pf > 1:
+        out = tp.reduce(out)
     if "dense" in params:
         out = out + swiglu(params["dense"], x)
     return out, aux

@@ -33,6 +33,7 @@ import torch
 from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -60,19 +61,35 @@ def chunked_cross_entropy(
     w: torch.Tensor,  # (D, V) lm head
     labels: torch.Tensor,  # (B, S) int
     chunk: int = 1024,
+    parts: int = 1,
 ) -> torch.Tensor:
     """Sequence-chunked softmax CE (mean over tokens): one (B, chunk, V)
     block of logits at a time, rounded to float32 after the product in
     ``x``'s dtype.  Under autograd each chunk's logits are recomputed in
-    the backward pass (``layers.remat``), as the reference's are."""
+    the backward pass (``layers.remat``), as the reference's are.
+
+    ``parts`` > 1: ``w`` holds this device's block of the vocab columns (a
+    device's program, ``models/tp.py``): each block's log-sum-exp is
+    gathered and combined, and the label's logit summed from the block
+    that holds it."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} must be a multiple of loss chunk {chunk}")
 
     def body(xc, yc):
+        if parts > 1:
+            xc = tp.enter(xc)
         logits = torch.matmul(xc, w.to(x.dtype)).float()
         lse = torch.logsumexp(logits, dim=-1)
+        if parts > 1:
+            v = w.shape[-1]
+            local = yc.long() - tp.rank() * v
+            inside = (local >= 0) & (local < v)
+            gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+            gold = tp.reduce(gold * inside)
+            lse = torch.logsumexp(tp.gather(lse[None], 0), dim=0)
+            return torch.sum(lse - gold)
         gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
         return torch.sum(lse - gold)
 
@@ -87,6 +104,18 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.family == "encdec" or cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def _head_parts(params, cfg: ModelConfig) -> int:
+    """The vocab blocks of :func:`_head_weight` in a device's program."""
+    if cfg.family == "encdec" or cfg.tie_embeddings:
+        return tp.parts(params, "embed", 0)
+    return tp.parts(params, "lm_head", 1)
+
+
+def _cross_entropy(params, x, batch, cfg: ModelConfig) -> torch.Tensor:
+    return chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk,
+                                 _head_parts(params, cfg))
 
 
 def _no_aux(device) -> torch.Tensor:
@@ -105,7 +134,7 @@ def get_model(cfg: ModelConfig) -> Model:
 
     def loss_fn(params, batch):
         x, aux, _ = T.forward_hidden(params, batch["tokens"], cfg, vision=batch.get("vision"))
-        ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
+        ce = _cross_entropy(params, x, batch, cfg)
         loss = ce + MOE_AUX_WEIGHT * aux if family == "moe" else ce
         return loss, {"ce": ce, "moe_aux": aux}
 
@@ -130,7 +159,7 @@ def _encdec_model(cfg: ModelConfig) -> Model:
     def loss_fn(params, batch):
         memory = E.encode(params, batch["frames"], cfg)
         x, _ = E.decode_sequence(params, memory, batch["tokens"], cfg)
-        ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
+        ce = _cross_entropy(params, x, batch, cfg)
         return ce, {"ce": ce, "moe_aux": _no_aux(ce.device)}
 
     return Model(
@@ -154,7 +183,7 @@ def _recurrent_model(cfg: ModelConfig) -> Model:
 
     def loss_fn(params, batch):
         x, _ = forward_hidden(params, batch["tokens"], cfg)
-        ce = chunked_cross_entropy(x, _head_weight(params, cfg), batch["labels"], cfg.loss_chunk)
+        ce = _cross_entropy(params, x, batch, cfg)
         return ce, {"ce": ce, "moe_aux": _no_aux(ce.device)}
 
     return Model(

@@ -178,9 +178,15 @@ def pspecs(tree, rules: Dict[str, Any], axis_sizes: Optional[Dict[str, int]] = N
 
 
 def shardings(tree, rules: Dict[str, Any], mesh):
-    """``(mesh, spec)`` per leaf: the stand-in for a ``NamedSharding`` tree."""
+    """A ``distributed.sharding.NamedSharding`` (a ``(mesh, spec)`` pair)
+    per leaf: the stand-in for a ``NamedSharding`` tree, which
+    ``checkpoint.restore(..., shardings=)`` places leaves by."""
+    # Imported here: ``distributed.sharding`` imports this module.
+    from repro_torch.distributed.sharding import NamedSharding
+
     sizes = mesh_axis_sizes(mesh)
-    return map_tree(lambda s: (mesh, logical_to_pspec(s.axes, rules, s.shape, sizes)), tree)
+    return map_tree(
+        lambda s: NamedSharding(mesh, logical_to_pspec(s.axes, rules, s.shape, sizes)), tree)
 
 
 def local_shape(shape: Tuple[int, ...], spec: Spec, axis_sizes: Dict[str, int]) -> Tuple[int, ...]:

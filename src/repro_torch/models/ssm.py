@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
@@ -77,10 +78,59 @@ def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out).to(dtype)[:, None]
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float,
+                parts: int = 1) -> torch.Tensor:
+    """RMS norm of y · SiLU(z) over the last dim; with ``parts`` > 1 ``y``,
+    ``z`` and ``w`` are this device's block of it, and the blocks' sums of
+    squares are summed."""
     gated = y.float() * F.silu(z.float())
-    var = torch.mean(gated * gated, dim=-1, keepdim=True)
+    if parts > 1:
+        ss = tp.reduce((gated * gated).sum(dim=-1, keepdim=True))
+        var = ss / (gated.shape[-1] * parts)
+    else:
+        var = torch.mean(gated * gated, dim=-1, keepdim=True)
     return (gated * torch.rsqrt(var + eps) * w.float()).to(y.dtype)
+
+
+class _Split(NamedTuple):
+    """How a device's program holds a Mamba2 block (``models/tp.py``): the
+    blocks of the in-projection's output (gathered), of the conv's
+    channels (conv'd locally, gathered), of the out-projection's input, and
+    of the heads the SSD runs on (the out-projection's blocks when they are
+    whole heads, else 1: the SSD whole, its output cut for the
+    out-projection)."""
+
+    proj: int
+    conv: int
+    out: int
+    heads: int
+
+
+def _split(params, cfg: ModelConfig) -> _Split:
+    out = tp.parts(params, "out_proj", 0)
+    heads = out if out > 1 and cfg.ssm_heads % out == 0 else 1
+    return _Split(tp.parts(params, "in_proj", 1), tp.parts(params, "conv_w", 1), out, heads)
+
+
+def _in_proj(params, x: torch.Tensor, sp: _Split) -> torch.Tensor:
+    if sp.proj > 1 or sp.out > 1:
+        x = tp.enter(x)
+    zxbcdt = L.dot(x, params["in_proj"])
+    return tp.gather(zxbcdt, -1) if sp.proj > 1 else zxbcdt
+
+
+def _out(params, y: torch.Tensor, z: torch.Tensor, sp: _Split, cfg: ModelConfig) -> torch.Tensor:
+    """The gated norm and the out-projection of the SSD's output ``y``
+    (B, T, di, or this device's heads' block of it)."""
+    if sp.heads > 1:  # y is this device's block: the norm's sums combine
+        y = _gated_norm(y, tp.chunk(z, -1, sp.heads), params["norm"], cfg.norm_eps, sp.heads)
+    else:
+        w = params["norm"]
+        y = _gated_norm(y, z, tp.gather(w, 0) if tp.parts(params, "norm", 0) > 1 else w,
+                        cfg.norm_eps)
+        y = tp.chunk(y, -1, sp.out)
+    out = L.dot(y, params["out_proj"])
+    return tp.reduce(out) if sp.out > 1 else out
 
 
 def _decays(cum: torch.Tensor, above: torch.Tensor) -> torch.Tensor:
@@ -108,15 +158,20 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
     di, n, h, p, q = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_chunk
     check_chunks(t, cfg)
 
-    zxbcdt = L.dot(x, params["in_proj"])
-    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    sp = _split(params, cfg)
+    z, xbc, dt_raw = _split_proj(cfg, _in_proj(params, x, sp))
+    # the conv's channels (and the decode cache's) in this device's block
+    xbc = tp.chunk(xbc, -1, sp.conv)
     conv_tail = xbc[:, t - (cfg.ssm_conv - 1) :]  # pre-conv inputs for decode
     xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    xs = xbc[..., :di].reshape(b, t, h, p)
+    if sp.conv > 1:
+        xbc = tp.gather(xbc, -1)
+    h = h // sp.heads
+    xs = tp.chunk(xbc[..., :di].reshape(b, t, -1, p), 2, sp.heads)
     bmat = xbc[..., di : di + n].float()  # (B, T, N): exact upcasts
     cmat = xbc[..., di + n :].float()
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, T, H)
-    a_log_step = dt * -torch.exp(params["a_log"])  # ≤ 0: per-step log decay
+    dt = F.softplus(tp.chunk(dt_raw.float() + params["dt_bias"], -1, sp.heads))  # (B, T, H)
+    a_log_step = dt * -torch.exp(tp.chunk(params["a_log"], 0, sp.heads))  # ≤ 0: per-step log decay
     xdt = xs.float() * dt[..., None]  # (B, T, H, P)
 
     above = torch.ones((q, q), dtype=torch.bool, device=x.device).triu(1)
@@ -139,9 +194,8 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
             "bsn,bshp->bhpn", b_k, xdt_k * decay_end[..., None])
         ys.append((y_intra + y_inter).to(x.dtype))
     y = torch.cat(ys, dim=1)  # (B, T, H, P)
-    y = y + xs * params["d_skip"].to(y.dtype)[None, None, :, None]
-    y = _gated_norm(y.reshape(b, t, di), z, params["norm"], cfg.norm_eps)
-    out = L.dot(y, params["out_proj"])
+    y = y + xs * tp.chunk(params["d_skip"], 0, sp.heads).to(y.dtype)[None, None, :, None]
+    out = _out(params, y.reshape(b, t, h * p), z, sp, cfg)
     if return_cache:
         return out, MambaCache(conv=conv_tail, state=state)
     return out
@@ -164,22 +218,24 @@ def mamba_decode_step(
     (out, cache)."""
     b = x_step.shape[0]
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = L.dot(x_step, params["in_proj"])
-    z, xbc_new, dt_raw = _split_proj(cfg, zxbcdt)
-    window = torch.cat([cache.conv, xbc_new], dim=1)  # (B, K, C)
+    sp = _split(params, cfg)
+    z, xbc_new, dt_raw = _split_proj(cfg, _in_proj(params, x_step, sp))
+    window = torch.cat([cache.conv, tp.chunk(xbc_new, -1, sp.conv)], dim=1)  # (B, K, C)
     xbc = _conv_step(window, params["conv_w"], params["conv_b"], x_step.dtype)
     cache.conv.copy_(window[:, 1:])
+    if sp.conv > 1:
+        xbc = tp.gather(xbc, -1)
 
-    xs = xbc[..., :di].reshape(b, h, p)
+    h = h // sp.heads
+    xs = tp.chunk(xbc[..., :di].reshape(b, -1, p), 1, sp.heads)
     bvec = xbc[..., di : di + n].reshape(b, n).float()
     cvec = xbc[..., di + n :].reshape(b, n).float()
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B, H)
-    decay = torch.exp(dt * -torch.exp(params["a_log"]))
+    dt = F.softplus(tp.chunk(dt_raw[:, 0].float() + params["dt_bias"], -1, sp.heads))  # (B, H)
+    decay = torch.exp(dt * -torch.exp(tp.chunk(params["a_log"], 0, sp.heads)))
     xdt = xs.float() * dt[..., None]  # (B, H, P)
     state = cache.state
     state.mul_(decay[..., None, None]).add_(xdt[..., None] * bvec[:, None, None, :])
     y = torch.matmul(state, cvec[:, None, :, None])[..., 0]  # (B, H, P)
-    y = y + xs.float() * params["d_skip"][None, :, None]
-    y = y.reshape(b, 1, di).to(x_step.dtype)
-    y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
-    return L.dot(y, params["out_proj"]), cache
+    y = y + xs.float() * tp.chunk(params["d_skip"], 0, sp.heads)[None, :, None]
+    y = y.reshape(b, 1, h * p).to(x_step.dtype)
+    return _out(params, y, z, sp, cfg), cache

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import optim as optim_lib
 from repro_torch.models import params as P
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import ENCDEC_PREFILL_PROMPT_LEN, Model, get_model
 from repro_torch.models.params import torch_dtype
@@ -348,6 +349,9 @@ class CellProgram:
     abstract_args: Tuple[Any, ...]  # meta tensors
     in_specs: Tuple[Any, ...]  # spec trees matching abstract_args
     donate: Tuple[int, ...] = ()
+    #: A device's program (``per_device``): the blocks a decode cache's
+    #: sequence is split into (the ``kv_seq`` axes), else 1.
+    kv_seq_blocks: int = 1
 
 
 def build_cell(
@@ -359,11 +363,18 @@ def build_cell(
     dp_size: int = 0,
     axis_sizes: Optional[Dict[str, int]] = None,
     accum_dtype=torch.float32,
+    per_device: bool = False,
 ) -> CellProgram:
     """Assemble the step function + abstract inputs + specs for one cell.
 
     ``microbatches=0`` → auto (see :func:`auto_microbatches`, needs dp_size).
     ``axis_sizes``: mesh axis → size, for divisibility-aware sharding.
+    ``per_device``: one device's program (``models/tp.py``): the parameters,
+    the optimizer's state and a decode cache at the blocks one position of
+    the ``"model"`` axis holds (a cache's ``kv_seq`` at its block), the
+    module annotated so that the layers read their splits; the step runs
+    under a ``tp.Layout`` the caller opens (without one, every split reads
+    1).  ``in_specs`` stay the full leaves' specs.
 
     The train step takes the parameter tree, as :func:`make_train_step`
     does; its optimizer update runs inside the :data:`UPDATE_RANGE` range.  The prefill and serve steps take the tree too, as the
@@ -376,9 +387,18 @@ def build_cell(
     step is then taken at the cell's last position, a full cache.
     """
     model = get_model(cfg)
+    full_specs = model.param_specs
 
     def pspec_of(tree):
         return P.pspecs(tree, rules, axis_sizes)
+
+    def local(tree):
+        return tp.local_specs(tree, rules, axis_sizes or {}) if per_device else tree
+
+    if per_device:
+        build = model.build_params
+        model = model._replace(param_specs=local(full_specs),
+                               build_params=lambda tree: tp.annotate(build(tree), full_specs))
 
     if microbatches == 0:
         microbatches = auto_microbatches(shape, dp_size)
@@ -397,19 +417,21 @@ def build_cell(
             model, optimizer._replace(update=update), microbatches=microbatches,
             accum_dtype=accum_dtype
         )
-        state_specs = {
-            "step": P.ParamSpec((), (), dtype=torch.int32, init="zeros"),
-            "params": model.param_specs,
-            "opt": optimizer.state_specs(model.param_specs),
-        }
+        def state_specs(params):
+            return {
+                "step": P.ParamSpec((), (), dtype=torch.int32, init="zeros"),
+                "params": params,
+                "opt": optimizer.state_specs(params),
+            }
+
         b_specs = batch_specs(cfg, shape)
-        abstract_state = TrainState(**P.abstract(state_specs))
+        abstract_state = TrainState(**P.abstract(state_specs(model.param_specs)))
         return CellProgram(
             name=f"{cfg.name}:{shape.name}",
             kind="train",
             step_fn=train_step,
             abstract_args=(abstract_state, P.abstract(b_specs)),
-            in_specs=(TrainState(**pspec_of(state_specs)), pspec_of(b_specs)),
+            in_specs=(TrainState(**pspec_of(state_specs(full_specs))), pspec_of(b_specs)),
             donate=(0,),
         )
 
@@ -426,7 +448,7 @@ def build_cell(
             kind="prefill",
             step_fn=prefill_cell_step,
             abstract_args=(P.abstract(model.param_specs), P.abstract(b_specs)),
-            in_specs=(pspec_of(model.param_specs), pspec_of(b_specs)),
+            in_specs=(pspec_of(full_specs), pspec_of(b_specs)),
         )
 
     # decode
@@ -439,21 +461,28 @@ def build_cell(
         return serve_step(model.build_params(params), cache, token, index)
 
     cache_specs, token_spec, index_spec = decode_input_specs(cfg, shape, model)
+    local_cache = local(cache_specs)
+    seq_blocks = {full.shape[i] // loc.shape[i]
+                  for (_, full), (_, loc) in zip(P.leaves(cache_specs), P.leaves(local_cache))
+                  for i, name in enumerate(full.axes) if name == "kv_seq"}
+    if len(seq_blocks) > 1:
+        raise ValueError(f"{cfg.name}: the cache's kv_seq dims split unevenly: {seq_blocks}")
     return CellProgram(
         name=f"{cfg.name}:{shape.name}",
         kind="decode",
         step_fn=serve_cell_step,
         abstract_args=(
             P.abstract(model.param_specs),
-            P.abstract(cache_specs),
+            P.abstract(local_cache),
             P.abstract(token_spec),
             P.abstract(index_spec),
         ),
         in_specs=(
-            pspec_of(model.param_specs),
+            pspec_of(full_specs),
             pspec_of(cache_specs),
             pspec_of(token_spec),
             pspec_of(index_spec),
         ),
         donate=(1,),
+        kv_seq_blocks=max(seq_blocks, default=1),
     )

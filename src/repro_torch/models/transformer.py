@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, map_tree, torch_dtype
 
@@ -187,11 +188,13 @@ class VisionLM(DenseLM):
 # ---------------------------------------------------------------------------
 
 
-def self_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def self_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                   cache_kv: bool = False):
     """(x', aux, (k, v)): the block's output, its MoE aux loss (None for an
-    MLP block) and its attention's k and v."""
+    MLP block) and its attention's k and v (every KV head of the cache with
+    ``cache_kv``)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, k, v = L.self_attention(p["attn"], h, cfg, positions)
+    y, k, v = L.self_attention(p["attn"], h, cfg, positions, cache_kv=cache_kv)
     x = x + y
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
@@ -233,7 +236,7 @@ def forward_hidden(
     takes ``vision`` (B, Nv, vision_dim) and stacks its kv as ((k, v) of
     (G, n_self, B, S, KV, hd), (cross_k, cross_v) of (G, B, Nv, KV, hd))."""
     s = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype), tp.parts(params, "embed", 0))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks: List[torch.Tensor] = []
@@ -242,7 +245,7 @@ def forward_hidden(
     def self_block(lp, x):
         nonlocal aux
         if collect_kv:
-            x, a, (k, v) = self_block_fwd(lp, x, cfg, positions)
+            x, a, (k, v) = self_block_fwd(lp, x, cfg, positions, cache_kv=True)
             ks.append(k)
             vs.append(v)
         else:  # the layer body recomputed in the backward pass under cfg.remat
@@ -281,12 +284,11 @@ def forward_hidden(
 
 def lm_head(params: DenseLM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits in the served dtype; columns ≥ ``vocab`` masked to −1e30."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = L.dot(x, w)  # x is in the served dtype
-    if cfg.padded_vocab != cfg.vocab:  # mask pad columns (see padded_vocab)
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+    if cfg.tie_embeddings:
+        w, parts = params["embed"].T, tp.parts(params, "embed", 0)
+    else:
+        w, parts = params["lm_head"], tp.parts(params, "lm_head", 1)
+    return L.vocab_logits(x, w, cfg, parts)  # x is in the served dtype
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +349,8 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against the cache, which it updates in place (the
     reference donates it).  Returns (logits (B, V), cache)."""
-    x = params["embed"][token].to(torch_dtype(cfg.dtype))  # (B, 1, D)
+    x = L.embed(params["embed"], token, torch_dtype(cfg.dtype),
+                tp.parts(params, "embed", 0))  # (B, 1, D)
     if cfg.family == "vlm":
         for g, (group, cp) in enumerate(zip(params["blocks"], params["cross_blocks"])):
             for j, lp in enumerate(group):

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import _causal_conv, _conv_step, _decays, check_chunks
@@ -85,8 +86,36 @@ def _mlstm_out(params, y_all: torch.Tensor, gate: torch.Tensor, cfg: ModelConfig
     b, t, h, vd = y_all.shape[0], y_all.shape[1], y_all.shape[2], y_all.shape[3] - 1
     y = y_all[..., :vd] / torch.clamp(y_all[..., vd:].abs(), min=1.0)
     y = _head_norm(y.to(dtype), params["norm"], cfg.norm_eps)
-    y = y.reshape(b, t, h * vd) * F.silu(gate.float()).to(dtype)
-    return L.dot(y, params["w_down"])
+    parts = tp.parts(params, "w_down", 0)
+    y = tp.chunk(y.reshape(b, t, h * vd), -1, parts) * F.silu(gate.float()).to(dtype)
+    out = L.dot(y, params["w_down"])
+    return tp.reduce(out) if parts > 1 else out
+
+
+def _mlstm_in(params, x: torch.Tensor, conv_of):
+    """(up, gate, conv, q, k, v, if-gates) of the mLSTM's input ``x``: in a
+    device's program (``models/tp.py``) up, gate and the conv are its block
+    of d_inner, and the head projections (contracting d_inner) are summed,
+    so that the cell runs on every head.  ``conv_of(up)`` is the causal
+    conv of the sequence or the decode step's."""
+    parts = tp.parts(params, "w_up", 1)
+    if tp.parts(params, "norm", 0) > 1:
+        raise ValueError("the mLSTM's heads split over 'model' is not a layout its "
+                         "per-device program runs (the xLSTM configs replicate them)")
+    if parts > 1:
+        x = tp.enter(x)
+    up = L.dot(x, params["w_up"])
+    gate = L.dot(x, params["w_gate"])
+    conv = conv_of(up)
+
+    def summed(y):
+        return tp.reduce(y) if parts > 1 else y
+
+    q = summed(L.dot(conv, params["wq"]))
+    k = summed(L.dot(conv, params["wk"]))
+    v = summed(L.dot(up, params["wv"]))
+    if_gates = summed(L.dot(conv.float(), params["w_if"])) + params["b_if"]
+    return up, gate, conv, q, k, v, if_gates
 
 
 def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
@@ -98,14 +127,12 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
     vd = di // h
     check_chunks(t, cfg)
 
-    up = L.dot(x, params["w_up"])
-    gate = L.dot(x, params["w_gate"])
-    conv = _causal_conv(up, params["conv_w"], params["conv_b"])
+    up, gate, conv, q, k, v, if_gates = _mlstm_in(
+        params, x, lambda u: _causal_conv(u, params["conv_w"], params["conv_b"]))
     scale = 1.0 / math.sqrt(qkd)
-    q = L.dot(conv, params["wq"]).float()  # (B, T, H, qk): exact upcasts
-    k = L.dot(conv, params["wk"]).float()
-    v_aug = _ones_column(L.dot(up, params["wv"]))  # (B, T, H, vd + 1)
-    if_gates = L.dot(conv.float(), params["w_if"]) + params["b_if"]  # (B, T, 2, H)
+    q, k = q.float(), k.float()  # (B, T, H, qk): exact upcasts
+    v_aug = _ones_column(v)  # (B, T, H, vd + 1)
+    # if_gates: (B, T, 2, H)
     i_g = torch.sigmoid(if_gates[:, :, 0])  # (B, T, H)
     log_f = F.logsigmoid(if_gates[:, :, 1])  # ≤ 0
 
@@ -148,15 +175,16 @@ def mlstm_decode_step(
 ) -> Tuple[torch.Tensor, MLSTMCache]:
     """One token x_step (B, 1, D).  Updates ``cache.conv`` and ``cache.state``
     in place and returns (out, cache)."""
-    up = L.dot(x_step, params["w_up"])
-    gate = L.dot(x_step, params["w_gate"])
-    window = torch.cat([cache.conv, up], dim=1)
-    conv = _conv_step(window, params["conv_w"], params["conv_b"], x_step.dtype)
-    cache.conv.copy_(window[:, 1:])
-    q = L.dot(conv, params["wq"])[:, 0].float()  # (B, H, qk)
-    k = L.dot(conv, params["wk"])[:, 0].float()
-    v_aug = _ones_column(L.dot(up, params["wv"])[:, 0])  # (B, H, vd + 1)
-    if_g = L.dot(conv.float(), params["w_if"])[:, 0] + params["b_if"]  # (B, 2, H)
+    def conv_of(up):
+        window = torch.cat([cache.conv, up], dim=1)
+        conv = _conv_step(window, params["conv_w"], params["conv_b"], x_step.dtype)
+        cache.conv.copy_(window[:, 1:])
+        return conv
+
+    up, gate, conv, q, k, v, if_g = _mlstm_in(params, x_step, conv_of)
+    q, k = q[:, 0].float(), k[:, 0].float()  # (B, H, qk)
+    v_aug = _ones_column(v[:, 0])  # (B, H, vd + 1)
+    if_g = if_g[:, 0]  # (B, 2, H)
     i_g = torch.sigmoid(if_g[:, 0])  # (B, H)
     f_g = torch.exp(F.logsigmoid(if_g[:, 1]))
     state = cache.state
@@ -210,9 +238,19 @@ def _slstm_ffn(params, h_out: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Te
     float32 → (B, T, D)."""
     b, t, h, hd = h_out.shape
     y = _head_norm(h_out.to(dtype), params["norm"], cfg.norm_eps).reshape(b, t, h * hd)
+    parts = tp.parts(params, "w_ff_up", 2)  # a device's block of the GLU's width
+    if parts > 1:
+        y = tp.enter(y)
     up = L.dot(y, params["w_ff_up"])  # (B, T, 2, ff)
     ff = F.gelu(up[:, :, 0].float(), approximate="tanh").to(dtype) * up[:, :, 1]
-    return L.dot(ff, params["w_ff_down"])
+    out = L.dot(ff, params["w_ff_down"])
+    return tp.reduce(out) if parts > 1 else out
+
+
+def _slstm_heads_whole(params) -> None:
+    if tp.parts(params, "w_gates", 2) > 1:
+        raise ValueError("the sLSTM's heads split over 'model' is not a layout its "
+                         "per-device program runs (the xLSTM configs replicate them)")
 
 
 def slstm_init_cell(cfg: ModelConfig, batch: int, device=None) -> SLSTMCache:
@@ -226,6 +264,7 @@ def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
     ``return_cache`` also (the last K − 1 inputs, the cell after the last
     step)."""
     b, t, _ = x.shape
+    _slstm_heads_whole(params)
     conv = _causal_conv(x, params["conv_w"], params["conv_b"])
     gates_x = L.dot(conv, params["w_gates"])  # (B, T, 4, H, hd)
     state = slstm_init_cell(cfg, b, x.device)
@@ -249,6 +288,7 @@ def slstm_decode_step(params, x_step: torch.Tensor, cache, cfg: ModelConfig):
     :class:`SLSTMCache`), whose tensors it updates in place; returns (out,
     cache)."""
     conv_buf, cell = cache
+    _slstm_heads_whole(params)
     window = torch.cat([conv_buf, x_step], dim=1)
     conv = _conv_step(window, params["conv_w"], params["conv_b"], x_step.dtype)
     conv_buf.copy_(window[:, 1:])

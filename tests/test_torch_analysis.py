@@ -11,6 +11,7 @@ checked on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 19).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -38,7 +39,8 @@ def test_iter_buckets_covers_every_kind_and_the_port_sizes():
     buckets = list(autotune.iter_buckets())
     assert {k for k, _, _ in buckets} == set(autotune.KINDS)
     assert len(buckets) == len(autotune.KINDS) * len(autotune.N_BUCKETS) * len(
-        autotune.BATCH_BUCKETS)
+        autotune.BATCH_BUCKETS) + len(autotune.EDGE_BUCKETS)
+    assert buckets[-len(autotune.EDGE_BUCKETS):] == list(autotune.EDGE_BUCKETS)
     reference_n = {16, 32, 48, 64, 128, 256, 506, 512, 1024, 2048, 4096}
     assert reference_n | {autotune.MULTI_CLUSTER_MAX_N, 8192, autotune.MULTI_KERNEL_MAX_N} \
         == set(autotune.N_BUCKETS)
@@ -69,7 +71,7 @@ def test_vmem_covers_every_bucket_within_budget():
     reports = vmem.check_all()
     assert len(reports) == sum(1 for _ in autotune.iter_buckets())
     assert {r.kind for r in reports} == set(autotune.KINDS)
-    assert sum(len(r.plans) for r in reports) == 1386
+    assert sum(len(r.plans) for r in reports) == 1567
     bad = [r.render() for r in reports if not r.ok]
     assert not bad, bad
 
@@ -100,11 +102,16 @@ def test_vmem_expected_figures():
 
 
 def test_vmem_flags_a_grid_past_cuda_limits():
-    # 4.2 M lanes on the wide tile: the grid's y (lane tiles) passes 65,535
+    # 4.2 M lanes on the wide tile: 65,626 lane tiles, past the grid's y;
+    # the planner now cuts them into two launches, each within the limit
     plan = autotune.coupling_plan.__wrapped__(1, 4_200_000, 32, 32)
     rep = vmem.plan_report(plan)
-    assert plan.tile.name == "wide" and plan.grid[1] > vmem.MAX_GRID_YZ
-    assert not rep.ok and "grid" in rep.render()
+    assert plan.tile.name == "wide" and -(-4_200_000 // plan.tile.bm) > vmem.MAX_GRID_YZ
+    assert len(plan.launches) == 2 and plan.grid[1] == vmem.MAX_GRID_YZ
+    assert rep.ok and "launches=2" in rep.plan
+    # a launch whose grid passes the limit is flagged
+    past = dataclasses.replace(rep, grid=(1, vmem.MAX_GRID_YZ + 1, 1))
+    assert not past.ok and "grid" in past.render()
 
 
 def test_vmem_report_flags_a_smaller_limit_and_leaves_the_caches(monkeypatch):

@@ -991,3 +991,94 @@ def test_tracegate_passes_against_the_committed_budget(cuda):
     proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.tracegate"],
                           capture_output=True, text=True, env=env, cwd=root, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# Port fault 9: launches past CUDA's 65,535 grid tiles on y and z
+# ---------------------------------------------------------------------------
+
+#: Lanes past the wide tile's 65,535 × 64 = 4,194,240 lanes a launch (kernels
+#: 1-4, 6, 7), instances past 65,535 (1i, 6i), kernel 8's GEMM lanes past
+#: 65,535 × 128.  N is small: the grid's y and z do not depend on it.
+EDGE_LANES, EDGE_INSTANCES, EDGE_QMV_LANES = 4_194_341, 65_539, 8_388_557
+
+
+def _edge_windows(total, run, rows=4):
+    return [(b - rows, min(total, b + rows)) for b in range(run, total, run)] + [
+        (total - rows, total)]
+
+
+@pytest.mark.parametrize("kernel", ["coupling_sum", "hybrid_coupling_sum", "onn_step",
+                                    "phase_step", "phase_step_packed", "hybrid_phase_step"])
+def test_lane_split_past_the_grid_edge(cuda, kernel):
+    """Kernels 1-4, 6 and 7 over 4,194,341 lanes: two launches, each grid
+    within 65,535 lane tiles; the rows on both sides of the boundary and the
+    last rows equal the plain version of those rows."""
+    n = 48
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    w = torch.randint(-15, 16, (n, n), generator=gen, device=cuda, dtype=torch.int8)
+    bias = torch.randint(-9, 10, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    sigma = torch.randint(0, 2, (EDGE_LANES, n), generator=gen, device=cuda,
+                          dtype=torch.int8) * 2 - 1
+    phase = torch.randint(0, 2 * HALF, (EDGE_LANES, n), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    calls = {
+        "coupling_sum": (lambda: ops.coupling_sum(w, sigma),
+                         lambda s, p: plain.coupling_sum_ref(w, s), None),
+        "hybrid_coupling_sum": (lambda: ops.hybrid_coupling_sum(w, sigma, parallel=32),
+                                lambda s, p: plain.coupling_sum_ref(w, s), 32),
+        "onn_step": (lambda: ops.onn_step(w, sigma, bias),
+                     lambda s, p: plain.onn_step_ref(w, s, bias), None),
+        "phase_step": (lambda: ops.phase_step(w, sigma, bias, phase, half=HALF),
+                       lambda s, p: plain.phase_step_ref(w, s, bias, p, HALF), None),
+        "phase_step_packed": (lambda: ops.phase_step_packed(w, bias, phase, half=HALF),
+                              lambda s, p: plain.phase_step_packed_ref(w, bias, p, HALF), None),
+        "hybrid_phase_step": (
+            lambda: ops.hybrid_phase_step(w, sigma, bias, phase, half=HALF, parallel=32),
+            lambda s, p: plain.hybrid_phase_step_ref(w, s, bias, p, HALF, 32), 32),
+    }
+    call, want, parallel = calls[kernel]
+    plan = autotune.coupling_plan(1, EDGE_LANES, n, n, parallel)
+    assert len(plan.launches) == 2 and plan.grid[1] <= autotune.MAX_GRID_YZ
+    ops.reset_launches()
+    got = call()
+    assert sum(ops.LAUNCHES.values()) == 2
+    run = autotune.MAX_GRID_YZ * plan.tile.bm
+    for lo, hi in _edge_windows(EDGE_LANES, run):
+        assert torch.equal(got[lo:hi], want(sigma[lo:hi], phase[lo:hi])), (kernel, lo, hi)
+
+
+@pytest.mark.parametrize("parallel", [None, 32])
+def test_instance_split_past_the_grid_edge(cuda, parallel):
+    """Kernels 1i and 6i over 65,539 instances: two launches on the grid's
+    z; the instances on both sides of the boundary equal the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    w = torch.randint(-15, 16, (EDGE_INSTANCES, 16, 40), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    sigma = torch.randint(0, 2, (EDGE_INSTANCES, 8, 40), generator=gen, device=cuda,
+                          dtype=torch.int8) * 2 - 1
+    ops.reset_launches()
+    got = (ops.coupling_sum(w, sigma) if parallel is None
+           else ops.hybrid_coupling_sum(w, sigma, parallel=parallel))
+    assert sum(ops.LAUNCHES.values()) == 2
+    for lo, hi in _edge_windows(EDGE_INSTANCES, autotune.MAX_GRID_YZ):
+        assert torch.equal(got[lo:hi], plain.coupling_sum_ref(w[lo:hi], sigma[lo:hi]))
+
+
+def test_qmv_gemm_split_past_the_grid_edge(cuda):
+    """Kernel 8's GEMM over 8,388,557 lanes: two launches on the grid's z;
+    the rows on both sides of the boundary within the float32 bound of the
+    plain version's exact value."""
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    m, k = 24, 64
+    wq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+    scale = torch.rand((m,), generator=gen, device=cuda)
+    x = torch.randn((EDGE_QMV_LANES, k), generator=gen, device=cuda)
+    ops.reset_launches()
+    got = ops.quantized_matvec(wq, scale, x)
+    assert ops.LAUNCHES["quantized_matvec"] == 2
+    for lo, hi in _edge_windows(EDGE_QMV_LANES, autotune.MAX_GRID_YZ * autotune.QMV_GEMM_TILE):
+        x64, w64 = x[lo:hi].double(), wq.double()
+        exact = (x64 @ w64.T) * scale.double()
+        bound = k * 2.0**-24 * scale.double() * (x64.abs() @ w64.abs().T)
+        assert bool(((got[lo:hi].double() - exact).abs() <= bound).all()), (lo, hi)

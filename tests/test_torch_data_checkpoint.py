@@ -227,3 +227,135 @@ def test_async_checkpointer_surfaces_a_write_error(tmp_path):
     saver.save(1, _tree())
     with pytest.raises(OSError):
         saver.wait()
+
+
+# ---------------------------------------------------------------------------
+# restore onto a mesh (the reference's elastic restore)
+# ---------------------------------------------------------------------------
+
+#: Leaf → spec on a (data 2, model 4) mesh: split over one axis, over both
+#: (one dim each, and two axes on one dim), replicated, and a scalar.
+MESH_SPECS = {
+    "params//blocks//attn//wq": (None, "data", "model"),
+    "params//blocks//ln1": (None, "model"),
+    "params//embed": (("data", "model"),),
+    "params//router": ("data",),
+    "opt//m//embed": ("model", None),
+    "opt//v//router": (None, "model"),
+    "opt//count": (),
+    "step": None,
+}
+
+_REF_MESH_RESTORE = r"""
+import json, sys
+import jax, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro import checkpoint as ref_ckpt
+directory, step, specs_json, out = sys.argv[1:5]
+specs = json.loads(specs_json)
+mesh = jax.make_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8])
+meta = ref_ckpt.load_meta(directory, int(step))
+data = np.load(f"{directory}/step_{step}/arrays.npz")
+target = {k: jax.ShapeDtypeStruct(data[k].shape, jax.numpy.bfloat16 if meta["dtypes"].get(k)
+                                  else data[k].dtype) for k in data.files}
+def tree_of(flat):
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *head, last = k.split("//")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+def named(s):
+    return None if s is None else NamedSharding(
+        mesh, P(*[tuple(e) if isinstance(e, list) else e for e in s]))
+shard = {k: named(specs.get(k)) for k in data.files}
+got = ref_ckpt.restore(directory, int(step), tree_of(target), tree_of(shard))
+flat = {}
+def walk(node, prefix):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            walk(node[k], prefix + [k])
+    else:
+        flat["//".join(prefix)] = node
+walk(got, [])
+saved = {}
+for k, arr in flat.items():
+    ids = {d.id: i for i, d in enumerate(mesh.devices.flat)}
+    for s in arr.addressable_shards:
+        a = np.asarray(s.data)
+        a = a.view(np.int16) if a.dtype.name == "bfloat16" else a
+        saved[f"{k}@{ids[s.device.id]}"] = a
+        saved[f"{k}@{ids[s.device.id]}@index"] = np.array(
+            [[sl.start or 0, sl.stop if sl.stop is not None else n]
+             for sl, n in zip(s.index, arr.shape)], dtype=np.int64).reshape(-1, 2)
+np.savez(out, **saved)
+"""
+
+
+def test_restore_onto_a_mesh_equals_reference_block_by_block(tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.sharding import NamedSharding, ShardedTensor, block_index
+    from repro_torch.models import params as PM
+
+    d = str(tmp_path / "ckpt")
+    want = ref_state(5)
+    ref_ckpt.save(d, 4, want)
+    out = str(tmp_path / "ref_blocks.npz")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    subprocess.run([sys.executable, "-c", _REF_MESH_RESTORE, d, "4", json.dumps(MESH_SPECS), out],
+                   check=True, env=env, timeout=300)
+    ref_blocks = np.load(out)
+
+    mesh = Mesh(np.array(["cpu"] * 8, dtype=object).reshape(2, 4), ("data", "model"))
+    target = port_of(ref_state(9))
+
+    def sharding_of(path):
+        spec = MESH_SPECS["//".join(path)]
+        return None if spec is None else NamedSharding(mesh, spec)
+
+    shardings = TrainState(
+        step=sharding_of(["step"]),
+        params={"blocks": {"attn": {"wq": sharding_of(["params", "blocks", "attn", "wq"])},
+                           "ln1": sharding_of(["params", "blocks", "ln1"])},
+                "embed": sharding_of(["params", "embed"]),
+                "router": sharding_of(["params", "router"])},
+        opt={"m": {"blocks": None, "embed": sharding_of(["opt", "m", "embed"]), "router": None},
+             "v": {"blocks": None, "embed": None, "router": sharding_of(["opt", "v", "router"])},
+             "count": sharding_of(["opt", "count"])})
+    got = ckpt.restore(d, 4, target, device="cpu", shardings=shardings)
+    flat_want = flat_bits(want)
+    got_flat = dict(leaves({"step": got.step, "params": got.params, "opt": got.opt}))
+    for path, leaf in got_flat.items():
+        key = path.replace(".", "//")
+        spec = MESH_SPECS.get(key)
+        if spec is None:  # restored whole on the device, as without shardings
+            assert isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu"
+            assert flat_bits({"x": leaf})["x"] == flat_want[key], key
+            continue
+        assert isinstance(leaf, ShardedTensor) and leaf.blocks.shape == (2, 4), key
+        sizes = {"data": 2, "model": 4}
+        for pos in np.ndindex(2, 4):
+            blk = leaf.blocks[pos]
+            rank = pos[0] * 4 + pos[1]
+            assert tuple(blk.shape) == PM.local_shape(leaf.shape, spec, sizes), key
+            assert blk.device == mesh.devices[pos]
+            a = blk.view(torch.int16).numpy() if blk.dtype == torch.bfloat16 else blk.numpy()
+            np.testing.assert_array_equal(a, ref_blocks[f"{key}@{rank}"], err_msg=f"{key}@{pos}")
+            index = [(s.start, s.stop) for s in block_index(leaf.shape, leaf.sharding, pos)]
+            np.testing.assert_array_equal(np.array(index, dtype=np.int64).reshape(-1, 2),
+                                          ref_blocks[f"{key}@{rank}@index"])
+
+    # a split that does not divide raises as jax.device_put does
+    with pytest.raises(ValueError, match="axis 1 is partitioned 8 times, but does not evenly "
+                                         "divide the dimension size 4"):
+        ckpt.restore(d, 4, target, device="cpu", shardings=TrainState(
+            step=None, params={"blocks": None, "embed": None,
+                               "router": NamedSharding(mesh, (None, ("data", "model")))},
+            opt=None))

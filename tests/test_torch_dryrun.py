@@ -403,8 +403,11 @@ def test_run_cell_writes_one_json(tmp_path, monkeypatch):
         assert json.load(f) == json.loads(json.dumps(res))
     for key in ("memory_analysis", "cost_analysis", "collectives", "roofline", "fits",
                 "n_params", "model_flops_global", "useful_flops_ratio", "cost_probe_s",
-                "memory_probe_s", "per_device_split", "collectives_counted", "temp_bound"):
+                "memory_probe_s", "per_device", "peak_segment", "collectives_params",
+                "collectives_tp"):
         assert key in res
+    for gone in ("per_device_split", "collectives_counted", "temp_bound", "replica_cost"):
+        assert gone not in res
     assert res["dp_size"] == 16 and res["replica_batch"] == 2 and res["n_devices"] == 256
     mem = res["memory_analysis"]
     cell = steps.build_cell(configs.get_reduced("qwen2-1.5b"), shape,
