@@ -2768,8 +2768,12 @@ def dryrun_lines(dev, seed, drive, full_step, procs, out_dir) -> dict:
                 cells.append(json.load(f))
     require(len(cells) == len(DRYRUN_CLI_CELLS),
             f"dryrun_production: {len(cells)} cells written")
-    for c in cells:
+    for c, spec in zip(cells, DRYRUN_CLI_CELLS):
         r, m = c["roofline"], c["memory_analysis"]
+        _, program_args, _ = dryrun_program(c, spec)
+        require(program_args == m["argument_size_in_bytes"],
+                f"dryrun_production: {c['cell']} ({c['mesh']}): the program's arguments "
+                f"{program_args} B against the count's {m['argument_size_in_bytes']} B")
         emit({"phase": "dryrun", "part": "dryrun_production", "cell": c["cell"],
               "mesh": c["mesh"], "n_devices": c["n_devices"], "dp_size": c["dp_size"],
               "replica_batch": c["replica_batch"], "microbatches": c["microbatches"],
@@ -2779,6 +2783,7 @@ def dryrun_lines(dev, seed, drive, full_step, procs, out_dir) -> dict:
               "hbm_bytes_per_device": r["hbm_bytes_per_device"],
               "collective_bytes_per_device": r["collective_bytes_per_device"],
               "argument_bytes_per_device": m["argument_size_in_bytes"],
+              "program_argument_bytes": program_args, "program_arguments_equal_count": True,
               "temp_bytes_per_device": m["temp_size_in_bytes"], "fits": c["fits"],
               "useful_flops_ratio": c["useful_flops_ratio"], "n_params": c["n_params"],
               "cell_s": c["seconds"], "model_axis": c["model_axis"],
@@ -2798,17 +2803,12 @@ def dryrun_lines(dev, seed, drive, full_step, procs, out_dir) -> dict:
     return own
 
 
-def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
-    """``dryrun_share``: one device's program (``models/tp.py``) of the
-    production cell ``DRYRUN_SHARE_CELL`` run on the card at full width and
-    depth: its blocks of the model-split leaves (drawn on the card), the
-    FSDP leaves whole as a device holds them at use, the replica's batch in
-    the cell's microbatches, one train step with every collective the
-    identity (``tp.IdentityHook``).  Its argument bytes against the live
-    tensors', the count's predicted peak (arguments plus the cell's
-    temporaries) against ``max_memory_allocated`` less what earlier phases
-    still hold, the step's ms against the roofline's card terms; (line,
-    launches by kernel)."""
+def dryrun_program(cell: dict, spec: tuple):
+    """(one device's program of the counted production ``cell`` of
+    ``DRYRUN_CLI_CELLS``' ``spec`` (arch, shape, mesh), its
+    arguments' bytes, its parameters' specs at its blocks):
+    ``build_cell(per_device=True)`` at the cell's replica batch and
+    microbatches on the production mesh."""
     from repro_torch import configs as lm_configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
@@ -2817,25 +2817,50 @@ def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
     from repro_torch.models.config import SHAPES
     from repro_torch.models.model import get_model
 
-    t_part = time.perf_counter()
-    arch, shape_name, mesh_name = DRYRUN_SHARE_CELL
+    arch, shape_name, mesh_name = spec
     multi = mesh_name == "multi"
-    cfg = lm_configs.get_config(arch)
     sizes = PM.mesh_axis_sizes(make_production_mesh(multi_pod=multi))
-    rules = dryrun.rules_for(arch, shape_name, multi)
     shape = dataclasses.replace(SHAPES[shape_name], global_batch=cell["replica_batch"])
+    cfg, rules = lm_configs.get_config(arch), dryrun.rules_for(arch, shape_name, multi)
     prog = steps.build_cell(cfg, shape, rules, microbatches=cell["microbatches"],
                             dp_size=cell["dp_size"], axis_sizes=sizes, per_device=True)
+    leaves = PM.leaves({str(i): a._asdict() if hasattr(a, "_asdict") else a
+                        for i, a in enumerate(prog.abstract_args)})
+    local = tp.local_specs(get_model(cfg).param_specs, rules, sizes)
+    return prog, sum(t.nbytes for _, t in leaves), local
+
+
+def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
+    """``dryrun_share``: one device's program (``models/tp.py``) of the
+    production cell ``DRYRUN_SHARE_CELL`` run on the card at full width and
+    depth: its blocks of every split leaf, over ``"model"`` and the FSDP
+    ``"data"`` (drawn on the card), its float32 gradient accumulators and
+    optimizer state at those blocks, the replica's batch in the cell's
+    microbatches, one train step with every collective the identity
+    (``tp.IdentityHook``: a gather repeats the device's block, a
+    reduce-scatter keeps its first block, a sum its own part).  Its
+    argument bytes against the count's and the live tensors', the count's
+    predicted peak (arguments plus the cell's temporaries) against
+    ``max_memory_allocated`` less what earlier phases still hold, the
+    hook's calls by op against the count's collectives, the step's ms
+    against the roofline's card terms; (line, launches by kernel)."""
+    from repro_torch import configs as lm_configs
+    from repro_torch.models import params as PM
+    from repro_torch.models import tp
+
+    t_part = time.perf_counter()
+    prog, args_bytes, local_specs = dryrun_program(cell, DRYRUN_SHARE_CELL)
     require(prog.kind == "train", f"dryrun_share: {cell['cell']} is not a train cell")
+    counted_args = cell["memory_analysis"]["argument_size_in_bytes"]
+    require(args_bytes == counted_args, f"dryrun_share: the program's arguments {args_bytes} B "
+                                        f"against the count's {counted_args} B")
     abstract_state, abstract_batch = prog.abstract_args
-    args_bytes = (sum(t.nbytes for _, t in PM.leaves(abstract_state._asdict()))
-                  + sum(t.nbytes for t in abstract_batch.values()))
-    local_specs = tp.local_specs(get_model(cfg).param_specs, rules, sizes)
+    cfg = lm_configs.get_config(DRYRUN_SHARE_CELL[0])
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()  # what earlier phases still hold
     params = device_lm_tree(local_specs, seed, dev)
-    state = steps.TrainState(
+    state = type(abstract_state)(
         torch.zeros((), dtype=torch.int32, device=dev), params,
         PM.map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
                     abstract_state.opt))
@@ -2846,13 +2871,12 @@ def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
             + sum(t.nbytes for t in batch.values()))
     require(live == args_bytes, f"dryrun_share: live {live} B against the program's "
                                 f"arguments {args_bytes} B")
-    m = sizes.get("model", 1)
-    hook = tp.IdentityHook({"model": m})
+    hook = tp.IdentityHook(prog.sizes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def step():
-        with tp.use(tp.Layout({"model": m}, {"model": 0}, hook), shared=True):
+        with tp.use(prog.layout(hook), shared=True):
             out = prog.step_fn(state, batch)
         torch.cuda.synchronize()
         return out
@@ -2866,25 +2890,32 @@ def dryrun_share_line(dev, seed, drive, cell: dict) -> tuple:
     predicted = args_bytes + cell["memory_analysis"]["temp_size_in_bytes"]
     require(abs(predicted / peak - 1) <= DRYRUN_PEAK_TOLERANCE,
             f"dryrun_share: predicted peak {predicted} against {peak} measured")
+    require(hook.counts == cell["collectives"]["counts"],
+            f"dryrun_share: the hook's calls {hook.counts} against the count's "
+            f"{cell['collectives']['counts']}")
     roof = cell["roofline"]
     card_bound = max(roof["compute_s"], roof["memory_s"])
     return ({"phase": "dryrun", "part": "dryrun_share", "cell": cell["cell"],
-             "mesh": cell["mesh"], "device": [0, 0], "model_axis": m,
+             "mesh": cell["mesh"], "device": [0, 0], "model_axis": cell["model_axis"],
+             "axis_sizes": prog.sizes,
              "replica_batch": cell["replica_batch"], "microbatches": cell["microbatches"],
-             "seq_len": shape.seq_len, "layers": cfg.n_layers, "d_model": cfg.d_model,
+             "seq_len": int(abstract_batch["tokens"].shape[1]), "layers": cfg.n_layers,
+             "d_model": cfg.d_model,
              "program_argument_bytes": args_bytes, "live_argument_bytes": live,
-             "argument_bytes_equal_live": True,
-             "device_argument_bytes": cell["memory_analysis"]["argument_size_in_bytes"],
+             "device_argument_bytes": counted_args, "argument_bytes_equal_live": True,
+             "argument_bytes_equal_count": True,
              "temp_size_in_bytes": cell["memory_analysis"]["temp_size_in_bytes"],
              "peak_segment": cell["peak_segment"], "predicted_peak_bytes": predicted,
              "max_memory_allocated": peak, "held_before_bytes": base,
              "predicted_over_measured_peak": predicted / peak,
-             "peak_tolerance": DRYRUN_PEAK_TOLERANCE, "loss": loss,
+             "peak_tolerance": DRYRUN_PEAK_TOLERANCE,
+             "loss_identity_joined": loss,
              "step_ms": step_s * 1e3, "step_timed": "one step, after phase 16's warm run",
              "roofline": roof, "card_bound_ms": card_bound * 1e3,
              "card_bound_over_step": card_bound / step_s,
              "collectives": "the identity (no peers)", "hook_calls": hook.counts,
-             "counted_tp_collectives": cell["collectives_tp"]["counts"],
+             "counted_collectives": cell["collectives"]["counts"],
+             "hook_calls_equal_count": True,
              "nvidia_smi": nvidia_smi_line(), "ported_kernel_launches": sum(path.values()),
              "part_s": time.perf_counter() - t_part}, path)
 
@@ -3235,6 +3266,32 @@ def launch_edge_lines(dev, seed, rows) -> dict:
             rows[name]["edge"]["shape"] = [plan.inst, plan.b, plan.m, plan.n]
         torch.cuda.empty_cache()
 
+    def library(names, what, call, want_rows, windows):
+        """One PyTorch call computing the function of the kernels ``names``
+        on their operands (``what`` names it), held to the plain version on
+        ``windows``, timed by CUDA events; each entry and row gains
+        ``library_ms``.  A call the library refuses at this size is
+        recorded with its error in place of a time."""
+        try:
+            got = call()
+        except RuntimeError as e:  # a library's own size limit, not a check of the port
+            result = {"library_call": what, "library_ms": None, "library_refused": str(e)[:300]}
+        else:
+            torch.cuda.synchronize()
+            for lo, hi in windows:
+                want = want_rows(lo, hi)
+                require(torch.equal(got[lo:hi].to(want.dtype), want),
+                        f"launch_edges {what}: rows {lo}:{hi} differ from the plain version")
+            del got
+            torch.cuda.empty_cache()
+            result = {"library_call": what, "library_ms": cuda_ms(call, iters=2, warmup=0)}
+        for entry in entries:
+            if entry["kernel"] in names:
+                entry.update(result)
+                if entry["kernel"] in rows:
+                    rows[entry["kernel"]]["edge"].update(result)
+        torch.cuda.empty_cache()
+
     run = autotune.MAX_GRID_YZ * autotune.GEMM_TILES[0].bm
     windows = edge_windows(lanes, run)
     for name, parallel in (("coupling_sum", None), ("hybrid_coupling_sum", 32)):
@@ -3259,7 +3316,15 @@ def launch_edge_lines(dev, seed, rows) -> dict:
          lambda: ops.hybrid_phase_step(w, sigma, bias, phase, half=HALF, parallel=32),
          lambda lo, hi: plain.hybrid_phase_step_ref(w, sigma[lo:hi], bias, phase[lo:hi], HALF,
                                                     32), plan, windows, len(plan.launches))
-    del sigma, phase
+    del phase
+    # the library's product on the same operands, zero-padded to multiples of 8
+    kp = -(-n // 8) * 8
+    sig_p = torch.nn.functional.pad(sigma, (0, kp - n))
+    w_p = torch.nn.functional.pad(w, (0, kp - n, 0, kp - n))
+    library(("coupling_sum", "onn_step", "hybrid_coupling_sum"), "torch._int_mm (padded)",
+            lambda: torch._int_mm(sig_p, w_p.t())[:, :n],
+            lambda lo, hi: plain.coupling_sum_ref(w, sigma[lo:hi]), windows)
+    del sigma, sig_p, w_p
     torch.cuda.empty_cache()
     # past 2³¹ elements in one tensor: kernel 1 at N = EDGE_WIDE_N
     nw = EDGE_WIDE_N
@@ -3270,6 +3335,8 @@ def launch_edge_lines(dev, seed, rows) -> dict:
     held(f"coupling_sum_n{nw}", lambda: ops.coupling_sum(w_w, s_w),
          lambda lo, hi: plain.coupling_sum_ref(w_w, s_w[lo:hi]), plan, windows,
          len(plan.launches))
+    library((f"coupling_sum_n{nw}",), "torch._int_mm", lambda: torch._int_mm(s_w, w_w.t()),
+            lambda lo, hi: plain.coupling_sum_ref(w_w, s_w[lo:hi]), windows)
     del w_w, s_w
     torch.cuda.empty_cache()
 
@@ -3285,7 +3352,11 @@ def launch_edge_lines(dev, seed, rows) -> dict:
                 (lambda p=parallel: ops.hybrid_coupling_sum(w3, s3, parallel=p)))
         held(name, call, lambda lo, hi: plain.coupling_sum_ref(w3[lo:hi], s3[lo:hi]), plan,
              i_windows, len(plan.launches))
-    del w3, s3
+    f_s3, f_w3t = s3.float(), w3.float().transpose(1, 2).contiguous()
+    library(("coupling_sum_batched", "hybrid_coupling_sum_batched"),
+            "torch.bmm (float32 copies)", lambda: torch.bmm(f_s3, f_w3t),
+            lambda lo, hi: plain.coupling_sum_ref(w3[lo:hi], s3[lo:hi]), i_windows)
+    del w3, s3, f_s3, f_w3t
     torch.cuda.empty_cache()
 
     # kernel 8's GEMM: 8,388,557 lanes, runs of 65,535 tiles of 128 on z
@@ -3318,7 +3389,16 @@ def launch_edge_lines(dev, seed, rows) -> dict:
     rows["quantized_matvec"]["edge"] = {"launches": len(plan.launches), "grids": q_grids,
                                         "within_bound": True, "error_bound_ratio": worst,
                                         "device_ms": ms, "shape": [q_lanes, m_q, k_q]}
-    del wq, x, scale
+    w_deq_t = (wq.float() * scale[:, None]).t().contiguous()
+    lib = torch.matmul(x, w_deq_t)
+    lib_worst = max(fp32_error(lib[lo:hi], x[lo:hi], wq, scale)[1] for lo, hi in q_windows)
+    del lib
+    lib_ms = cuda_ms(lambda: torch.matmul(x, w_deq_t), iters=2, warmup=0)
+    lib_fields = {"library_call": "torch.matmul (dequantized W)", "library_ms": lib_ms,
+                  "library_error_bound_ratio": lib_worst}
+    entry.update(lib_fields)
+    rows["quantized_matvec"]["edge"].update(lib_fields)
+    del wq, x, scale, w_deq_t
     torch.cuda.empty_cache()
 
     # a public entry past the edge: Max-Cut over 65,539 instances on the card

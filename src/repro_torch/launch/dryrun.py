@@ -8,11 +8,15 @@ so a cell measures **one device's program** (``models/tp.py``;
 ``build_cell(per_device=True)``): the ``global_batch / dp_size`` examples
 one data-parallel replica takes, in the cell's ``auto_microbatches``, where
 ``dp_size`` is the product of the mesh axes the batch rule names, through
-that device's blocks of every leaf that ``params.pspecs`` splits over
-``"model"`` (local heads, MLP width, vocab, experts; a ``kv_seq``-split
-cache at its block), whole where the specs replicate, with the
-tensor-parallel collectives at the points where a split contraction leaves
-a partial sum or a split result.  From it the cell records, into
+that device's blocks of every leaf as ``params.pspecs`` splits it (local
+heads, MLP width, vocab, experts over ``"model"``; the FSDP ``embed`` and
+``expert_embed`` dims over ``"data"``; a ``kv_seq``-split cache at its
+block), whole where the specs replicate.  The program gathers an FSDP
+block where a layer reads it and reduce-scatters its gradient there, once
+a microbatch; it makes the tensor-parallel collectives where a split
+contraction leaves a partial sum or a split result, and a train step's
+optimizer and replicas join their statistics and gradients over the
+blocks.  From it the cell records, into
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``:
 
 * **FLOPs and bytes accessed** (``cost_analysis``), per device.  FLOPs
@@ -25,27 +29,30 @@ a partial sum or a split result.  From it the cell records, into
   points, ``_solve_linear``), then scaled by the microbatches.
 * **Memory per device** (``memory_analysis``).  Argument bytes are exact:
   each leaf's per-device block (``params.local_shape``) under the cell's
-  specs and the mesh sizes; the donated arguments are the alias bytes;
-  output bytes are those plus the program's other outputs.  Temporary
-  bytes are the peak of live storage the device's program makes above its
-  arguments (its outputs included), counted by this module's own tracker
-  over probes of the whole step at 1 and 2 layer groups and extrapolated
-  the same way; ``peak_segment`` names the stretch that holds it.  The
-  program holds the FSDP-split leaves whole (gathered at use), as its
-  arguments, which the peak does not count.  ``fits``: arguments plus
-  temporaries within one H100's 80 GB.
+  specs and the mesh sizes, the program's own arguments; the donated
+  arguments are the alias bytes; output bytes are those plus the program's
+  other outputs.  Temporary bytes are the peak of live storage the
+  device's program makes above its arguments (its outputs, the gathered
+  FSDP blocks and its float32 gradient accumulators at its blocks
+  included), counted by this module's own tracker over probes of the
+  whole step at 1 and 2 layer groups and extrapolated the same way;
+  ``peak_segment`` names the stretch that holds it.  ``fits``: arguments
+  plus temporaries within one H100's 80 GB.
 * **Collective bytes per device** (``collectives``), with the reference's
-  ring wire factors (``hlo_analysis.WIRE_FACTOR``), the sum of two parts.
-  The parameter side (``collectives_params``), from the specs: a leaf split
-  over a data-parallel axis (FSDP) is all-gathered at each use (forward,
-  remat's recompute and backward for train, per microbatch); a train step
-  reduce-scatters its gradient over those axes and all-reduces it over the
-  other batch axes (a replicated leaf: all-reduce over every batch axis),
-  once a step.  The tensor-parallel side (``collectives_tp``), counted by
-  the program's hooks (``tp.CountHook``) in its forward, remat's recompute
-  and its backward, and extrapolated with the FLOPs.  At a model axis of 1
-  (and no ``kv_seq`` split) the program is the replica's step and the
-  counts are the replica's.
+  ring wire factors (``hlo_analysis.WIRE_FACTOR``), the sum of two sides,
+  both counted by the program's hooks (``tp.CountHook``) on the memory
+  probes' whole steps (the replica's batch and microbatches, the
+  optimizer's statistics once a step) at 1 and 2 layer groups,
+  extrapolated to the depth.  The parameter side (``collectives_params``):
+  an FSDP block's all-gather at each read and at remat's recompute of it
+  and its gradient's reduce-scatter at each read, per microbatch; a
+  gradient's all-reduce over the batch axes that do not cut its leaf, the
+  global norm's and Adafactor's statistics, once a step.  The activation
+  side (``collectives_tp``): the layers' tensor-parallel and ``kv_seq``
+  collectives in the forward, remat's recompute and the backward, the MoE
+  balance statistic and the loss joined over the replicas.  At a data and
+  a model axis of 1 (and no ``kv_seq`` split) the program is the replica's
+  step and counts none.
 
 The reference's HLO parser has no counterpart (``launch.hlo_analysis``);
 its ``_accounting_cfg`` is not needed (the probes count the cell's own
@@ -125,11 +132,12 @@ ARTIFACT_DIR = os.path.normpath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch"))
 
 #: What an LM cell's per-device fields count (its ``per_device`` entry).
-PER_DEVICE = ("one device's program (models/tp.py): its blocks of the model-split "
-              "leaves, whole where the specs replicate; FLOPs, bytes and temporaries "
-              "its own; collectives: the parameter side (FSDP gathers, the gradient's "
-              "reduce-scatter / all-reduce) and the tensor-parallel hooks' (forward, "
-              "remat's recompute and backward)")
+PER_DEVICE = ("one device's program (models/tp.py): its blocks of every split leaf "
+              "(model and FSDP axes), whole where the specs replicate; FLOPs, bytes and "
+              "temporaries its own; collectives counted by its hooks: the parameter side "
+              "(FSDP gathers and reduce-scatters, the gradients' and the optimizer's sums) "
+              "and the activation side (tensor-parallel and kv_seq collectives in forward, "
+              "remat's recompute and backward; the replicas' loss and MoE balance)")
 
 
 
@@ -378,18 +386,16 @@ def _probe(cfg, shape, probes, *, optimizer, microbatches, accum_dtype,
            split: Split) -> Dict[str, Any]:
     """The counts of one probe's step: one device's program
     (``build_cell(per_device=True)``) under a :class:`models.tp.CountHook`,
-    whose collectives are the probe's ``coll_counts`` and ``coll_bytes``;
-    ``probes`` holds those a cell has made already (its cost and memory
-    probes meet when the replica takes one microbatch of 3 examples or
-    fewer)."""
+    whose collectives by side are the probe's ``sides``; ``probes`` holds
+    those a cell has made already (its cost and memory probes meet when the
+    replica takes one microbatch of 3 examples or fewer)."""
     key = (cfg, shape, microbatches, optimizer, accum_dtype, split.key())
     if key not in probes:
         cell = steps_lib.build_cell(cfg, shape, split.rules, optimizer_name=optimizer,
                                     microbatches=microbatches, accum_dtype=accum_dtype,
                                     axis_sizes=split.sizes, per_device=True)
-        sizes = {"model": split.sizes.get("model", 1), "kv_seq": cell.kv_seq_blocks}
-        hook = tp.CountHook(sizes)
-        with tp.use(tp.Layout(sizes, {}, hook), shared=True):
+        hook = tp.CountHook(cell.sizes)
+        with tp.use(cell.layout(hook), shared=True):
             got = count_step(cell.step_fn, cell.abstract_args)
         out = got.pop("outputs")
         # the outputs that do not take a donated argument's place: a train
@@ -397,7 +403,7 @@ def _probe(cfg, shape, probes, *, optimizer, microbatches, accum_dtype,
         kept = {"train": out[1:], "decode": out[:2]}.get(cell.kind, out)
         got["other_output_bytes"] = sum(
             t.nbytes for t in pytree.tree_leaves(kept) if isinstance(t, torch.Tensor))
-        got.update(coll_counts=dict(hook.counts), coll_bytes=dict(hook.bytes))
+        got["sides"] = hook.sides
         probes[key] = got
     return probes[key]
 
@@ -448,21 +454,15 @@ def _cost_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
                        optimizer=optimizer, microbatches=1, accum_dtype=accum_dtype,
                        split=split)
             feats = dfeats + [b] + [f * b for f in dfeats[1:]]
-            points.append((feats, m))
+            # the collectives are counted on the memory probes' whole steps
+            points.append((feats, {"flops": m["flops"], "bytes": m["bytes"],
+                                   "coll_counts": {}, "coll_bytes": {}}))
     full_feats = depth_full + [b_full] + [f * b_full for f in depth_full[1:]]
     points, full_feats = _drop_degenerate(points, full_feats)
     out = _solve_linear(points, full_feats)
-    # A count is a whole number: the fit rounded (``_solve_linear`` truncates,
-    # as the reference's does, so 7.9999… would count 7).
-    feats = np.array([p[0] for p in points], dtype=float)
-    for k in out["coll_counts"]:
-        ys = np.array([m["coll_counts"].get(k, 0) for _, m in points], dtype=float)
-        coef, *_ = np.linalg.lstsq(feats, ys, rcond=None)
-        out["coll_counts"][k] = max(0, int(round(float(np.dot(coef, full_feats)))))
     for key in ("flops", "bytes"):
         out[key] *= scale
-    out["coll_counts"] = {k: int(v * scale) for k, v in out["coll_counts"].items()}
-    out["coll_bytes"] = {k: v * scale for k, v in out["coll_bytes"].items()}
+    del out["coll_counts"], out["coll_bytes"]
     out["probe_s"] = round(time.perf_counter() - t0, 2)
     out["cost_scale"] = scale
     out["n_probes"] = len(points)
@@ -481,7 +481,9 @@ def _memory_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
     depth, one leaf after another; the leaf that holds its peak changes
     with the depth), then the stretch after it.  The segment that holds
     the step's peak changes with the depth too: at 1 or 2 layers the
-    loss's logits, at 28 the optimizer's new state."""
+    loss's logits, at 28 the optimizer's new state.  The probes' hooks'
+    collectives by side (``collectives``) are extrapolated the same way,
+    each count rounded to a whole number."""
     t0 = time.perf_counter()
     probes = {} if probes is None else probes
     depth, depth_full = _depth_points(cfg)
@@ -504,13 +506,23 @@ def _memory_by_extrapolation(cfg, shape, *, optimizer, replica_batch, mb,
                  if len(seg) == 3 and seg[2] else float(at_full([m["segments"][i][1] for m in runs]))
                  for i, seg in enumerate(runs[0]["segments"])]
     top = int(np.argmax(seg_peaks))
+    collectives = {}
+    for side in tp.SIDES:
+        got = [m["sides"][side] for m in runs]
+        ops = sorted({op for g in got for op in g["counts"]})
+        counts = at_full([[g["counts"].get(op, 0) for op in ops] for g in got]) if ops else []
+        byts = at_full([[g["bytes"].get(op, 0.0) for op in ops] for g in got]) if ops else []
+        collectives[side] = hlo.CollectiveStats(
+            counts={op: max(0, int(round(float(c)))) for op, c in zip(ops, counts)},
+            bytes={op: max(0.0, float(b)) for op, b in zip(ops, byts)})
     return {"temp": int(round(seg_peaks[top])), "peak_segment": runs[0]["segments"][top][0],
             "other_outputs": int(round(float(at_full([m["other_output_bytes"] for m in runs])))),
+            "collectives": collectives,
             "probe_s": round(time.perf_counter() - t0, 2), "n_probes": len(runs)}
 
 
 # ---------------------------------------------------------------------------
-# Collectives implied by the specs
+# Cells
 # ---------------------------------------------------------------------------
 
 
@@ -518,48 +530,6 @@ def _axes_of(entry):
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
-
-
-def param_collectives(param_abstract, param_specs, rules, axis_sizes, *, kind: str,
-                      remat: bool, microbatches: int, grad_dtype) -> hlo.CollectiveStats:
-    """Per-device wire bytes of the parameter-side collectives of one step
-    (module docstring), with :data:`hlo_analysis.WIRE_FACTOR`."""
-    batch_axes = _axes_of(rules.get("batch"))
-    counts: Dict[str, int] = {}
-    byts: Dict[str, float] = {}
-
-    def add(op, size, nbytes, times=1):
-        if size <= 1 or times <= 0:
-            return
-        counts[op] = counts.get(op, 0) + times
-        byts[op] = byts.get(op, 0.0) + times * hlo.WIRE_FACTOR[op](size) * nbytes
-
-    uses = 1 + (2 if remat else 1) * (kind == "train")
-    gather_times = uses * (microbatches if kind == "train" else 1)
-    for t, spec in _pairs(param_abstract, param_specs):
-        local = _local_numel(t, spec, axis_sizes)
-        split = {a for e in spec for a in _axes_of(e)}
-        gathered = tuple(a for a in batch_axes if a in split)
-        g = 1
-        for a in gathered:
-            g *= axis_sizes.get(a, 1)
-        add("all-gather", g, local * g * t.element_size(), gather_times)
-        if kind != "train":
-            continue
-        grad_bytes = local * (torch.empty((), dtype=grad_dtype).element_size()
-                              if microbatches > 1 else t.element_size())
-        add("reduce-scatter", g, grad_bytes)
-        rest = 1
-        for a in batch_axes:
-            if a not in gathered:
-                rest *= axis_sizes.get(a, 1)
-        add("all-reduce", rest, grad_bytes)
-    return hlo.CollectiveStats(counts=counts, bytes=byts)
-
-
-# ---------------------------------------------------------------------------
-# Cells
-# ---------------------------------------------------------------------------
 
 
 def run_cell(
@@ -579,7 +549,7 @@ def run_cell(
     shape=None,
 ) -> Dict[str, Any]:
     """One dry-run cell (module docstring): the replica's costs by
-    extrapolation, its memory per device, the collectives its specs imply,
+    extrapolation, its memory and its program's collectives per device,
     the roofline; written to ``outdir`` and returned.
 
     ``mesh`` replaces the production mesh and ``shape`` the named shape
@@ -626,12 +596,7 @@ def run_cell(
     memory = _memory_by_extrapolation(cfg, shape, optimizer=optimizer,
                                       replica_batch=replica_batch, mb=mb,
                                       accum_dtype=accum_dtype, probes=probes, split=split)
-    p_abs, p_spec = cell.abstract_args[0], cell.in_specs[0]
-    if shape.kind == "train":
-        p_abs, p_spec = p_abs.params, p_spec.params
-    params_coll = param_collectives(p_abs, p_spec, rules, sizes, kind=shape.kind,
-                                    remat=cfg.remat, microbatches=mb, grad_dtype=accum_dtype)
-    tp_coll = hlo.CollectiveStats(counts=cost["coll_counts"], bytes=cost["coll_bytes"])
+    params_coll, tp_coll = memory["collectives"]["params"], memory["collectives"]["tp"]
     coll = hlo.CollectiveStats(
         counts={k: params_coll.counts.get(k, 0) + tp_coll.counts.get(k, 0)
                 for k in set(params_coll.counts) | set(tp_coll.counts)},

@@ -310,12 +310,23 @@ def head_split(params, cfg: ModelConfig) -> HeadSplit:
 
 def _kv_weights(params, split: HeadSplit, whole: bool = False):
     """(wk, wv, bk, bv) of the KV heads the program computes: every head
-    when ``whole`` (a cache that holds them all), else ``split.kv``'s."""
+    when ``whole`` (a cache that holds them all), else ``split.kv``'s.
+    Whole KV weights read by a device's heads enter its split region: each
+    position's gradient holds its query heads' part of theirs."""
     names = ("wk", "wv", "bk", "bv") if "bk" in params else ("wk", "wv")
     out = [params[n] for n in names]
-    if split.kv is not None and not whole:
-        out = [t[:, split.kv] if t.dim() == 3 else t[split.kv] for t in out]
+    if split.kv is not None:
+        out = [tp.enter(t) for t in out]
+        if not whole:
+            out = [t[:, split.kv] if t.dim() == 3 else t[split.kv] for t in out]
     return out + [None] * (4 - len(out))
+
+
+def _qk_norms(params, split: HeadSplit):
+    """``q_norm`` and ``k_norm`` (one weight for every head), entering a
+    device's split region where its heads are a block."""
+    norms = params["q_norm"], params["k_norm"]
+    return tuple(tp.enter(w) for w in norms) if split.parts > 1 else norms
 
 
 def select_kv(k: torch.Tensor, split: HeadSplit, whole: bool = False) -> torch.Tensor:
@@ -347,8 +358,9 @@ def project_qkv(params, x, cfg: ModelConfig, positions: Optional[torch.Tensor],
         k = k + bk.to(k.dtype)
         v = v + bv.to(v.dtype)
     if "q_norm" in params:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q_norm, k_norm = _qk_norms(params, split)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -464,8 +476,9 @@ def cross_attention(params, x: torch.Tensor, kv_feats: torch.Tensor, cfg: ModelC
     k = dot(kv_feats, wk)
     v = dot(kv_feats, wv)
     if "q_norm" in params:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q_norm, k_norm = _qk_norms(params, split)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     out = flash_attention(q, select_kv(k, split), select_kv(v, split), causal=False,
                           chunk=cfg.attn_chunk, q_chunk=cfg.q_chunk)
     return _gated(params, _out_proj(params, out, split))
@@ -593,6 +606,18 @@ def _route(logits: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(logits, probs, gates, idx, pos, keep, dst, capacity)
 
 
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` (B, S, E) over its tokens.  In a data-parallel
+    train program (``models/tp.py``) the batch is the replica's share, so
+    the replicas' sums are joined over the ``"batch"`` axes; a forward
+    without autograd (prefill, serving) discards the balance loss."""
+    lay = tp.current()
+    n = 1 if lay is None else lay.size("batch")
+    if n == 1 or not torch.is_grad_enabled():
+        return x.mean(dim=(0, 1))
+    return tp.join(x.sum(dim=(0, 1))) / (x.shape[0] * x.shape[1] * n)
+
+
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k capacity-dispatch MoE on ``x`` (B, S, D); returns (output,
     load-balance aux loss).  Dispatch is per example: each sequence fills
@@ -603,15 +628,18 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     # A device's program (models/tp.py): its block of the experts (the
     # router's logits gathered, the dispatch and combine over its experts'
     # slots) or of every expert's hidden width; its outputs are summed.
+    # The routing is whole on every position (a split router's logits are
+    # gathered) and the gates enter the split region with the tokens, so
+    # the gradients of the logits are whole too.
     pe, pf = tp.parts(params, "router", 1), tp.parts(params, "wg", 2)
     xm = tp.enter(x) if pe > 1 or pf > 1 else x  # the dense residual enters on its own
-    logits = torch.matmul(xm.float(), params["router"].float())
+    logits = torch.matmul((xm if pe > 1 else x).float(), params["router"].float())
     r = _route(tp.gather(logits, -1) if pe > 1 else logits, cfg)
     capacity = r.capacity
 
     # Load-balance aux (Switch): E · Σ_e fraction_e · prob_e.
-    me = r.probs.mean(dim=(0, 1))
-    ce = _one_hot(r.idx, e).float().sum(dim=2).mean(dim=(0, 1))
+    me = _batch_mean(r.probs)
+    ce = _batch_mean(_one_hot(r.idx, e).float().sum(dim=2))
     aux = e * torch.sum(me * ce)
 
     dst, keep = r.dst, r.keep
@@ -632,7 +660,8 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     y = torch.bmm(y, params["wd"].to(x.dtype))  # (E, B·C, D)
     y = y.reshape(e, b, capacity, d).transpose(0, 1).reshape(b, e * capacity, d)
     yf = torch.cat([y, y.new_zeros((b, 1, d))], dim=1)
-    weight = (r.gates.reshape(b, s * k, 1) * keep[..., None]).to(x.dtype)
+    gates = tp.enter(r.gates) if pe > 1 or pf > 1 else r.gates
+    weight = (gates.reshape(b, s * k, 1) * keep[..., None]).to(x.dtype)
     out = (yf[bidx, dst] * weight).reshape(b, s, k, d).sum(dim=2)
     if pe > 1 or pf > 1:
         out = tp.reduce(out)

@@ -84,8 +84,8 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float,
     ``z`` and ``w`` are this device's block of it, and the blocks' sums of
     squares are summed."""
     gated = y.float() * F.silu(z.float())
-    if parts > 1:
-        ss = tp.reduce((gated * gated).sum(dim=-1, keepdim=True))
+    if parts > 1:  # every block's norm reads the sum: its gradient sums theirs
+        ss = tp.join((gated * gated).sum(dim=-1, keepdim=True), "model")
         var = ss / (gated.shape[-1] * parts)
     else:
         var = torch.mean(gated * gated, dim=-1, keepdim=True)
@@ -98,7 +98,8 @@ class _Split(NamedTuple):
     channels (conv'd locally, gathered), of the out-projection's input, and
     of the heads the SSD runs on (the out-projection's blocks when they are
     whole heads, else 1: the SSD whole, its output cut for the
-    out-projection)."""
+    out-projection).  A whole tensor that a block-wise part reads enters
+    the split region (``tp.enter``), so that its gradient is whole."""
 
     proj: int
     conv: int
@@ -112,11 +113,24 @@ def _split(params, cfg: ModelConfig) -> _Split:
     return _Split(tp.parts(params, "in_proj", 1), tp.parts(params, "conv_w", 1), out, heads)
 
 
-def _in_proj(params, x: torch.Tensor, sp: _Split) -> torch.Tensor:
-    if sp.proj > 1 or sp.out > 1:
-        x = tp.enter(x)
-    zxbcdt = L.dot(x, params["in_proj"])
-    return tp.gather(zxbcdt, -1) if sp.proj > 1 else zxbcdt
+def _in_proj(params, x: torch.Tensor, sp: _Split):
+    """(z, xbc, dt) of ``x``, whole; each enters the split region where a
+    block-wise part reads it: the heads' (all three) or the conv's
+    channels' (xbc)."""
+    if sp.proj > 1:
+        zxbcdt = tp.gather(L.dot(tp.enter(x), params["in_proj"]), -1)
+    else:
+        zxbcdt = L.dot(x, params["in_proj"])
+    if sp.heads > 1:
+        zxbcdt = tp.enter(zxbcdt)
+    return zxbcdt
+
+
+def _of_heads(params, name: str, sp: _Split) -> torch.Tensor:
+    """This device's heads' block of a per-head parameter (whole on every
+    device)."""
+    w = params[name]
+    return tp.chunk(tp.enter(w), 0, sp.heads) if sp.heads > 1 else w
 
 
 def _out(params, y: torch.Tensor, z: torch.Tensor, sp: _Split, cfg: ModelConfig) -> torch.Tensor:
@@ -128,7 +142,7 @@ def _out(params, y: torch.Tensor, z: torch.Tensor, sp: _Split, cfg: ModelConfig)
         w = params["norm"]
         y = _gated_norm(y, z, tp.gather(w, 0) if tp.parts(params, "norm", 0) > 1 else w,
                         cfg.norm_eps)
-        y = tp.chunk(y, -1, sp.out)
+        y = tp.chunk(tp.enter(y) if sp.out > 1 else y, -1, sp.out)
     out = L.dot(y, params["out_proj"])
     return tp.reduce(out) if sp.out > 1 else out
 
@@ -161,17 +175,22 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
     sp = _split(params, cfg)
     z, xbc, dt_raw = _split_proj(cfg, _in_proj(params, x, sp))
     # the conv's channels (and the decode cache's) in this device's block
+    if sp.conv > 1 and sp.heads == 1:
+        xbc = tp.enter(xbc)
     xbc = tp.chunk(xbc, -1, sp.conv)
     conv_tail = xbc[:, t - (cfg.ssm_conv - 1) :]  # pre-conv inputs for decode
     xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
     if sp.conv > 1:
         xbc = tp.gather(xbc, -1)
+        if sp.heads > 1:
+            xbc = tp.enter(xbc)
     h = h // sp.heads
     xs = tp.chunk(xbc[..., :di].reshape(b, t, -1, p), 2, sp.heads)
     bmat = xbc[..., di : di + n].float()  # (B, T, N): exact upcasts
     cmat = xbc[..., di + n :].float()
-    dt = F.softplus(tp.chunk(dt_raw.float() + params["dt_bias"], -1, sp.heads))  # (B, T, H)
-    a_log_step = dt * -torch.exp(tp.chunk(params["a_log"], 0, sp.heads))  # ≤ 0: per-step log decay
+    dt = F.softplus(tp.chunk(dt_raw.float(), -1, sp.heads)
+                    + _of_heads(params, "dt_bias", sp))  # (B, T, H)
+    a_log_step = dt * -torch.exp(_of_heads(params, "a_log", sp))  # ≤ 0: per-step log decay
     xdt = xs.float() * dt[..., None]  # (B, T, H, P)
 
     above = torch.ones((q, q), dtype=torch.bool, device=x.device).triu(1)
@@ -194,7 +213,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool 
             "bsn,bshp->bhpn", b_k, xdt_k * decay_end[..., None])
         ys.append((y_intra + y_inter).to(x.dtype))
     y = torch.cat(ys, dim=1)  # (B, T, H, P)
-    y = y + xs * tp.chunk(params["d_skip"], 0, sp.heads).to(y.dtype)[None, None, :, None]
+    y = y + xs * _of_heads(params, "d_skip", sp).to(y.dtype)[None, None, :, None]
     out = _out(params, y.reshape(b, t, h * p), z, sp, cfg)
     if return_cache:
         return out, MambaCache(conv=conv_tail, state=state)
@@ -230,12 +249,13 @@ def mamba_decode_step(
     xs = tp.chunk(xbc[..., :di].reshape(b, -1, p), 1, sp.heads)
     bvec = xbc[..., di : di + n].reshape(b, n).float()
     cvec = xbc[..., di + n :].reshape(b, n).float()
-    dt = F.softplus(tp.chunk(dt_raw[:, 0].float() + params["dt_bias"], -1, sp.heads))  # (B, H)
-    decay = torch.exp(dt * -torch.exp(tp.chunk(params["a_log"], 0, sp.heads)))
+    dt = F.softplus(tp.chunk(dt_raw[:, 0].float(), -1, sp.heads)
+                    + _of_heads(params, "dt_bias", sp))  # (B, H)
+    decay = torch.exp(dt * -torch.exp(_of_heads(params, "a_log", sp)))
     xdt = xs.float() * dt[..., None]  # (B, H, P)
     state = cache.state
     state.mul_(decay[..., None, None]).add_(xdt[..., None] * bvec[:, None, None, :])
     y = torch.matmul(state, cvec[:, None, :, None])[..., 0]  # (B, H, P)
-    y = y + xs.float() * tp.chunk(params["d_skip"], 0, sp.heads)[None, :, None]
+    y = y + xs.float() * _of_heads(params, "d_skip", sp)[None, :, None]
     y = y.reshape(b, 1, h * p).to(x_step.dtype)
     return _out(params, y, z, sp, cfg), cache

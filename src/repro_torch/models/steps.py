@@ -139,11 +139,30 @@ def value_and_grad(model: Model, params, batch: Dict[str, torch.Tensor]):
     return (loss, metrics), _into_tree(params, parts)
 
 
+def _replicas(grads, loss, splits):
+    """A data-parallel program's step (``models/tp.py``): each replica took
+    its share of the batch, so each gradient leaf is summed over the
+    ``"batch"`` axes that do not cut it (its FSDP axes were summed into its
+    block at use) and the gradients and the loss are divided by the
+    replicas: the step on the whole batch.  The identity outside one."""
+    lay = tp.current()
+    if lay is None or lay.size("batch") == 1:
+        return grads, loss
+    n, batch = lay.size("batch"), lay.axes("batch")
+    cuts = {} if splits is None else {path: sp.over() for path, sp in P.leaves(splits)}
+    with torch.no_grad():
+        out = {path: tp.psum(g, tuple(a for a in batch if a not in cuts.get(path, ()))) / n
+               for path, g in P.leaves(grads)}
+        loss = tp.reduce(loss, "batch") / n
+    return P._rebuild(grads, out), loss
+
+
 def make_train_step(
     model: Model,
     optimizer: optim_lib.Optimizer,
     microbatches: int = 1,
     accum_dtype=torch.float32,
+    splits=None,
 ):
     """(TrainState, batch) → (TrainState, metrics).
 
@@ -153,7 +172,14 @@ def make_train_step(
     into separate ``accum_dtype`` buffers (never into the parameters'
     ``.grad``), and the loss and the gradients are their means over the
     microbatches; the metrics are the last microbatch's, with ``loss``,
-    ``grad_norm`` and ``lr``."""
+    ``grad_norm`` and ``lr``.
+
+    One device's program (``models/tp.py``; ``splits``: ``tp.splits`` of
+    the whole leaves, as the optimizer takes them): the state holds the
+    device's blocks, the batch is its replica's share, each microbatch's
+    gradient arrives at the blocks (an FSDP leaf's reduce-scattered at its
+    use) before it is added into the buffers, and the replicas' gradients
+    and losses are joined once a step (:func:`_replicas`)."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         dev = state.step.device
@@ -179,6 +205,7 @@ def make_train_step(
                 loss = loss + l_i
             loss = loss / microbatches
             grads = P.map_tree(lambda g: g / microbatches, grads)
+        grads, loss = _replicas(grads, loss, splits)
 
         new_params, new_opt, opt_metrics = optimizer.update(grads, state.opt, state.params)
         metrics = dict(metrics, loss=loss, **opt_metrics)
@@ -339,6 +366,19 @@ def make_generate(model: Model, sample: str = "greedy"):
 UPDATE_RANGE = "train_step.update"
 
 
+def device_model(model: Model, rules: Dict[str, Any],
+                 axis_sizes: Dict[str, int]) -> Tuple[Model, Any]:
+    """(``model`` as one device's program runs it, the leaves' splits):
+    its ``param_specs`` the blocks a position holds (``tp.local_specs``),
+    its ``build_params`` annotated (``tp.annotate``) so that the layers read
+    their splits and gather the FSDP blocks, and ``tp.splits`` of the whole
+    leaves, which the optimizer and :func:`make_train_step` take."""
+    splits = tp.splits(model.param_specs, rules, axis_sizes)
+    build = model.build_params
+    return (model._replace(param_specs=tp.local_specs(model.param_specs, rules, axis_sizes),
+                           build_params=lambda tree: tp.annotate(build(tree), splits)), splits)
+
+
 @dataclasses.dataclass
 class CellProgram:
     """A countable program for one (arch × shape) cell."""
@@ -349,9 +389,17 @@ class CellProgram:
     abstract_args: Tuple[Any, ...]  # meta tensors
     in_specs: Tuple[Any, ...]  # spec trees matching abstract_args
     donate: Tuple[int, ...] = ()
-    #: A device's program (``per_device``): the blocks a decode cache's
-    #: sequence is split into (the ``kv_seq`` axes), else 1.
-    kv_seq_blocks: int = 1
+    #: A device's program (``per_device``): the mesh's axis sizes, the axes
+    #: the batch is split over (the replicas) and those a decode cache's
+    #: sequence is split over.
+    sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    batch: Tuple[str, ...] = ()
+    kv_seq: Tuple[str, ...] = ()
+
+    def layout(self, hook: tp.Hook, ranks: Optional[Dict[str, int]] = None) -> tp.Layout:
+        """The ``tp.Layout`` of the program's position at ``ranks`` (each
+        axis 0 by default) calling ``hook``."""
+        return tp.Layout(self.sizes, ranks or {}, hook, batch=self.batch, kv_seq=self.kv_seq)
 
 
 def build_cell(
@@ -370,11 +418,13 @@ def build_cell(
     ``microbatches=0`` → auto (see :func:`auto_microbatches`, needs dp_size).
     ``axis_sizes``: mesh axis → size, for divisibility-aware sharding.
     ``per_device``: one device's program (``models/tp.py``): the parameters,
-    the optimizer's state and a decode cache at the blocks one position of
-    the ``"model"`` axis holds (a cache's ``kv_seq`` at its block), the
-    module annotated so that the layers read their splits; the step runs
-    under a ``tp.Layout`` the caller opens (without one, every split reads
-    1).  ``in_specs`` stay the full leaves' specs.
+    the optimizer's state and a decode cache at the blocks one position
+    holds (``params.local_shape`` under the cell's specs; the batch is the
+    replica's share the caller gives in ``shape``), the module annotated so
+    that the layers read their splits and gather the FSDP blocks, the
+    optimizer and the train step joining their statistics over the blocks;
+    the step runs under the layout ``CellProgram.layout`` gives, which the
+    caller opens.  ``in_specs`` stay the full leaves' specs.
 
     The train step takes the parameter tree, as :func:`make_train_step`
     does; its optimizer update runs inside the :data:`UPDATE_RANGE` range.  The prefill and serve steps take the tree too, as the
@@ -388,17 +438,21 @@ def build_cell(
     """
     model = get_model(cfg)
     full_specs = model.param_specs
+    sizes = dict(axis_sizes or {})
+    splits, program = None, {}
 
     def pspec_of(tree):
         return P.pspecs(tree, rules, axis_sizes)
 
     def local(tree):
-        return tp.local_specs(tree, rules, axis_sizes or {}) if per_device else tree
+        return tp.local_specs(tree, rules, sizes) if per_device else tree
 
     if per_device:
-        build = model.build_params
-        model = model._replace(param_specs=local(full_specs),
-                               build_params=lambda tree: tp.annotate(build(tree), full_specs))
+        model, splits = device_model(model, rules, sizes)
+        batch = rules.get("batch") or ()
+        program = {"sizes": {a: n for a, n in sizes.items() if n > 1},
+                   "batch": tuple(a for a in (batch if isinstance(batch, tuple) else (batch,))
+                                  if sizes.get(a, 1) > 1)}
 
     if microbatches == 0:
         microbatches = auto_microbatches(shape, dp_size)
@@ -406,7 +460,7 @@ def build_cell(
     if shape.kind == "train":
         opt_name = optimizer_name or ("adafactor" if cfg.family == "moe" else "adamw")
         optimizer = optim_lib.get_optimizer(
-            opt_name, optim_lib.cosine_warmup(3e-4, 2000, 100_000)
+            opt_name, optim_lib.cosine_warmup(3e-4, 2000, 100_000), splits=splits
         )
 
         def update(grads, opt_state, params):
@@ -415,24 +469,22 @@ def build_cell(
 
         train_step = make_train_step(
             model, optimizer._replace(update=update), microbatches=microbatches,
-            accum_dtype=accum_dtype
+            accum_dtype=accum_dtype, splits=splits
         )
-        def state_specs(params):
-            return {
-                "step": P.ParamSpec((), (), dtype=torch.int32, init="zeros"),
-                "params": params,
-                "opt": optimizer.state_specs(params),
-            }
-
+        state_specs = {
+            "step": P.ParamSpec((), (), dtype=torch.int32, init="zeros"),
+            "params": full_specs,
+            "opt": optimizer.state_specs(full_specs),
+        }
         b_specs = batch_specs(cfg, shape)
-        abstract_state = TrainState(**P.abstract(state_specs(model.param_specs)))
         return CellProgram(
             name=f"{cfg.name}:{shape.name}",
             kind="train",
             step_fn=train_step,
-            abstract_args=(abstract_state, P.abstract(b_specs)),
-            in_specs=(TrainState(**pspec_of(state_specs(full_specs))), pspec_of(b_specs)),
+            abstract_args=(TrainState(**P.abstract(local(state_specs))), P.abstract(b_specs)),
+            in_specs=(TrainState(**pspec_of(state_specs)), pspec_of(b_specs)),
             donate=(0,),
+            **program,
         )
 
     if shape.kind == "prefill":
@@ -449,6 +501,7 @@ def build_cell(
             step_fn=prefill_cell_step,
             abstract_args=(P.abstract(model.param_specs), P.abstract(b_specs)),
             in_specs=(pspec_of(full_specs), pspec_of(b_specs)),
+            **program,
         )
 
     # decode
@@ -461,19 +514,20 @@ def build_cell(
         return serve_step(model.build_params(params), cache, token, index)
 
     cache_specs, token_spec, index_spec = decode_input_specs(cfg, shape, model)
-    local_cache = local(cache_specs)
-    seq_blocks = {full.shape[i] // loc.shape[i]
-                  for (_, full), (_, loc) in zip(P.leaves(cache_specs), P.leaves(local_cache))
-                  for i, name in enumerate(full.axes) if name == "kv_seq"}
-    if len(seq_blocks) > 1:
-        raise ValueError(f"{cfg.name}: the cache's kv_seq dims split unevenly: {seq_blocks}")
+    kv_seq = {sp.axes[i] for (_, spec), (_, sp) in zip(P.leaves(cache_specs),
+                                                       P.leaves(tp.splits(cache_specs, rules, sizes)))
+              for i, name in enumerate(spec.axes) if name == "kv_seq"}
+    if len(kv_seq) > 1:
+        raise ValueError(f"{cfg.name}: the cache's kv_seq dims split unevenly: {kv_seq}")
+    if per_device:
+        program["kv_seq"] = next(iter(kv_seq), ())
     return CellProgram(
         name=f"{cfg.name}:{shape.name}",
         kind="decode",
         step_fn=serve_cell_step,
         abstract_args=(
             P.abstract(model.param_specs),
-            P.abstract(local_cache),
+            P.abstract(local(cache_specs)),
             P.abstract(token_spec),
             P.abstract(index_spec),
         ),
@@ -484,5 +538,5 @@ def build_cell(
             pspec_of(index_spec),
         ),
         donate=(1,),
-        kv_seq_blocks=max(seq_blocks, default=1),
+        **program,
     )

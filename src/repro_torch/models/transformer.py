@@ -106,7 +106,12 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 class ParamTree(nn.Module):
     """One level of a parameter tree: tensors become (frozen) parameters and
-    dicts submodules, under the tree's keys; indexed like the dict."""
+    dicts submodules, under the tree's keys; indexed like the dict.  In a
+    device's program (``models/tp.py``) indexing is where a layer reads a
+    parameter: an FSDP block is gathered there (``tp.param``)."""
+
+    #: Each parameter's ``tp.Split`` (``tp.annotate``): a device's program.
+    _tp_split: Optional[Dict[str, Any]] = None
 
     def __init__(self, tree: Dict[str, Any]) -> None:
         super().__init__()
@@ -117,6 +122,8 @@ class ParamTree(nn.Module):
                 self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
 
     def __getitem__(self, name: str):
+        if self._tp_split is not None and name in self._tp_split:
+            return tp.param(self, name)
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:

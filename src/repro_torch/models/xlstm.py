@@ -87,7 +87,10 @@ def _mlstm_out(params, y_all: torch.Tensor, gate: torch.Tensor, cfg: ModelConfig
     y = y_all[..., :vd] / torch.clamp(y_all[..., vd:].abs(), min=1.0)
     y = _head_norm(y.to(dtype), params["norm"], cfg.norm_eps)
     parts = tp.parts(params, "w_down", 0)
-    y = tp.chunk(y.reshape(b, t, h * vd), -1, parts) * F.silu(gate.float()).to(dtype)
+    y = y.reshape(b, t, h * vd)
+    if parts > 1:  # the whole cell's output enters the split down projection
+        y = tp.chunk(tp.enter(y), -1, parts)
+    y = y * F.silu(gate.float()).to(dtype)
     out = L.dot(y, params["w_down"])
     return tp.reduce(out) if parts > 1 else out
 

@@ -23,15 +23,27 @@ Adafactor factors the second moment of a leaf whose last two dims are both
 at least ``_FACTOR_MIN_SIZE``; on a stacked leaf (L, R, C) it keeps (L, R)
 row and (L, C) column statistics, and its update clip takes one RMS over the
 whole stacked leaf, as the reference's does.
+
+In one device's program (``models/tp.py``) each leaf is the device's block
+and ``splits`` (``tp.splits`` of the whole leaves) says which mesh axes cut
+each of its dims.  Every statistic of a leaf is then the whole leaf's: the
+global norm sums each leaf's squares and joins the sums over the axes that
+cut the leaf (one ``tp.psum`` per set of axes; a replicated leaf is summed
+once), Adafactor's row and column means join over the axes that cut the
+dim they average and divide by the whole dim, and its RMS joins over every
+axis of the leaf; whether a leaf is factored follows its whole shape.  The
+update itself is elementwise on the blocks.  Outside a device's program
+(``splits`` None) the trees are whole.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.params import ParamSpec, leaves, map_tree
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -73,22 +85,41 @@ def _tree_map(fn: Callable[..., Any], tree, *rest):
     return fn(tree, *rest)
 
 
-def _mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
-    """The sum divided by the element count (``jnp.mean``)."""
+def _mean(x: torch.Tensor, dim=None, keepdim: bool = False,
+          split: Optional[tp.Split] = None, split_dim: Optional[int] = None) -> torch.Tensor:
+    """The sum divided by the element count (``jnp.mean``); over a block
+    (``split``: the leaf's, ``split_dim``: the leaf's dim that ``dim`` of
+    ``x`` is), the blocks' sums joined and divided by the whole count."""
     if dim is None:
-        return torch.sum(x) / x.numel()
-    return torch.sum(x, dim=dim, keepdim=keepdim) / x.shape[dim]
+        total, n, axes = torch.sum(x), x.numel(), ()
+        if split is not None:
+            n, axes = n * math.prod(map(math.prod, split.sizes)), split.over()
+    else:
+        total, n, axes = torch.sum(x, dim=dim, keepdim=keepdim), x.shape[dim], ()
+        if split is not None:
+            n, axes = n * split.parts(split_dim), split.over([split_dim])
+    return tp.psum(total, axes) / n
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, splits=None) -> torch.Tensor:
     """√(Σ over the leaves, in flatten order, of their float32 sums of
-    squares)."""
-    return torch.sqrt(sum(torch.sum(leaf.to(torch.float32) ** 2) for _, leaf in leaves(tree)))
+    squares); with ``splits`` each leaf's sum joined over the axes that cut
+    it (module docstring)."""
+    sums = {path: torch.sum(leaf.to(torch.float32) ** 2) for path, leaf in leaves(tree)}
+    if splits is not None:
+        groups: Dict[Tuple[str, ...], List[str]] = {}
+        for path, sp in leaves(splits):
+            if sp.over():
+                groups.setdefault(sp.over(), []).append(path)
+        for axes, paths in groups.items():
+            joined = tp.psum(torch.stack([sums[p] for p in paths]), axes)
+            sums.update(zip(paths, joined.unbind(0)))
+    return torch.sqrt(sum(sums[path] for path, _ in leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(tree, max_norm: float, splits=None) -> Tuple[Any, torch.Tensor]:
     """(every leaf in float32 times min(1, max_norm / norm), the norm)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, splits)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return map_tree(lambda g: g.to(torch.float32) * scale, tree), norm
 
@@ -115,6 +146,11 @@ def _zeros32(p: torch.Tensor, shape=None) -> torch.Tensor:
     return torch.zeros(p.shape if shape is None else shape, dtype=torch.float32, device=p.device)
 
 
+def _or_none(splits, tree):
+    """``splits``, or a tree of Nones shaped like ``tree``."""
+    return map_tree(lambda _: None, tree) if splits is None else splits
+
+
 def _unzip(out, n: int):
     """A tree of n-tuples → n trees."""
     if isinstance(out, dict):
@@ -135,7 +171,10 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    splits=None,
 ) -> Optimizer:
+    """AdamW; ``splits``: one device's program (module docstring)."""
+
     def init(params):
         return {"m": map_tree(_zeros32, params), "v": map_tree(_zeros32, params),
                 "count": torch.zeros((), dtype=torch.int32, device=_device_of(params))}
@@ -143,7 +182,7 @@ def adamw(
     @torch.no_grad()
     def update(grads, state, params):
         count = state["count"] + 1
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, splits)
         lr = schedule(count)
         c1 = 1.0 - b1 ** count.to(torch.float32)
         c2 = 1.0 - b2 ** count.to(torch.float32)
@@ -184,31 +223,38 @@ def adafactor(
     clip_threshold: float = 1.0,
     weight_decay: float = 0.0,
     clip_norm: float = 1.0,
+    splits=None,
 ) -> Optimizer:
+    """Adafactor; ``splits``: one device's program (module docstring)."""
+
+    def whole(p, sp):
+        return p.shape if sp is None else sp.full(p.shape)
+
     def init(params):
-        def one(p):
-            if _factorable(p.shape):
+        def one(p, sp):
+            if _factorable(whole(p, sp)):
                 return {"vr": _zeros32(p, p.shape[:-1]),
                         "vc": _zeros32(p, p.shape[:-2] + p.shape[-1:])}
             return {"v": _zeros32(p)}
 
-        return {"stats": map_tree(one, params),
+        return {"stats": _tree_map(one, params, _or_none(splits, params)),
                 "count": torch.zeros((), dtype=torch.int32, device=_device_of(params))}
 
     @torch.no_grad()
     def update(grads, state, params):
         count = state["count"] + 1
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, splits)
         lr = schedule(count)
         beta = 1.0 - count.to(torch.float32) ** (-decay)  # increasing decay
 
-        def upd(g, st, p):
+        def upd(g, st, p, sp):
             g2 = g * g + eps
             if "vr" in st:
-                vr = beta * st["vr"] + (1 - beta) * _mean(g2, -1)
-                vc = beta * st["vc"] + (1 - beta) * _mean(g2, -2)
+                rows, cols = g.dim() - 2, g.dim() - 1  # the leaf's dims the means run over
+                vr = beta * st["vr"] + (1 - beta) * _mean(g2, -1, split=sp, split_dim=cols)
+                vc = beta * st["vc"] + (1 - beta) * _mean(g2, -2, split=sp, split_dim=rows)
                 denom = torch.sqrt(vr[..., None] * vc[..., None, :] / torch.clamp(
-                    _mean(vr, -1, keepdim=True)[..., None], min=eps))
+                    _mean(vr, -1, keepdim=True, split=sp, split_dim=rows)[..., None], min=eps))
                 new_st = {"vr": vr, "vc": vc}
             else:
                 v = beta * st["v"] + (1 - beta) * g2
@@ -216,22 +262,24 @@ def adafactor(
                 new_st = {"v": v}
             u = g / torch.clamp(denom, min=eps)
             # update clipping (RMS ≤ clip_threshold), one RMS over the leaf
-            rms = torch.sqrt(_mean(u * u))
+            rms = torch.sqrt(_mean(u * u, split=sp))
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             step = u + weight_decay * p.to(torch.float32)
             return (p.to(torch.float32) - lr * step).to(p.dtype), new_st
 
         # the stats hold one dict per leaf: walk the grads' tree
-        def walk(g, st, p):
+        def walk(g, st, p, sp):
             if isinstance(g, dict):
-                return {k: walk(g[k], st[k], p[k]) for k in g}
-            return upd(g, st, p)
+                return {k: walk(g[k], st[k], p[k], None if sp is None else sp[k]) for k in g}
+            return upd(g, st, p, sp)
 
-        new_params, new_stats = _unzip(walk(grads, state["stats"], params), 2)
+        new_params, new_stats = _unzip(walk(grads, state["stats"], params, splits), 2)
         metrics = {"grad_norm": gnorm, "lr": lr}
         return new_params, {"stats": new_stats, "count": count}, metrics
 
     def state_specs(param_specs):
+        """The state of the whole leaves (``param_specs``: whole)."""
+
         def one(s):
             if _factorable(s.shape):
                 return {

@@ -26,6 +26,7 @@ partial sum or a split result.  Here, on the CPU:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 
 import numpy as np
@@ -52,9 +53,8 @@ TRAIN = ShapeConfig("train_4k", 64, 2, "train")
 def _count(cfg, shape, rules, sizes, microbatches=1):
     cell = steps.build_cell(cfg, shape, rules, microbatches=microbatches, axis_sizes=sizes,
                             per_device=True)
-    lay = {"model": sizes.get("model", 1), "kv_seq": cell.kv_seq_blocks}
-    hook = tp.CountHook(lay)
-    with tp.use(tp.Layout(lay, {}, hook), shared=True):
+    hook = tp.CountHook(cell.sizes)
+    with tp.use(cell.layout(hook), shared=True):
         got = dryrun.count_step(cell.step_fn, cell.abstract_args)
     return got, hook
 
@@ -66,23 +66,30 @@ def _count(cfg, shape, rules, sizes, microbatches=1):
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_program_params_are_local_shapes_over_model(arch):
-    """Full width, single-pod rules: every parameter and optimizer leaf the
-    train program takes is the full leaf's ``local_shape`` over ``"model"``
-    alone; the module built over them reads the same blocks."""
+    """Full width, single-pod rules: every parameter and optimizer-state
+    leaf the train program takes is the full leaf's ``local_shape`` under
+    the cell's specs (its blocks over ``"model"`` and the FSDP ``"data"``),
+    the same bytes the count's arguments give; the module built over them
+    reads the same blocks."""
     cfg = configs.get_config(arch)
     rules = dryrun.rules_for(arch, "train_4k", False)
     cell = steps.build_cell(cfg, configs_shape("train_4k"), rules, microbatches=1,
                             axis_sizes=SINGLE, per_device=True)
-    full = get_model(cfg).param_specs
-    specs = PM.pspecs(full, rules, SINGLE)
-    local = dict(PM.leaves(cell.abstract_args[0].params))
+    state, specs = cell.abstract_args[0], cell.in_specs[0]
+    whole = steps.build_cell(cfg, configs_shape("train_4k"), rules, microbatches=1,
+                             axis_sizes=SINGLE).abstract_args[0]
     split = 0
-    for (path, spec_leaf), (_, pspec) in zip(PM.leaves(full), PM.leaves(specs)):
-        want = PM.local_shape(spec_leaf.shape, pspec, {"model": 16})
-        assert tuple(local[path].shape) == want, path
-        split += want != spec_leaf.shape
+    for part in ("params", "opt"):
+        local = dict(PM.leaves(getattr(state, part)))
+        pspecs = dict(PM.leaves(getattr(specs, part)))
+        for path, t in PM.leaves(getattr(whole, part)):
+            want = PM.local_shape(tuple(t.shape), pspecs[path], SINGLE)
+            assert tuple(local[path].shape) == want, (part, path)
+            split += want != tuple(t.shape)
     assert split > 0
-    assert tuple(cell.in_specs[0].params["embed"]) == tuple(specs["embed"])
+    assert tuple(specs.params["embed"]) == ("model", "data")
+    assert sum(t.nbytes for _, t in PM.leaves(state._asdict())) == dryrun.device_bytes(
+        whole, specs, SINGLE)
 
 
 def configs_shape(name):
@@ -105,21 +112,22 @@ def configs_shape(name):
      ShapeConfig("train_4k", 64, 3, "train")),
 ])
 def test_model_axis_one_equals_the_replica_count(arch, depth, shape):
-    """At a model axis of 1 the per-device program is the replica's step:
-    FLOPs, bytes and the peak equal the count without rules to the unit,
-    and no tensor-parallel collective is counted."""
+    """At a data and a model axis of 1 the per-device program is the
+    replica's step: FLOPs, bytes and the peak equal the count without rules
+    to the unit, and no collective is counted."""
     cfg = dataclasses.replace(configs.get_reduced(arch), **depth)
     rules = dryrun.rules_for(arch, shape.name, False)
-    split = dryrun.Split(rules, {"data": 16, "model": 1})
+    split = dryrun.Split(rules, {"data": 1, "model": 1})
     kw = dict(optimizer=None, replica_batch=5, mb=1)
     got = dryrun._cost_by_extrapolation(cfg, shape, **kw, split=split)
     ref = dryrun._cost_by_extrapolation(cfg, shape, **kw)
     assert (got["flops"], got["bytes"]) == (ref["flops"], ref["bytes"])
-    assert got["coll_counts"] == {} and got["coll_bytes"] == {}
     mem = dryrun._memory_by_extrapolation(cfg, shape, **kw, split=split)
     ref = dryrun._memory_by_extrapolation(cfg, shape, **kw)
     assert (mem["temp"], mem["peak_segment"], mem["other_outputs"]) == (
         ref["temp"], ref["peak_segment"], ref["other_outputs"])
+    for side in tp.SIDES:
+        assert mem["collectives"][side].counts == {} and mem["collectives"][side].bytes == {}
 
 
 # ---------------------------------------------------------------------------
@@ -198,13 +206,15 @@ def test_train_hooks_count_forward_recompute_and_backward():
     attention's output again (the MLP's saved inputs need it) but not the
     MLP's (it follows the last saved tensor, where the recompute stops);
     the loss's chunk (always recomputed) gathers its log-sum-exp and sums
-    its label logit twice, and sums its input's gradient once."""
+    its label logit twice, and sums its input's gradient once; the
+    optimizer's global norm sums the model-split leaves' squares once."""
     cfg = dataclasses.replace(configs.get_reduced("codeqwen1.5-7b"), remat=True)
     rules = dryrun.rules_for("codeqwen1.5-7b", "train_4k", False)
     _, hook = _count(cfg, TRAIN, rules, {"data": 1, "model": 2})
     lyr = cfg.n_layers
     # embedding 1; per layer 2 forward + 1 recompute + 2 backward; loss 2 + 1
-    assert hook.counts == {"all-reduce": 1 + 5 * lyr + 3, "all-gather": 2}
+    assert hook.sides["tp"]["counts"] == {"all-reduce": 1 + 5 * lyr + 3, "all-gather": 2}
+    assert hook.sides["params"]["counts"] == {"all-reduce": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -214,35 +224,41 @@ def test_train_hooks_count_forward_recompute_and_backward():
 
 def _blocks(tree, specs, rules, sizes, ranks):
     """Each leaf's block at ``ranks`` (axis → index) under the program's
-    split (:func:`tp.local_spec`)."""
+    split (:func:`tp.split_of`; a dim over several axes, major first)."""
     out = {}
     for (path, t), (_, spec) in zip(PM.leaves(tree), PM.leaves(specs)):
-        loc = tp.local_spec(spec, rules, sizes)
+        sp = tp.split_of(spec, rules, sizes)
         idx = []
-        for i, (full, part) in enumerate(zip(spec.shape, loc.shape)):
-            axis = "kv_seq" if spec.axes[i] == "kv_seq" else "model"
-            r = ranks.get(axis, 0) if part < full else 0
-            idx.append(slice(r * part, (r + 1) * part))
+        for d, full in enumerate(spec.shape):
+            n = full // sp.parts(d)
+            r = 0
+            for a in sp.axes[d]:
+                r = r * sizes[a] + ranks.get(a, 0)
+            idx.append(slice(r * n, (r + 1) * n))
         out[path] = t[tuple(idx)]
     return PM._rebuild(specs, out)
 
 
-def _composed(k, axis, fn):
-    """``fn(ranks, layout)`` on each of ``k`` positions of ``axis`` in
-    lock step (a thread each); their results in position order."""
-    hook = tp.MeshHook({axis: k}, k)
-    results, errors = [None] * k, []
+def _composed(sizes, fn, **groups):
+    """``fn(ranks)`` on every position of a mesh of ``sizes`` (axis →
+    size) in lock step (a thread each, under a ``tp.MeshHook``;
+    ``groups``: the layout's ``batch`` and ``kv_seq`` axes); their results
+    in row-major order of the positions."""
+    axes = list(sizes)
+    grid = [dict(zip(axes, idx)) for idx in itertools.product(*(range(sizes[a]) for a in axes))]
+    hook = tp.MeshHook(sizes, len(grid))
+    results, errors = [None] * len(grid), []
 
-    def run(r):
-        ranks = {axis: r}
+    def run(i):
+        ranks = grid[i]
         try:
-            with tp.use(tp.Layout({axis: k}, ranks, hook.bind(ranks))):
-                results[r] = fn(ranks)
+            with tp.use(tp.Layout(sizes, ranks, hook.bind(ranks), **groups)):
+                results[i] = fn(ranks)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
             hook.barrier.abort()
 
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(k)]
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(grid))]
     for t in threads:
         t.start()
     for t in threads:
@@ -266,7 +282,7 @@ def _setup(cfg, seed):
 
 def _local_module(model, params, rules, sizes, ranks):
     local = _blocks(params, model.param_specs, rules, sizes, ranks)
-    return tp.annotate(model.build_params(local), model.param_specs)
+    return tp.annotate(model.build_params(local), tp.splits(model.param_specs, rules, sizes))
 
 
 def _loss(model, module, tokens, **kw):
@@ -307,7 +323,7 @@ def test_composed_dense_equals_unsharded(arch, m, change):
         with torch.no_grad():
             return module(tokens, **kw).float().numpy(), _loss(model, module, tokens, **kw)
 
-    got = _composed(m, "model", program)
+    got = _composed({"model": m}, program)
     for logits, loss in got:
         np.testing.assert_array_equal(logits, got[0][0])  # every position gathers alike
         lm_rule.hold(logits.argmax(-1), logits, want, "float32", lm_rule.depth(cfg), arch)
@@ -347,7 +363,7 @@ def test_composed_moe_equals_unsharded(arch, m):
 
     L._route = recorded
     try:
-        got = _composed(m, "model", program)
+        got = _composed({"model": m}, program)
     finally:
         L._route = route
     (calls,) = seen.values()
@@ -391,7 +407,7 @@ def test_composed_decode_over_a_kv_seq_split(arch):
             out, cache = model.decode_fn(module, cache, step_tok, index)
         return out.float().numpy(), cache
 
-    got = _composed(k, "kv_seq", program)
+    got = _composed(sizes, program, kv_seq=("data",))
     for out, _ in got:
         lm_rule.hold(out.argmax(-1)[:, None], out[:, None], want.float().numpy()[:, None],
                      "float32", lm_rule.depth(cfg), arch)
