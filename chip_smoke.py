@@ -10,8 +10,9 @@ and prints one JSON line per phase:
 
 1. ``environment``: Python, torch, CUDA and nvcc versions, the card's name
    and power limit (also printed as ``nvidia-smi`` gives them);
-2. ``build``: the kernels' build time (one nvcc per source, in parallel),
-   and ``ptxas``: the registers, stack and spill bytes of each instantiation
+2. ``build``: the kernels' build time (one nvcc per source, in parallel;
+   each source's seconds to its nvcc's end in ``seconds_by_source``), and
+   ``ptxas``: the registers, stack and spill bytes of each instantiation
    of kernel 5 (``csrc/phase_step_multi.cu``) from ``nvcc -Xptxas -v``;
 3. ``kernels``: each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024, N = 506, chunk = 8, some lanes frozen or
@@ -33,7 +34,13 @@ and prints one JSON line per phase:
    ``autotune.multi_plan``'s (regime, cluster, lanes, rows, grid, shared
    memory, and the clusters the card holds at once) and ``per_regime``:
    the cluster regime at the main shape and the stream regime at
-   (B, N) = (256, 2048) on seeded Hebbian couplings, each exact;
+   (B, N) = (256, 2048) on seeded Hebbian couplings, each exact; and the
+   row ``coupling_wgmma``: kernels 1 and 2 in the wgmma regime
+   (``csrc/coupling_wgmma.cu``, which ``autotune.coupling_route`` gives
+   them at large shapes) at ``WGMMA_SHAPES``, the ``onn_131072``
+   ``baseline2d`` share (1024, 8192, 8192) and a ragged (1000, 5000, 5000),
+   each exact (kernel 2 with ties forced in 64 lanes), with its plan and
+   ``torch._int_mm`` on padded operands as the yardstick (``per_mode``);
 4. ``retrieve`` (twice, ``phase_pack`` off and on): ``RetrievalSolver`` at
    ``ONN_HYBRID_506`` on the kernel backend, 1024 corrupted requests on
    Hebbian 5-bit weights; the card's results must equal the CPU's lane for
@@ -285,7 +292,9 @@ and prints one JSON line per phase:
    sweep's ``max_memory_allocated``, the roofline terms beside the sweep's
    time, the kernel's and the wrapper's ms at the share's shape beside
    ``torch._int_mm`` (on operands zero-padded to multiples of 8) and its
-   bound, the first cycle equal to the plain version on the CPU.
+   bound, the first cycle equal to the plain version on the CPU; each
+   share's launches by regime (``ops.REGIME_LAUNCHES``: the ``onn_131072``
+   shares take the wgmma regime, ``onn_506`` the wide tile) and the plan.
    ``composed``: each variant's programs on a (2, 4) mesh of the card
    repeated (N = 4096, 256 lanes), the collectives done for real, equal
    after 32 cycles to the unsharded sweep of kernel 2.
@@ -305,16 +314,18 @@ and prints one JSON line per phase:
    ``retrieve.steady``; each workload's deltas, the scheduler's syncs a
    slab tick, and which calls torch counts as waits on the card.
 
-20. ``launch_edges`` (port fault 9): kernels 1-4, 6 and 7 at N = 506 over
-   4,194,341 lanes (two launches: 65,535 wide tiles and 2), kernel 1 again
-   at N = 640 (σ and S past 2³¹ elements), kernels 1i and 6i over 65,539
+20. ``launch_edges`` (port fault 9): kernels 3, 4, 6 and 7 at N = 506 over
+   4,194,341 lanes (two launches: 65,535 wide tiles and 2), kernels 1 and
+   2 there in one launch of the wgmma regime, kernel 1 again at N = 640 (σ
+   and S past 2³¹ elements; wgmma), kernels 1i and 6i over 65,539
    instances, kernel 8's GEMM over 8,388,557 lanes, each through its
    wrapper: every launch's grid within 65,535 on y and z, the rows on both
    sides of every boundary and the last rows equal to the plain version of
    those rows (kernel 8: within its bound), the call's device ms by CUDA
    events; then ``MaxCutSolver.solve`` over 65,539 instances, its instances
    on both sides of the edge equal to the CPU's solve of those instances
-   alone.  Each affected kernel's row gains ``edge``.
+   alone.  Each affected kernel's row gains ``edge``, with the regime
+   that ran.
 
 Launch counts are set to 0 before each main-path phase (4-18) and read after
 it; every kernel must have launched on a main path, and each row of the
@@ -322,9 +333,12 @@ it; every kernel must have launched on a main path, and each row of the
 phase 13 as ``launches_launchers``, of phase 14 as ``launches_sharded``, of
 phase 15 as ``launches_lm``, of phase 16 as ``launches_train``, of phase
 17 as ``launches_dryrun`` (the last two must be 0), of phase 18 as
-``launches_dryrun_onn`` (above 0 for kernels 1 and 2 alone) and of phase
+``launches_dryrun_onn`` (above 0 for kernels 1 and 2 and their wgmma row alone) and of phase
 19's gate run (both passes) as ``launches_tracegate`` (above 0 for kernel 5)
-and of phase 20 as ``launches_edges``.
+and of phase 20 as ``launches_edges``.  The row ``coupling_wgmma`` counts
+the wgmma regime's launches of kernels 1 and 2 (``ops.REGIME_LAUNCHES``;
+they count under ``coupling_sum`` and ``onn_step`` too): above 0 on the
+main path and in phase 18, through its ``onn_131072`` shares.
 The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero without that line.
@@ -381,6 +395,8 @@ ROWS = {
     "hybrid_coupling_sum_batched": (
         "src/repro_torch/kernels/csrc/coupling_gemm.cu", f"{TPU_KERNELS}:697"
     ),
+    # kernels 1 and 2 at large shapes (SUM replaces :100, STEP :161)
+    "coupling_wgmma": ("src/repro_torch/kernels/csrc/coupling_wgmma.cu", f"{TPU_KERNELS}:100"),
 }
 
 B, N, CHUNK, HALF = 1024, 506, 8, 8
@@ -495,6 +511,12 @@ QMV_GEMV = (8, 4096, 4096)
 #: Kernel 8's ragged shapes (B, M, K), held to the bound but not timed: one
 #: per regime, K unaligned so that both take the scalar load path.
 QMV_RAGGED = ((65, 100, 333), (1, 3, 40))
+#: Kernels 1 and 2's wgmma regime, held and timed at the ONN dry run's
+#: ``onn_131072`` ``baseline2d`` share, (B, M, K) = (1024, 8192, 8192) (the
+#: row's numbers are kernel 1's there), and at a ragged shape, B and M off
+#: the 128 x 256 tile and K off 16 bytes (rows copied for TMA); W square, so
+#: that kernel 2 runs at both.
+WGMMA_SHAPES = ((1024, 8192, 8192), (1000, 5000, 5000))
 
 
 #: The script's start on the host clock: each line says when it was written.
@@ -545,6 +567,9 @@ SYMBOLS = {
     "quantized_matvec": ("qmv_gemv_kernel", "qmv_gemm_kernel"),
     "coupling_sum_batched": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
     "hybrid_coupling_sum_batched": ("coupling_gemm_kernel<0,", "coupling_gemm_kernelILi0E"),
+    "coupling_wgmma": ("coupling_wgmma_kernel<0>", "coupling_wgmma_kernelILi0E"),
+    "coupling_sum/wgmma": ("coupling_wgmma_kernel<0>", "coupling_wgmma_kernelILi0E"),
+    "onn_step/wgmma": ("coupling_wgmma_kernel<3>", "coupling_wgmma_kernelILi3E"),
 }
 
 
@@ -682,10 +707,23 @@ def qmv_plan_dict(plan) -> dict:
 def coupling_plan_dict(plan) -> dict:
     """The coupling GEMM's launch plan as a ``kernels`` row reports it."""
     t = plan.tile
-    return {"tile": t.name, "lanes": t.bm, "rows": t.bn, "k_split": t.ks,
+    return {"regime": t.name, "tile": t.name, "lanes": t.bm, "rows": t.bn, "k_split": t.ks,
             "stages": plan.stages, "load": "realign",  # the kernel's one load path
             "group_width": plan.group_width, "span": plan.span,
             "grid": list(plan.grid), "blocks": plan.blocks, "smem_bytes": plan.smem_bytes}
+
+
+def wgmma_plan_dict(plan) -> dict:
+    """The wgmma regime's launch plan as its rows report it."""
+    return {"regime": "wgmma", "mode": plan.mode, "lanes": plan.args[0], "rows": plan.args[1],
+            "stages": plan.stages, "k_chunk_steps": plan.k_chunk, "splits": plan.splits,
+            "units": plan.units, "grid": list(plan.grid), "lanes_fastest": plan.lanes_fastest,
+            "rows_copied": plan.padded, "smem_bytes": plan.smem_bytes}
+
+
+def route_plan_dict(plan) -> dict:
+    """The launch plan of ``autotune.coupling_route``, either regime."""
+    return wgmma_plan_dict(plan) if plan.regime == "wgmma" else coupling_plan_dict(plan)
 
 
 def multi_plan_dict(plan, occupancy) -> dict:
@@ -2942,7 +2980,7 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
     shapes."""
     from repro_torch.core.dynamics import sign_update
     from repro_torch.distributed import make_mesh
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import ref as plain
     from repro_torch.launch import dryrun
 
@@ -3017,6 +3055,7 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
         kernel = "onn_step" if prog.layout == "replicated" else "coupling_sum"
         require(path.get(kernel, 0) == prog.cycles and sum(path.values()) == prog.cycles,
                 f"dryrun_onn share {cell} {variant}: launches {path}")
+        regimes = dict(ops.REGIME_LAUNCHES)  # the sweep's launches by regime
         require(out.shape == sigma.shape and out.dtype == torch.int8
                 and bool(torch.all(out.abs() == 1)), f"dryrun_onn share {cell}: not ±1 spins")
         del out
@@ -3038,6 +3077,9 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
         x = sigma[:, :x.shape[1]].contiguous()
         b, k = x.shape
         m = w.shape[0]
+        plan = autotune.coupling_route(kernel, 1, b, m, k)
+        require(regimes == {f"{kernel}/{plan.regime}": prog.cycles},
+                f"dryrun_onn share {cell} {variant}: launches by regime {regimes}")
         out_bytes = b * m * (1 if kernel == "onn_step" else 4)
         b_ms, b_by = bound(w.nbytes + x.nbytes + out_bytes, 2 * b * m * k)
         if kernel == "onn_step":
@@ -3046,7 +3088,7 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
         else:
             fn, plain_fn = (lambda: ops.coupling_sum(w, x)), (
                 lambda: plain.coupling_sum_ref(w, x))
-        k_ms = device_ms(fn, kernel, iters=10)
+        k_ms = device_ms(fn, f"{kernel}/wgmma" if plan.regime == "wgmma" else kernel, iters=10)
         ms_of = "kernel" if k_ms is not None else "wrapper"
         if k_ms is None:  # the profiler recorded too few launches
             k_ms = cuda_ms(fn, iters=10)
@@ -3061,7 +3103,8 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
             del x_p, w_p
         shape = {"kernel": kernel, "B": b, "M": m, "K": k, "ms": k_ms, "ms_of": ms_of,
                  "wrapper_ms": wrapper_ms, "plain_ms": p_ms,
-                 "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                 "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "plan": route_plan_dict(plan)}
         shapes.append({"cell": cell, "variant": variant, **shape})
         r = c["roofline"]
         emit({"phase": "dryrun_onn", "part": "share", "cell": cell, "mesh": "single",
@@ -3071,7 +3114,7 @@ def dryrun_onn_lines(dev, seed, drive) -> tuple:
               "max_memory_allocated_over_sweep": measured,
               "predicted_over_measured_peak": predicted / measured,
               "peak_tolerance": DRYRUN_PEAK_TOLERANCE, "cycles": prog.cycles,
-              "launches": path, "sweep_ms": sweep_ms,
+              "launches": path, "launches_by_regime": regimes, "sweep_ms": sweep_ms,
               "compute_ms": r["compute_s"] * 1e3, "memory_ms": r["memory_s"] * 1e3,
               "collective_ms_not_run": r["collective_s"] * 1e3,
               "bound_over_sweep": max(r["compute_s"], r["memory_s"]) * 1e3 / sweep_ms,
@@ -3247,6 +3290,12 @@ def launch_edge_lines(dev, seed, rows) -> dict:
         n_launch = sum(ops.LAUNCHES.values())
         require(n_launch == launches_each,
                 f"launch_edges {name}: {n_launch} launches, the plan has {launches_each}")
+        regimes = dict(ops.REGIME_LAUNCHES)
+        require(sum(regimes.values()) == n_launch and all(
+            k.endswith("/" + plan.regime) for k in regimes),
+            f"launch_edges {name}: launches by regime {regimes}, planned {plan.regime}")
+        counts["coupling_wgmma"] = counts.get("coupling_wgmma", 0) + sum(
+            v for k, v in regimes.items() if k.endswith("/wgmma"))
         for lo, hi in windows:
             err = max_abs_err(got[lo:hi], want_rows(lo, hi))
             require(err == 0, f"launch_edges {name}: rows {lo}:{hi} differ from the plain "
@@ -3257,11 +3306,12 @@ def launch_edge_lines(dev, seed, rows) -> dict:
         grids = [list(g) for g in plan_grids(plan)]
         require(all(g[1] <= autotune.MAX_GRID_YZ and g[2] <= autotune.MAX_GRID_YZ
                     for g in grids), f"launch_edges {name}: a grid past 65,535: {grids}")
-        entry = {"kernel": name, "launches": n_launch, "grids": grids,
+        entry = {"kernel": name, "regime": plan.regime, "launches_by_regime": regimes,
+                 "launches": n_launch, "grids": grids,
                  "rows_compared": [list(wi) for wi in windows], "exact": True, "device_ms": ms}
         entries.append(entry)
         if name in rows:
-            rows[name]["edge"] = {k: entry[k] for k in ("launches", "grids", "exact",
+            rows[name]["edge"] = {k: entry[k] for k in ("regime", "launches", "grids", "exact",
                                                         "device_ms")}
             rows[name]["edge"]["shape"] = [plan.inst, plan.b, plan.m, plan.n]
         torch.cuda.empty_cache()
@@ -3295,15 +3345,19 @@ def launch_edge_lines(dev, seed, rows) -> dict:
     run = autotune.MAX_GRID_YZ * autotune.GEMM_TILES[0].bm
     windows = edge_windows(lanes, run)
     for name, parallel in (("coupling_sum", None), ("hybrid_coupling_sum", 32)):
-        plan = autotune.coupling_plan(1, lanes, n, n, parallel)
+        plan = autotune.coupling_route(name, 1, lanes, n, n, parallel)
         call = ((lambda: ops.coupling_sum(w, sigma)) if parallel is None else
                 (lambda p=parallel: ops.hybrid_coupling_sum(w, sigma, parallel=p)))
         held(name, call, lambda lo, hi: plain.coupling_sum_ref(w, sigma[lo:hi]), plan, windows,
              len(plan.launches))
-    plan = autotune.coupling_plan(1, lanes, n, n)
+    plan = autotune.coupling_route("onn_step", 1, lanes, n, n)
     held("onn_step", lambda: ops.onn_step(w, sigma, bias),
          lambda lo, hi: plain.onn_step_ref(w, sigma[lo:hi], bias), plan, windows,
          len(plan.launches))
+    # kernels 3, 4 and 7 keep the wide tile's runs past 65,535 lane tiles
+    plan = autotune.coupling_route("phase_step", 1, lanes, n, n)
+    require(plan.regime == "wide" and len(plan.launches) == 2,
+            f"launch_edges: kernel 3 planned as {plan.regime} in {len(plan.launches)} launches")
     phase = torch.randint(0, 2 * HALF, (lanes, n), generator=gen, device=dev, dtype=torch.int32)
     held("phase_step", lambda: ops.phase_step(w, sigma, bias, phase, half=HALF),
          lambda lo, hi: plain.phase_step_ref(w, sigma[lo:hi], bias, phase[lo:hi], HALF), plan,
@@ -3331,7 +3385,7 @@ def launch_edge_lines(dev, seed, rows) -> dict:
     w_w = torch.randint(-15, 16, (nw, nw), generator=gen, device=dev, dtype=torch.int8)
     s_w = torch.randint(0, 2, (lanes, nw), generator=gen, device=dev, dtype=torch.int8) * 2 - 1
     require(s_w.numel() > 2**31, "launch_edges: the wide operand is not past 2^31 elements")
-    plan = autotune.coupling_plan(1, lanes, nw, nw)
+    plan = autotune.coupling_route("coupling_sum", 1, lanes, nw, nw)
     held(f"coupling_sum_n{nw}", lambda: ops.coupling_sum(w_w, s_w),
          lambda lo, hi: plain.coupling_sum_ref(w_w, s_w[lo:hi]), plan, windows,
          len(plan.launches))
@@ -3436,7 +3490,9 @@ def launch_edge_lines(dev, seed, rows) -> dict:
 
 
 def plan_grids(plan) -> list:
-    """Each launch's grid of a coupling-GEMM plan."""
+    """Each launch's grid of a coupling-GEMM plan (either regime)."""
+    if plan.regime == "wgmma":
+        return [plan.grid]
     gx = -(-plan.m // plan.tile.bn)
     return [(gx, -(-nb // plan.tile.bm), ni) for _, ni, _, nb in plan.launches]
 
@@ -3492,7 +3548,8 @@ def main() -> None:
             ptxas.wait()
         shutil.rmtree(ptxas_dir, ignore_errors=True)
     require(ptxas.returncode == 0, f"nvcc -Xptxas -v failed for phase_step_multi.cu:\n{log}")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": list(build.SOURCES)})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": list(build.SOURCES),
+          "seconds_by_source": dict(build.BUILD_SECONDS)})
     emit({"phase": "ptxas", "source": ROWS["phase_step_multi"][0],
           "kernels": ptxas_report(log)})
 
@@ -3683,6 +3740,69 @@ def main() -> None:
     )
     rows["onn_step"]["tie_lanes"] = 64
 
+    # Kernels 1 and 2 in the wgmma regime (``autotune.coupling_route`` at
+    # large shapes), exact at WGMMA_SHAPES (kernel 2 with ties forced in 64
+    # lanes), each beside torch._int_mm on operands padded to 16 (K) and 8
+    # (M); the row's numbers are kernel 1's at the first shape.
+    g_w = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    per_mode = {"coupling_sum": {}, "onn_step": {}}
+    for wb, wm, wk in WGMMA_SHAPES:
+        w_w = torch.randint(-15, 16, (wm, wk), generator=g_w, device=dev, dtype=torch.int8)
+        s_w = torch.randint(0, 2, (wb, wk), generator=g_w, device=dev, dtype=torch.int8) * 2 - 1
+        s_w[:64] = s_w[0]
+        h_w = -plain.coupling_sum_ref(w_w, s_w[:1])[0]
+        kp, mp = -(-wk // 16) * 16, -(-wm // 8) * 8
+        s_p = torch.nn.functional.pad(s_w, (0, kp - wk))
+        w_p = torch.nn.functional.pad(w_w, (0, kp - wk, 0, mp - wm))
+        want_sum = plain.coupling_sum_ref(w_w, s_w)
+        require(torch.equal(torch._int_mm(s_p, w_p.t())[:, :wm], want_sum),
+                "torch._int_mm disagrees at the wgmma shapes")
+        lib_w_ms = cuda_ms(lambda: torch._int_mm(s_p, w_p.t()))
+        label = "x".join(map(str, (wb, wm, wk)))
+        for mode in per_mode:
+            plan = autotune.coupling_route(mode, 1, wb, wm, wk)
+            require(plan.regime == "wgmma", f"{mode} at {label}: routed to {plan.regime}")
+            if mode == "coupling_sum":
+                fn = lambda: ops.coupling_sum(w_w, s_w)  # noqa: E731
+                want, n_bytes = want_sum, wb * wk + wm * wk + 4 * wb * wm
+                plain_w_ms = cuda_ms(lambda: plain.coupling_sum_ref(w_w, s_w), iters=3, warmup=1)
+            else:
+                fn = lambda: ops.onn_step(w_w, s_w, h_w)  # noqa: E731
+                want, n_bytes = plain.onn_step_ref(w_w, s_w, h_w), wb * wk + wm * wk + 4 * wm + wb * wm
+                require(torch.equal(want[:64], s_w[:64]), "onn_step: forced ties did not keep σ")
+                plain_w_ms = cuda_ms(lambda: plain.onn_step_ref(w_w, s_w, h_w), iters=3, warmup=1)
+            ops.reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+            require(dict(ops.REGIME_LAUNCHES) == {f"{mode}/wgmma": 1},
+                    f"{mode} at {label}: launches {dict(ops.REGIME_LAUNCHES)}")
+            err = max_abs_err(got, want)
+            require(err == 0, f"{mode} at {label}: wgmma regime disagrees with its plain "
+                              f"version (max_abs_err {err})")
+            b_ms, b_by = bound(n_bytes, 2 * wb * wm * wk)
+            per_mode[mode][label] = {
+                "shape": [wb, wm, wk], "max_abs_err": err, "exact": True,
+                "kernel_ms": device_ms(fn, f"{mode}/wgmma"), "wrapper_ms": cuda_ms(fn),
+                "plain_ms": plain_w_ms, "library_ms": lib_w_ms,
+                "library_call": "torch._int_mm (padded)", "bound_ms": b_ms, "bound_by": b_by,
+                "plan": wgmma_plan_dict(plan)}
+            if mode == "onn_step":
+                per_mode[mode][label]["tie_lanes"] = 64
+            del got, want
+        del w_w, s_w, s_p, w_p, want_sum
+    torch.cuda.empty_cache()
+    first = per_mode["coupling_sum"]["x".join(map(str, WGMMA_SHAPES[0]))]
+    rows["coupling_wgmma"] = {
+        "name": "coupling_wgmma", "route": "cuda", "source": ROWS["coupling_wgmma"][0],
+        "replaces": ROWS["coupling_wgmma"][1], "replaces_step": f"{TPU_KERNELS}:161",
+        "launches": 0, "exact": True, "max_abs_err": 0,
+        "ms": first["wrapper_ms"] if first["kernel_ms"] is None else first["kernel_ms"],
+        "ms_of": "wrapper" if first["kernel_ms"] is None else "kernel",
+        **{k: first[k] for k in ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "plan")},
+        "per_mode": per_mode,
+    }
+
     # Kernel 8 at two shapes: per-row quantized Hebbian weights at the main
     # path's (1024, 506, 506), and random int8 weights at the GEMV shape.
     # Each element within K · 2⁻²⁴ · |scale_m| · Σ|x w| of the exact value;
@@ -3790,11 +3910,13 @@ def main() -> None:
 
     # 4. main path: retrieval through the solver, pack off and on ------------------
     w_np, targets, probes = make_problem(args.seed)
-    launches = {k: 0 for k in ops.KERNELS}
+    launches = {k: 0 for k in (*ops.KERNELS, "coupling_wgmma")}
 
     def drive(solve):
         """One cold call of ``solve`` with the launch counts set to 0 just
-        before and read just after; returns (result, seconds, launches)."""
+        before and read just after; returns (result, seconds, launches).
+        The wgmma regime's launches (kernels 1 and 2, also counted under
+        their kernel) add up under ``coupling_wgmma``."""
         ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3804,7 +3926,14 @@ def main() -> None:
         path = dict(ops.LAUNCHES)
         for k, v in path.items():
             launches[k] += v
+        launches["coupling_wgmma"] += sum(
+            v for k, v in ops.REGIME_LAUNCHES.items() if k.endswith("/wgmma"))
         return res, seconds, path
+
+    def with_wgmma(phase_launches: dict, before: int) -> dict:
+        """A phase's launches by kernel, with the wgmma regime's launches
+        that its drives added since ``before``."""
+        return {**phase_launches, "coupling_wgmma": launches["coupling_wgmma"] - before}
 
     results = {}
     for pack in (False, True):
@@ -4329,23 +4458,30 @@ def main() -> None:
     mc_in = [(pos, adjs[i], 2000 + i, mc_cpu[i]) for pos, i in zip(DAEMON_MC_AT, sorted(mc_cpu))]
     mc_kw = dict(sweeps=MC_SWEEPS, replicas=MC_REPLICAS, stagnation=MC_STAGNATION,
                  settle_chunk=MC_CHUNK, backend="kernel")
-    daemon_launches = daemon_lines(dev, args.seed, cfg_k, w_np, make_hebbian(args.seed + 1), xi,
-                                   probes, results[False], spans_k, mc_in, mc_kw, drive)
+    w0 = launches["coupling_wgmma"]
+    daemon_launches = with_wgmma(daemon_lines(
+        dev, args.seed, cfg_k, w_np, make_hebbian(args.seed + 1), xi, probes, results[False],
+        spans_k, mc_in, mc_kw, drive), w0)
 
     # 13. the ONN launchers, the energy model and the quickstart example --------------
-    launcher_launches = launcher_lines(dev, args.seed, w_np, results[False], drive)
+    w0 = launches["coupling_wgmma"]
+    launcher_launches = with_wgmma(launcher_lines(dev, args.seed, w_np, results[False], drive),
+                                   w0)
 
     # 14. the row-sharded path on meshes that repeat the card ---------------------------
-    sharded_launches = sharded_lines(dev, args.seed, w_np, xi, probes, results[False],
-                                     rtl["recurrent"], graphs, maxcut["kernel"], mc_kw, spans_k,
-                                     mc_in, drive)
+    w0 = launches["coupling_wgmma"]
+    sharded_launches = with_wgmma(sharded_lines(
+        dev, args.seed, w_np, xi, probes, results[False], rtl["recurrent"], graphs,
+        maxcut["kernel"], mc_kw, spans_k, mc_in, drive), w0)
 
     # 15. the LM serving path: dense, MoE and VLM at full width; phase 19's
     # tracegate processes start beside its enc-dec CPU check, while the card idles
     tracegate_dir = tempfile.mkdtemp(prefix="tracegate_")
     tracegate_procs = []
     try:
-        lm_launches = lm_lines(dev, args.seed, drive, tracegate_dir, tracegate_procs)
+        w0 = launches["coupling_wgmma"]
+        lm_launches = with_wgmma(lm_lines(dev, args.seed, drive, tracegate_dir,
+                                          tracegate_procs), w0)
 
         # 16. LM training: qwen2-1.5b at full width, card against CPU, resume ---------
         # 17. the LM dry run on the meta device, beside phase 16's step: its CLI cells
@@ -4353,18 +4489,25 @@ def main() -> None:
         dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
         dryrun_procs = start_dryrun_cli(dryrun_dir)
         try:
+            w0 = launches["coupling_wgmma"]
             train_launches, full_step = train_lines(dev, args.seed, drive)
-            dryrun_launches = dryrun_lines(dev, args.seed, drive, full_step, dryrun_procs,
-                                           dryrun_dir)
+            train_launches = with_wgmma(train_launches, w0)
+            w0 = launches["coupling_wgmma"]
+            dryrun_launches = with_wgmma(dryrun_lines(dev, args.seed, drive, full_step,
+                                                      dryrun_procs, dryrun_dir), w0)
         finally:
             stop_processes(dryrun_procs)
             shutil.rmtree(dryrun_dir, ignore_errors=True)
         del full_step
 
         # 18. the ONN dry run: counts, one device's share on the card, composed sweeps -
+        w0 = launches["coupling_wgmma"]
         onn_launches, onn_shapes = dryrun_onn_lines(dev, args.seed, drive)
+        onn_launches = with_wgmma(onn_launches, w0)
         for name in ("coupling_sum", "onn_step"):
             rows[name]["dryrun_onn_shapes"] = [s for s in onn_shapes if s["kernel"] == name]
+        rows["coupling_wgmma"]["dryrun_onn_shapes"] = [
+            s for s in onn_shapes if s["plan"]["regime"] == "wgmma"]
 
         # 19. the tooling: the launch plans' budget, the compiled kernels, the gate ----
         require(len(tracegate_procs) == 2, "analysis: the tracegate processes never started")
@@ -4390,7 +4533,8 @@ def main() -> None:
         require(row["launches"] > 0, f"{name} was never launched on the main path")
         require(row["launches_train"] == 0, f"{name} launched on the LM training path")
         require(row["launches_dryrun"] == 0, f"{name} launched in the dry run")
-        require((row["launches_dryrun_onn"] > 0) == (name in ("coupling_sum", "onn_step")),
+        require((row["launches_dryrun_onn"] > 0) == (name in ("coupling_sum", "onn_step",
+                                                              "coupling_wgmma")),
                 f"{name}: {row['launches_dryrun_onn']} launches in the ONN dry run")
     require(rows["phase_step_multi"]["launches_tracegate"] > 0,
             "phase_step_multi was never launched by the tracegate's retrieve workload")

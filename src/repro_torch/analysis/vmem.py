@@ -9,8 +9,11 @@ layers.
 
 * **Static** (:func:`check_all`, no device, milliseconds).  For every bucket
   of :func:`~repro_torch.kernels.autotune.iter_buckets` it resolves the plans
-  that the wrappers would make (``step``: ``coupling_plan(inst, b, n, n)``
-  for inst 1, 16 and 32; ``hybrid``: P = 1, 32, 64 and N; ``matvec``:
+  that the wrappers would make (``step``: for one W the plan that
+  ``coupling_route`` gives each entry of :data:`STEP_MODES`, entries that
+  share a plan together, so kernels 1 and 2 take the wgmma regime's
+  ``WgmmaPlan`` at large shapes; ``coupling_plan(inst, b, n, n)`` for the
+  instance axis; ``hybrid``: P = 1, 32, 64 and N; ``matvec``:
   ``qmv_plan(b, n, n)``; ``multi``: ``multi_plan(b, n)``) through the
   planners' ``__wrapped__``, so that it neither fills nor counts in the
   caches that ``autotune.cache_info()`` reports.  Each plan is held to:
@@ -20,8 +23,9 @@ layers.
     232,448 B with the opt-in (``autotune.SMEM_PER_BLOCK``), 49,152 B for
     kernel 8, which opts in to nothing;
   - the residency the planner assumes (two ``wide`` blocks of the coupling
-    GEMM and two GEMV blocks of kernel 8 an SM, one block otherwise) in an
-    SM's 233,472 B, each block with 1 KB reserved;
+    GEMM and two GEMV blocks of kernel 8 an SM, one block otherwise, the
+    wgmma regime's persistent block included) in an SM's 233,472 B, each
+    block with 1 KB reserved;
   - the grid's y and z against 65,535 (the coupling GEMM's y is its lane
     tiles and z its instances, kernel 8's GEMM's z its lane tiles): the
     planners cut a plan past that into several launches
@@ -46,8 +50,10 @@ layers.
   against the launch's block size and the compiled most threads a block, and
   its
   residency (for kernel 5's cluster regime, ``ops.multi_cluster_occupancy``
-  ≥ 1 for every cluster plan).  Local bytes (spills) are reported.  A miss
-  of a constant is a fault (:attr:`CompiledReport.constants_ok`); a miss of a
+  ≥ 1 for every cluster plan).  Local bytes (spills) are reported, and the
+  wgmma regime (``ops.wgmma_attributes``) may have none: its consumers keep
+  128 accumulators a thread in registers.  A miss of a constant or a spill
+  there is a fault (:attr:`CompiledReport.constants_ok`); a miss of a
   residency is reported with the occupancy measured.
 
 ``python -m repro_torch.analysis --vmem`` runs both layers (static only with
@@ -183,6 +189,16 @@ def _coupling(plan: autotune.CouplingPlan) -> PlanReport:
     )
 
 
+def _wgmma(plan: autotune.WgmmaPlan) -> PlanReport:
+    return PlanReport(
+        kernel=f"coupling_wgmma/{plan.mode}",
+        plan=f"splits={plan.splits} k_chunk={plan.k_chunk} units={plan.units} "
+             f"launches={len(plan.launches)}",
+        smem=plan.smem_bytes, static=0, limit=autotune.SMEM_PER_BLOCK,
+        threads=plan.threads, blocks_per_sm=1, grid=plan.grid,
+    )
+
+
 def _multi(plan: autotune.MultiPlan) -> PlanReport:
     if plan.regime == "cluster":
         return PlanReport(
@@ -214,9 +230,13 @@ def bucket_plans(kind: str, n: int, batch: int) -> Iterator[Tuple[object, Tuple[
     """The plans the wrappers make for one bucket, uncached, each with the
     coupling GEMM entries that launch it (empty for kernels 5 and 8)."""
     if kind == "step":
-        for inst in STEP_INSTANCES:
-            plan = autotune.coupling_plan.__wrapped__(inst, batch, n, n)
-            yield plan, STEP_MODES if inst == 1 else ("coupling_sum",)
+        by_plan: Dict[object, List[str]] = {}
+        for mode in STEP_MODES:
+            plan = autotune.coupling_route(mode, 1, batch, n, n, cached=False)
+            by_plan.setdefault(plan, []).append(mode)
+        yield from ((plan, tuple(modes)) for plan, modes in by_plan.items())
+        for inst in STEP_INSTANCES[1:]:
+            yield autotune.coupling_plan.__wrapped__(inst, batch, n, n), ("coupling_sum",)
     elif kind == "hybrid":
         for p in (*HYBRID_WIDTHS, n):
             yield autotune.coupling_plan.__wrapped__(1, batch, n, n, p), HYBRID_MODES
@@ -231,6 +251,8 @@ def bucket_plans(kind: str, n: int, batch: int) -> Iterator[Tuple[object, Tuple[
 def plan_report(plan: object) -> PlanReport:
     if isinstance(plan, autotune.CouplingPlan):
         return _coupling(plan)
+    if isinstance(plan, autotune.WgmmaPlan):
+        return _wgmma(plan)
     if isinstance(plan, autotune.MultiPlan):
         return _multi(plan)
     return _qmv(plan)
@@ -313,9 +335,15 @@ class CompiledReport:
         return self.threads_match and self.max_threads >= self.threads
 
     @property
+    def spills_ok(self) -> bool:
+        """No local memory where the design allows none (the wgmma regime)."""
+        return self.local_bytes == 0 or not self.kernel.startswith("coupling_wgmma")
+
+    @property
     def constants_ok(self) -> bool:
-        """The static shared memory and the threads a planner relies on."""
-        return self.static_ok and self.threads_ok
+        """The static shared memory and the threads a planner relies on, and
+        no spill where none is allowed."""
+        return self.static_ok and self.threads_ok and self.spills_ok
 
     @property
     def residency_ok(self) -> bool:
@@ -329,8 +357,8 @@ class CompiledReport:
 
     def as_dict(self) -> dict:
         return {**dataclasses.asdict(self), "threads_ok": self.threads_ok,
-                "constants_ok": self.constants_ok, "residency_ok": self.residency_ok,
-                "ok": self.ok}
+                "spills_ok": self.spills_ok, "constants_ok": self.constants_ok,
+                "residency_ok": self.residency_ok, "ok": self.ok}
 
     def render(self) -> str:
         res = (f"clusters>={self.clusters}" if self.clusters is not None
@@ -348,6 +376,9 @@ def _instantiations(plan: object, modes: Tuple[str, ...]) -> Iterator[Tuple[str,
     if isinstance(plan, autotune.CouplingPlan):
         for mode in modes:
             yield f"coupling_gemm<{mode},{plan.tile.name}>", ("gemm", plan, mode)
+    elif isinstance(plan, autotune.WgmmaPlan):
+        for mode in modes:
+            yield f"coupling_wgmma<{mode}>", ("wgmma", plan, mode)
     elif isinstance(plan, autotune.MultiPlan):
         size = "L" if plan.regime == "cluster" else "BB"
         for packed in (False, True):
@@ -365,6 +396,8 @@ def _launch_config(query: tuple) -> tuple:
     kind, plan, _ = query
     if kind == "gemm":
         return (plan.tile.index,)
+    if kind == "wgmma":
+        return plan.args[:3]
     if kind == "multi":
         return plan.args
     return (plan.smem_bytes,)
@@ -410,6 +443,8 @@ def check_compiled(device=None) -> List[CompiledReport]:
             for kind, plan, arg in queries[name].values():
                 if kind == "gemm":
                     attrs.append(ops.coupling_attributes(plan, arg))
+                elif kind == "wgmma":
+                    attrs.append(ops.wgmma_attributes(plan, arg))
                 elif kind == "multi":
                     attrs.append(ops.multi_attributes(plan, arg))
                     if plan.regime == "cluster":

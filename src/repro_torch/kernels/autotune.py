@@ -7,8 +7,10 @@ carries over.  On an H100 the limits that matter are:
 * shared memory a block can use: 232,448 bytes (227 KB), above 48 KB only as
   dynamic shared memory after an opt-in;
 * 132 streaming multiprocessors, which the grid should fill;
-* the int8 tensor cores take a k32 step per ``mma.sync`` (kernels 1-7;
-  kernel 5's stream regime loads the contraction in 16-byte vectors).
+* the int8 tensor cores take a k32 step per ``mma.sync`` (kernels 1-7 at
+  the main path's shapes; kernel 5's stream regime loads the contraction in
+  16-byte vectors), and reach their full rate only through ``wgmma`` on
+  tiles in shared memory (kernels 1 and 2 at large shapes).
 
 **Kernels 1, 2, 3, 4, 6 and 7** (``csrc/coupling_gemm.cu``) run one body on
 ``mma.sync.m16n8k32`` s8 → s32, and :func:`coupling_plan` picks its launch
@@ -54,6 +56,39 @@ per shape: a tile of :data:`GEMM_TILES`, the grid, and the K walk's unit.
   instance (kernel 8's GEMM likewise past 65,535 × 128 lanes on z,
   :attr:`QmvPlan.launches`).  Below the edge a plan is one launch, its grid
   as before.
+
+**Kernels 1 and 2 at large shapes** (``csrc/coupling_wgmma.cu``).
+:func:`coupling_route` sends a launch of kernel 1 (one W, no MAC width) or
+kernel 2 to :func:`wgmma_plan` when the work is large: B · M · K at least
+:data:`WGMMA_MIN_WORK` (2³⁴) and the wide tile's grid at least
+:data:`NUM_SMS` blocks; every other launch, the main path's included, keeps
+:func:`coupling_plan`.  On an H100 the regime already wins well below the
+threshold (``coupling_gemm_breakdown.py``: 0.026 against the wide tile's
+0.366 ms at (1024, 4096, 4096), 0.018 against 0.097 at (1024, 2048,
+2048)); 2³⁴ is the least power of two above the work of the grid-edge
+launches that keep the wide tile's runs past 65,535 lane tiles
+(4,194,341 lanes at N = 48, 9.7e9).
+
+* **Tile.** 128 lanes × 256 output rows a block (``WGMMA_BM`` ×
+  ``WGMMA_BN``): two consumer warpgroups of 64 lanes on
+  ``wgmma.m64n256k32`` s8 → s32, one producer warp issuing TMA loads of
+  128-byte K-steps (one 128-byte swizzle row) into a ring of
+  :data:`WGMMA_STAGES` stages; :data:`WGMMA_SMEM` bytes of dynamic shared
+  memory, one block an SM.
+* **Walk.** A persistent grid of at most :data:`NUM_SMS` blocks over work
+  units (one output tile and one K slice each), block x taking units x,
+  x + grid, ...  Consecutive units share an operand panel: the lane tiles
+  of one W panel where W is at least as large as σ (``lanes_fastest``),
+  else the row tiles of one σ panel.
+* **Split-K** (kernel 1 only): where the output has at most
+  ``NUM_SMS // 2`` tiles, K is cut into ``NUM_SMS // tiles`` slices of whole
+  K-steps, each unit's partial sums added into the zeroed output with
+  int32 atomics.  Kernel 2 never splits (its sign needs the whole sum).
+* **Rows.** TMA reads 16-byte aligned bases and row pitches; where N is not
+  a multiple of 16 (or an operand's base is off 16 bytes) the wrapper
+  copies the operand into rows of :func:`tma_pitch` bytes (N = 506: 512),
+  and TMA fills every column past N with zeros.  One launch whatever B:
+  the grid is the persistent one.
 
 **Kernel 5** (``csrc/phase_step_multi.cu``) runs a whole settle-chunk in
 one launch, in one of two regimes that :func:`multi_plan` picks by shape:
@@ -541,6 +576,11 @@ class CouplingPlan:
         return self.tile.stages
 
     @property
+    def regime(self) -> str:
+        """The tile's name, the regime ``ops.REGIME_LAUNCHES`` counts it under."""
+        return self.tile.name
+
+    @property
     def threads(self) -> int:
         return self.tile.threads
 
@@ -572,6 +612,161 @@ def coupling_plan(inst: int, b: int, m: int, n: int, parallel: int | None = None
             tile = t
             break
     return CouplingPlan(inst, b, m, n, p, tile, gemm_walk_span(p, n))
+
+
+#: Kernels 1 and 2's Hopper regime (``csrc/coupling_wgmma.cu``): lanes and
+#: output rows a tile, K bytes a stage, stages in the ring, threads (two
+#: consumer warpgroups and the producer's), the epilogue's slab of one
+#: consumer warp (16 rows × 32 int32), dynamic shared memory (the ring, the
+#: eight consumer warps' slabs, 1 KB to align the ring to the swizzle's
+#: period, the full and empty barriers: 214,080 bytes).
+WGMMA_BM, WGMMA_BN, WGMMA_BK, WGMMA_STAGES = 128, 256, 128, 4
+WGMMA_THREADS = 384
+WGMMA_SLAB = 16 * 32 * 4
+WGMMA_SMEM = (WGMMA_STAGES * (WGMMA_BM + WGMMA_BN) * WGMMA_BK + 8 * WGMMA_SLAB + 1024
+              + 2 * WGMMA_STAGES * 8)
+#: The entries that may take it (``ops.GEMM_MODES``' keys), and the least
+#: work, B · M · K, routed to it.
+WGMMA_MODES = ("coupling_sum", "onn_step")
+WGMMA_MIN_WORK = 2**34
+#: TMA's alignment of an operand's base and row pitch, in bytes.
+TMA_ALIGN = 16
+
+
+def tma_pitch(n: int) -> int:
+    """Bytes of a row as the wgmma regime reads it: N rounded up to 16."""
+    return _cdiv(n, TMA_ALIGN) * TMA_ALIGN
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """The launch of kernel 1 (``mode`` ``"coupling_sum"``) or kernel 2
+    (``"onn_step"``) in the wgmma regime: σ (b, n) · W (m, n)ᵀ, K cut into
+    ``splits`` slices of ``k_chunk`` K-steps, a persistent grid of
+    ``grid_blocks`` blocks walking the units with lane tiles fastest
+    (``lanes_fastest``) or row tiles fastest."""
+
+    mode: str
+    b: int
+    m: int
+    n: int
+    k_chunk: int
+    splits: int
+    grid_blocks: int
+    lanes_fastest: bool
+
+    inst = 1
+    regime = "wgmma"
+
+    @property
+    def lane_tiles(self) -> int:
+        return _cdiv(self.b, WGMMA_BM)
+
+    @property
+    def row_tiles(self) -> int:
+        return _cdiv(self.m, WGMMA_BN)
+
+    @property
+    def tiles(self) -> int:
+        return self.lane_tiles * self.row_tiles
+
+    @property
+    def k_steps(self) -> int:
+        return _cdiv(self.n, WGMMA_BK)
+
+    @property
+    def units(self) -> int:
+        """Work units: one output tile and one K slice each."""
+        return self.tiles * self.splits
+
+    @property
+    def k_pitch(self) -> int:
+        """Row bytes of the operands as the kernel reads them."""
+        return tma_pitch(self.n)
+
+    @property
+    def padded(self) -> bool:
+        """Whether the wrapper copies the operands into rows of :attr:`k_pitch`."""
+        return self.k_pitch != self.n
+
+    def unit(self, u: int) -> Tuple[int, int, int, int]:
+        """Unit ``u``'s (lane tile, row tile, first K-step, K-steps), as the
+        kernel's ``Walk::unit`` decodes it."""
+        s, t = divmod(u, self.tiles)
+        if self.lanes_fastest:
+            rt, lt = divmod(t, self.lane_tiles)
+        else:
+            lt, rt = divmod(t, self.row_tiles)
+        k0 = s * self.k_chunk
+        return lt, rt, k0, min(self.k_chunk, self.k_steps - k0)
+
+    @property
+    def launches(self) -> Tuple[Tuple[int, int, int, int], ...]:
+        """(first instance, instances, first lane, lanes): one launch."""
+        return ((0, 1, 0, self.b),)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.grid_blocks, 1, 1)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_blocks
+
+    @property
+    def stages(self) -> int:
+        return WGMMA_STAGES
+
+    @property
+    def threads(self) -> int:
+        return WGMMA_THREADS
+
+    @property
+    def smem_bytes(self) -> int:
+        return WGMMA_SMEM
+
+    @property
+    def args(self) -> Tuple[int, int, int, int, int, int, int]:
+        """The kernel's last arguments: tile lanes and rows, stages, K-steps
+        a slice, slices, grid, walk order."""
+        return (WGMMA_BM, WGMMA_BN, WGMMA_STAGES, self.k_chunk, self.splits, self.grid_blocks,
+                int(self.lanes_fastest))
+
+
+@functools.lru_cache(maxsize=256)
+def wgmma_plan(mode: str, b: int, m: int, n: int) -> WgmmaPlan:
+    """Kernel 1's or kernel 2's launch in the wgmma regime for σ (b, n) ·
+    W (m, n)ᵀ, by shape alone (the rule in the module docstring)."""
+    if mode not in WGMMA_MODES:
+        raise ValueError(f"wgmma regime: mode {mode!r} not one of {WGMMA_MODES}")
+    if min(b, m, n) < 1 or (mode == "onn_step" and m != n):
+        raise ValueError(f"wgmma regime: bad shape {mode} (B={b}, M={m}, N={n})")
+    k_steps = _cdiv(n, WGMMA_BK)
+    tiles = _cdiv(b, WGMMA_BM) * _cdiv(m, WGMMA_BN)
+    splits = 1
+    if mode == "coupling_sum" and 2 * tiles <= NUM_SMS:
+        splits = min(k_steps, NUM_SMS // tiles)
+    k_chunk = _cdiv(k_steps, splits)
+    splits = _cdiv(k_steps, k_chunk)
+    return WgmmaPlan(mode, b, m, n, k_chunk, splits, min(tiles * splits, NUM_SMS), m >= b)
+
+
+def coupling_route(mode: str, inst: int, b: int, m: int, n: int, parallel: int | None = None,
+                   *, cached: bool = True):
+    """The coupling GEMM's launch for the entry ``mode`` (a key of
+    ``ops.GEMM_MODES``) on ``inst`` × σ (b, n) · W (m, n)ᵀ at MAC width
+    ``parallel``: :func:`wgmma_plan` for kernel 1 (``"coupling_sum"``, one
+    W, ``parallel`` None) and kernel 2 (``"onn_step"``) where
+    B · M · N ≥ :data:`WGMMA_MIN_WORK` and the wide tile's grid has at least
+    :data:`NUM_SMS` blocks; else :func:`coupling_plan`.  The rule depends on
+    the shape alone, never on the grid's edge, so a launch past 65,535 lane
+    tiles below the work threshold keeps the wide tile's runs.  ``cached``
+    False plans through the planners' ``__wrapped__`` (``analysis/vmem.py``)."""
+    wide = GEMM_TILES[0]
+    if (inst == 1 and parallel is None and mode in WGMMA_MODES and b * m * n >= WGMMA_MIN_WORK
+            and _cdiv(b, wide.bm) * _cdiv(m, wide.bn) >= NUM_SMS):
+        return (wgmma_plan if cached else wgmma_plan.__wrapped__)(mode, b, m, n)
+    return (coupling_plan if cached else coupling_plan.__wrapped__)(inst, b, m, n, parallel)
 
 
 #: The bucket grid, under the names of ``repro.kernels.autotune``: the kinds
@@ -618,8 +813,9 @@ def iter_buckets(kinds: Tuple[str, ...] = KINDS) -> Iterator[Tuple[str, int, int
 def cache_info() -> Dict[str, int]:
     """The launch planners' cache summary for ``stats()`` surfaces, under the
     keys of ``repro.kernels.autotune.cache_info``: the plans held and the
-    hits and misses, summed over :func:`multi_plan` and :func:`coupling_plan`."""
-    infos = (multi_plan.cache_info(), coupling_plan.cache_info())
+    hits and misses, summed over :func:`multi_plan`, :func:`coupling_plan`
+    and :func:`wgmma_plan`."""
+    infos = (multi_plan.cache_info(), coupling_plan.cache_info(), wgmma_plan.cache_info())
     return {
         "entries": sum(i.currsize for i in infos),
         "hits": sum(i.hits for i in infos),

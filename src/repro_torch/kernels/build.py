@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: Source stem → the C entry points it exports, with their ctypes signatures.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, List]] = {
     "coupling_gemm": {
         # ... (operands, extents), then the launch plan's tile, bm, bn, span
@@ -39,6 +40,17 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "onn_phase_step_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         # mode, then the plan's tile, bm, bn, span; out: six ints (ops.ATTRIBUTES).
         "onn_coupling_gemm_attributes": [_I, _I, _I, _I, _I, _P],
+    },
+    "coupling_wgmma": {
+        # mode, sigma, its row pitch, w, its row pitch, bias, out, B, M, K,
+        # then the plan's bm, bn, stages, K-steps a slice, slices, grid and
+        # walk order (autotune.WgmmaPlan.args), then the stream.
+        "onn_coupling_wgmma": [_I, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
+        # src, rows, n, dst, pitch, then the stream: the operand row copy.
+        "onn_tma_rows": [_P, _L, _I, _P, _I, _P],
+        # mode, then the plan's bm, bn, stages; out: six ints (ops.ATTRIBUTES).
+        "onn_coupling_wgmma_attributes": [_I, _I, _I, _I, _P],
     },
     "phase_step_multi": {
         # ... (operands, extents, packed), then the launch plan's regime,
@@ -67,6 +79,9 @@ NVCC_FLAGS = [
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: Seconds from the start of :func:`build_all`'s builds to the end of each
+#: source's ``nvcc``, for the sources this process built.
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -93,6 +108,7 @@ def build_all(stems: Iterable[str] = tuple(SOURCES)) -> None:
     library under the final name.
     """
     jobs = []
+    t0 = time.perf_counter()
     for stem in stems:
         out = _lib_path(stem)
         if out.exists():
@@ -105,9 +121,20 @@ def build_all(stems: Iterable[str] = tuple(SOURCES)) -> None:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         jobs.append((stem, proc, tmp, out))
+    logs: Dict[str, str] = {}
+
+    def drain(stem: str, proc: subprocess.Popen) -> None:
+        logs[stem] = proc.communicate()[0]
+        BUILD_SECONDS[stem] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=drain, args=(stem, proc)) for stem, proc, _, _ in jobs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     errors = []
     for stem, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
+        log = logs[stem]
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {stem}.cu:\n{log}")

@@ -9,7 +9,8 @@ Each wrapper keeps the padding and dtype contract of its counterpart in
   A build or launch failure raises; there is no fallback.
 
 Every launch adds one to :data:`LAUNCHES` under the kernel's name, so a run
-can show which kernels its path went through.
+can show which kernels its path went through; a launch of the coupling GEMM
+also adds one to :data:`REGIME_LAUNCHES` under its regime.
 """
 
 from __future__ import annotations
@@ -38,9 +39,17 @@ KERNELS = (
 )
 
 
+#: Launches of the coupling GEMM (kernels 1-4, 6, 7) by regime, keyed
+#: ``"<kernel>/<regime>"``: a tile of ``csrc/coupling_gemm.cu`` (``wide``,
+#: ``split``) or ``wgmma`` (``csrc/coupling_wgmma.cu``); each also counts in
+#: :data:`LAUNCHES` under its kernel.
+REGIME_LAUNCHES: collections.Counter = collections.Counter()
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
     LAUNCHES.clear()
+    REGIME_LAUNCHES.clear()
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -80,6 +89,41 @@ def _gemm(name: str, entry: str, plan: autotune.CouplingPlan, device: torch.devi
     for i0, ni, b0, nb in plan.launches:
         _launch("coupling_gemm", entry, device, *args(i0, ni, b0, nb), *plan.args)
         LAUNCHES[name] += 1
+        REGIME_LAUNCHES[f"{name}/{plan.regime}"] += 1
+
+
+def _tma_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (rows, n) int8, contiguous, as TMA reads it: itself where its
+    base and row pitch are 16-byte aligned, else a copy zero-padded into
+    fresh rows of ``autotune.tma_pitch(n)`` bytes (N = 506: 512), on the
+    card by ``coupling_wgmma.cu``'s row copy (not counted as a launch: it is
+    the wgmma regime's operand preparation)."""
+    if x.data_ptr() % autotune.TMA_ALIGN == 0 and n % autotune.TMA_ALIGN == 0:
+        return x
+    rows, pitch = x.shape[0], autotune.tma_pitch(n)
+    if x.device.type != "cuda":
+        out = torch.zeros((rows, pitch), dtype=torch.int8, device=x.device)
+        out[:, :n] = x
+        return out
+    out = torch.empty((rows, pitch), dtype=torch.int8, device=x.device)
+    _launch("coupling_wgmma", "onn_tma_rows", x.device, x.data_ptr(), rows, n, out.data_ptr(),
+            pitch)
+    return out
+
+
+def _wgmma(name: str, plan: autotune.WgmmaPlan, sigma: torch.Tensor, w8: torch.Tensor,
+           bias, out: torch.Tensor) -> None:
+    """Kernel 1 or 2 (``name``) in the wgmma regime: one launch of ``plan``
+    on σ (B, N) and W (M, N), int8 and contiguous, into ``out`` (B, M),
+    zeroed by the caller when the plan splits K."""
+    n = plan.n
+    s_t, w_t = _tma_rows(sigma, n), _tma_rows(w8, n)
+    _launch("coupling_wgmma", "onn_coupling_wgmma", sigma.device, GEMM_MODES[name],
+            s_t.data_ptr(), s_t.stride(0), w_t.data_ptr(), w_t.stride(0),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), plan.b, plan.m, n,
+            *plan.args)
+    LAUNCHES[name] += 1
+    REGIME_LAUNCHES[f"{name}/wgmma"] += 1
 
 
 def _bias(bias, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -119,11 +163,16 @@ def _coupling_sums(name: str, w: torch.Tensor, sigma: torch.Tensor, parallel) ->
         b = sig3.shape[1]
         _check_extent(inst, b, m, n)
         w8, sig3 = w3.to(torch.int8).contiguous(), sig3.contiguous()
-        out = torch.empty((inst, b, m), dtype=torch.int32, device=sig3.device)
-        _gemm(f"{name}_batched" if batched else name, "onn_coupling_sum",
-              autotune.coupling_plan(inst, b, m, n, parallel), sig3.device,
-              lambda i0, ni, b0, nb: (_at(sig3, (i0 * b + b0) * n), _at(w8, i0 * m * n),
-                                      _at(out, (i0 * b + b0) * m), ni, nb, m, n))
+        plan = autotune.coupling_route(name, inst, b, m, n, parallel)
+        if isinstance(plan, autotune.WgmmaPlan):  # kernel 1 at a large shape
+            out = (torch.zeros if plan.splits > 1 else torch.empty)(
+                (inst, b, m), dtype=torch.int32, device=sig3.device)
+            _wgmma(name, plan, sig3[0], w8[0], None, out)
+        else:
+            out = torch.empty((inst, b, m), dtype=torch.int32, device=sig3.device)
+            _gemm(f"{name}_batched" if batched else name, "onn_coupling_sum", plan, sig3.device,
+                  lambda i0, ni, b0, nb: (_at(sig3, (i0 * b + b0) * n), _at(w8, i0 * m * n),
+                                          _at(out, (i0 * b + b0) * m), ni, nb, m, n))
     return out.reshape(*lead, m)
 
 
@@ -146,7 +195,8 @@ def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
     """One fused ONN spin update: σ' = sign(W σ + h) as int8, where
     W σ + h == 0 keeps σ.  ``w`` (N, N); ``sigma`` (N,) or (..., N); ``bias``
     (N,) integers or None (zeros).  One launch per call (several past
-    65,535 lane tiles: ``autotune.CouplingPlan.launches``).
+    65,535 lane tiles: ``autotune.CouplingPlan.launches``; one in the wgmma
+    regime, ``autotune.coupling_route``).
     """
     require_int_dtype(w, "w")
     n = w.shape[0]
@@ -162,9 +212,13 @@ def onn_step(w: torch.Tensor, sigma: torch.Tensor, bias=None) -> torch.Tensor:
         _check_extent(b, n)
         w8, sig2d, h = (x.contiguous() for x in (w.to(torch.int8), sig2d, h))
         out = torch.empty((b, n), dtype=torch.int8, device=sig2d.device)
-        _gemm("onn_step", "onn_step", autotune.coupling_plan(1, b, n, n), sig2d.device,
-              lambda _i0, _ni, b0, nb: (_at(sig2d, b0 * n), w8.data_ptr(), h.data_ptr(),
-                                        _at(out, b0 * n), nb, n))
+        plan = autotune.coupling_route("onn_step", 1, b, n, n)
+        if isinstance(plan, autotune.WgmmaPlan):
+            _wgmma("onn_step", plan, sig2d, w8, h, out)
+        else:
+            _gemm("onn_step", "onn_step", plan, sig2d.device,
+                  lambda _i0, _ni, b0, nb: (_at(sig2d, b0 * n), w8.data_ptr(), h.data_ptr(),
+                                            _at(out, b0 * n), nb, n))
     return out.reshape(*batch_shape, n)
 
 
@@ -391,6 +445,14 @@ def coupling_attributes(plan: autotune.CouplingPlan, mode: str) -> dict:
     current card: :data:`ATTRIBUTES`.  Counts no launch."""
     return _attributes("coupling_gemm", "onn_coupling_gemm_attributes", GEMM_MODES[mode],
                        *plan.args)
+
+
+def wgmma_attributes(plan: autotune.WgmmaPlan, mode: str) -> dict:
+    """The compiled instantiation of the wgmma regime that a launch of
+    ``plan`` by the entry ``mode`` (``"coupling_sum"`` or ``"onn_step"``)
+    runs on the current card: :data:`ATTRIBUTES`.  Counts no launch."""
+    return _attributes("coupling_wgmma", "onn_coupling_wgmma_attributes", GEMM_MODES[mode],
+                       *plan.args[:3])
 
 
 def multi_attributes(plan: autotune.MultiPlan, packed: bool = False) -> dict:

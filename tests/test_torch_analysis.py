@@ -71,7 +71,10 @@ def test_vmem_covers_every_bucket_within_budget():
     reports = vmem.check_all()
     assert len(reports) == sum(1 for _ in autotune.iter_buckets())
     assert {r.kind for r in reports} == set(autotune.KINDS)
-    assert sum(len(r.plans) for r in reports) == 1567
+    # 1,567 plans, and the wgmma regime's plans of kernels 1 and 2 in the 12
+    # step buckets that coupling_route sends there (N = 4096, 8192, 17801 at
+    # large batches, the three edge buckets at N = 506)
+    assert sum(len(r.plans) for r in reports) == 1567 + 2 * 12
     bad = [r.render() for r in reports if not r.ok]
     assert not bad, bad
 

@@ -434,18 +434,32 @@ def test_gemm_kernels_on_offset_operands(cuda, n, mode):
 
 
 #: Each tile of ``autotune.coupling_plan`` at N = 506 (rows 2 bytes off a
-#: word) and N = 512 (rows on 16 bytes): (inst, b, n, tile).
+#: word) and N = 512 (rows on 16 bytes): (inst, b, n, tile); and the wgmma
+#: regime that ``autotune.coupling_route`` gives kernels 1 and 2 at large
+#: shapes, with rows on 16 bytes, a 16-byte K tail, and rows copied to 16
+#: bytes (N = 4100).
 GEMM_BRANCHES = [(1, 1024, 512, "wide"), (1, 1024, 506, "wide"),
                  (1, 16, 512, "split"), (1, 16, 506, "split"),
-                 (16, 64, 506, "split"), (16, 64, 512, "split")]
+                 (16, 64, 506, "split"), (16, 64, 512, "split"),
+                 (1, 1024, 8192, "wgmma"), (1, 1000, 8208, "wgmma"), (1, 2000, 4100, "wgmma")]
 
 
 @pytest.mark.parametrize("inst,b,n,tile", GEMM_BRANCHES)
 def test_gemm_kernels_at_every_plan_branch(cuda, inst, b, n, tile):
     """Each tile at both row alignments, every mode (with the instance axis,
-    kernels 1 and 6, at the Max-Cut slab width M = 32); exact."""
+    kernels 1 and 6, at the Max-Cut slab width M = 32); the wgmma regime on
+    the two entries it serves, each launched once there; exact."""
     m = 32 if inst > 1 else n
     w, bias, phase, sigma = _inputs(n, b, seed=inst + b + n, device=cuda)
+    if tile == "wgmma":
+        ops.reset_launches()
+        for mode, entry in (("sum", "coupling_sum"), ("step", "onn_step")):
+            assert autotune.coupling_route(entry, 1, b, n, n).regime == "wgmma"
+            got, want = _gemm_mode(mode, w, sigma, bias, phase)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), mode
+        assert ops.REGIME_LAUNCHES == {"coupling_sum/wgmma": 1, "onn_step/wgmma": 1}
+        return
     if inst > 1:
         g = torch.Generator(device=cuda).manual_seed(n)
         slabs = torch.randint(-15, 16, (inst, m, n), generator=g, device=cuda, dtype=torch.int8)
@@ -486,6 +500,166 @@ def test_gemm_refuses_a_plan_it_cannot_run(cuda):
     assert lib.onn_phase_step_packed(packed.data_ptr(), w.data_ptr(), bias.data_ptr(),
                                      out.data_ptr(), b, n, HALF, idx, bm, bn, 33, stream) != 0
     assert lib.onn_coupling_sum(*ptrs, *plan.args, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain.coupling_sum_ref(w, sigma))
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 2 in the wgmma regime (csrc/coupling_wgmma.cu)
+# ---------------------------------------------------------------------------
+
+
+def _wgmma_inputs(b, m, k, device):
+    """Seeded 5-bit W (m, k) and spins (b, k); for kernel 2 (m == k) the
+    first 8 lanes repeat lane 0 and h = −(σ₀ Wᵀ), so every element of those
+    lanes is a tie (S + h == 0 keeps σ)."""
+    g = torch.Generator(device=device).manual_seed(b + m + k)
+    w = torch.randint(-15, 16, (m, k), generator=g, device=device, dtype=torch.int8)
+    sigma = torch.randint(0, 2, (b, k), generator=g, device=device, dtype=torch.int8) * 2 - 1
+    sigma[:8] = sigma[0]
+    h = -plain.coupling_sum_ref(w, sigma[:1])[0] if m == k else None
+    return w, sigma, h
+
+
+def _wgmma_run(mode, plan, w, sigma, h):
+    """(kernel output, plain output) of one launch of ``plan`` through
+    ``ops._wgmma``."""
+    b, m = sigma.shape[0], w.shape[0]
+    if mode == "coupling_sum":
+        out = (torch.zeros if plan.splits > 1 else torch.empty)(
+            (b, m), dtype=torch.int32, device=w.device)
+        want = plain.coupling_sum_ref(w, sigma)
+    else:
+        out = torch.empty((b, m), dtype=torch.int8, device=w.device)
+        want = plain.onn_step_ref(w, sigma, h)
+        assert torch.equal(want[:8], sigma[:8])  # the forced ties keep σ
+    ops._wgmma(mode, plan, sigma.contiguous(), w.contiguous(), h, out)
+    torch.cuda.synchronize()
+    return out, want
+
+
+def _split(plan, splits):
+    """``plan`` with K cut into ``splits`` slices (as near as whole K-steps allow)."""
+    k_chunk = -(-plan.k_steps // splits)
+    splits = -(-plan.k_steps // k_chunk)
+    return dataclasses.replace(plan, k_chunk=k_chunk, splits=splits,
+                               grid_blocks=min(plan.tiles * splits, autotune.NUM_SMS))
+
+
+#: (mode, B, M, K, slices): B and M off the 128 x 256 tile, K off 128 and
+#: off 16 (rows copied to 16 bytes: 1000, 506), split-K forced on and off
+#: (None: the planner's; 8208: 16 tiles, so the planner cuts 8 slices),
+#: and operands far smaller than a TMA box (B 1 and 5, K 40 and 33).
+WGMMA_CASES = [
+    ("coupling_sum", 1, 3, 40, None), ("onn_step", 5, 33, 33, None),
+    ("coupling_sum", 300, 200, 1000, None), ("coupling_sum", 300, 200, 1000, 3),
+    ("coupling_sum", 1024, 512, 8208, None), ("coupling_sum", 1024, 512, 8208, 1),
+    ("coupling_sum", 257, 506, 506, None), ("coupling_sum", 257, 506, 506, 4),
+    ("onn_step", 257, 506, 506, None), ("onn_step", 300, 640, 640, None),
+    ("onn_step", 129, 8208, 8208, None),
+]
+
+
+@pytest.mark.parametrize("mode,b,m,k,splits", WGMMA_CASES)
+def test_wgmma_regime_matches_plain(cuda, mode, b, m, k, splits):
+    """Kernel 1 (SUM) and kernel 2 (STEP, ties forced) in the wgmma regime on
+    ragged shapes, split-K on and off; exact."""
+    w, sigma, h = _wgmma_inputs(b, m, k, cuda)
+    plan = autotune.wgmma_plan(mode, b, m, k)
+    if splits is not None:
+        plan = _split(plan, splits)
+        assert plan.splits == splits
+    ops.reset_launches()
+    got, want = _wgmma_run(mode, plan, w, sigma, h)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert ops.REGIME_LAUNCHES == {f"{mode}/wgmma": 1} and ops.LAUNCHES == {mode: 1}
+
+
+#: The shapes the route sends to the wgmma regime through the public
+#: entries: the ONN dry run's two ``onn_131072`` shares (``rowpar`` split
+#: into 8 slices) and kernel 2 at a square W with a K tail and rows copied.
+WGMMA_ROUTED = [("coupling_sum", 1024, 8192, 8192), ("coupling_sum", 1024, 512, 131072),
+                ("onn_step", 1000, 8208, 8208), ("onn_step", 2000, 4100, 4100)]
+
+
+@pytest.mark.parametrize("mode,b,m,k", WGMMA_ROUTED)
+def test_wgmma_route_at_large_shapes(cuda, mode, b, m, k):
+    """``ops.coupling_sum`` and ``ops.onn_step`` launch the wgmma regime
+    once at large shapes, counted under their kernel and the regime; exact."""
+    w, sigma, h = _wgmma_inputs(b, m, k, cuda)
+    plan = autotune.coupling_route(mode, 1, b, m, k)
+    assert plan.regime == "wgmma"
+    ops.reset_launches()
+    if mode == "coupling_sum":
+        assert plan.splits == (8 if m == 512 else 1)
+        got, want = ops.coupling_sum(w, sigma), plain.coupling_sum_ref(w, sigma)
+    else:
+        got, want = ops.onn_step(w, sigma, h), plain.onn_step_ref(w, sigma, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.REGIME_LAUNCHES == {f"{mode}/wgmma": 1} and ops.LAUNCHES == {mode: 1}
+
+
+@pytest.mark.parametrize("mode", ["coupling_sum", "onn_step"])
+def test_wgmma_on_offset_operands(cuda, mode):
+    """σ and W one element past an aligned base (rows on 16 bytes, bases
+    off): the wrapper copies them for TMA; exact."""
+    b, m, k = 333, 512, 512
+    w, sigma, h = _wgmma_inputs(b, m, k, cuda)
+    w_o, sigma_o = _offset(w), _offset(sigma)
+    assert w_o.data_ptr() % 16 and sigma_o.data_ptr() % 16
+    got, want = _wgmma_run(mode, autotune.wgmma_plan(mode, b, m, k), w_o, sigma_o, h)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 15), (257, 17), (70_000, 506), (5, 1000),
+                                    (2, 8200), (33, 512)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_wgmma_row_copy_matches_plain(cuda, rows, n, offset):
+    """The wgmma regime's copy of an operand TMA cannot read (rows of N
+    bytes into zero-padded rows of N rounded up to 16), at bases off 16
+    bytes and both ends of the source: equal to the CPU's copy."""
+    g = torch.Generator(device=cuda).manual_seed(rows + n + offset)
+    buf = torch.randint(-128, 128, (rows * n + offset,), generator=g, device=cuda,
+                        dtype=torch.int8)
+    x = buf[offset:].view(rows, n)
+    got = ops._tma_rows(x, n)
+    want = ops._tma_rows(x.cpu(), n)
+    if offset == 0 and n % 16 == 0:
+        assert got is x and want.shape == x.shape
+    assert got.data_ptr() % 16 == 0 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wgmma_refuses_a_plan_it_cannot_run(cuda):
+    """A tile or ring other than the source's, slices that leave K-steps out
+    or run empty, split-K in STEP, a mode it has not, a base or pitch TMA
+    cannot read: refused with an error, not run wrong."""
+    from repro_torch.kernels import build
+
+    b, m, k = 256, 512, 512
+    w, sigma, h = _wgmma_inputs(b, m, k, cuda)
+    out = torch.zeros((b, m), dtype=torch.int32, device=cuda)
+    fn = build.library("coupling_wgmma").onn_coupling_wgmma
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = autotune.wgmma_plan("coupling_sum", b, m, k)
+    bm, bn, stages, k_chunk, splits, grid, order = plan.args
+    assert (k_chunk, splits) == (1, 4)  # 4 tiles: one slice a K-step
+
+    def call(mode=0, s=sigma.data_ptr(), lds=k, ldw=k, args=plan.args, bias=None, kk=k):
+        return fn(mode, s, lds, w.data_ptr(), ldw, bias, out.data_ptr(), b, m, kk, *args,
+                  stream)
+
+    assert call(args=(64, bn, stages, k_chunk, splits, grid, order)) != 0
+    assert call(args=(bm, bn, 3, k_chunk, splits, grid, order)) != 0
+    assert call(args=(bm, bn, stages, 1, 1, grid, order)) != 0   # K-steps left out
+    assert call(args=(bm, bn, stages, 2, 3, grid, order)) != 0   # an empty slice
+    assert call(args=(bm, bn, stages, 0, 1, grid, order)) != 0
+    assert call(mode=3, bias=h.data_ptr(), args=(bm, bn, stages, 2, 2, grid, order)) != 0
+    assert call(mode=1) != 0
+    assert call(s=sigma.data_ptr() + 1) != 0
+    assert call(lds=k - 16) != 0 and call(ldw=k + 8) != 0
+    assert call() == 0
     torch.cuda.synchronize()
     assert torch.equal(out, plain.coupling_sum_ref(w, sigma))
 
@@ -974,7 +1148,7 @@ def test_compiled_kernels_meet_the_planners_constants(cuda):
     from repro_torch.analysis import vmem
 
     rows = vmem.check_compiled(cuda)
-    assert len(rows) == 34
+    assert len(rows) == 36
     assert all(r.constants_ok for r in rows), [r.render() for r in rows if not r.constants_ok]
 
 
